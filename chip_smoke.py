@@ -1,0 +1,423 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from src/repro_torch (nvcc, into
+build/repro_torch/), then runs, each phase failing the script on error:
+
+  1. the card's name and power limit (nvidia-smi) and the kernel build time;
+  2. B1 (noc_arbitrate) against its plain torch version, bitwise, on lane
+     states sampled from a lane-engine run on the card and on seeded random
+     states, at the paper's 256 lanes;
+  3. B2 (noc_fused_cycles) against the plain `cycle_step_lanes` stepped as
+     many times, bitwise on every LaneState field, for 1 and 500 cycles;
+     phases 2 and 3 take their inputs from sim's own per-epoch builders,
+     under a fault stream and a placement stream built here, so that every
+     link, router, MC and node-class mask is live;
+  4. engine congruence at the full grid for 6 epochs x 500 cycles: "fused"
+     (B2), "arb" (B1) and "ref" (plain dense torch) from one generator seed
+     agree bitwise on counters, applied_config, kf_signal and gpu_vc_quota
+     (kf on SHIFT_PATH_BFS, kf with the guard and joint control under those
+     fault and placement streams, 4subnet and fair on STO);
+  5. the main path: simulate(NoCConfig(mode="kf"), "SHIFT_PATH_BFS") and
+     mode="fair", 120 epochs x 500 cycles each, through B2 (exactly 120
+     launches per run), with counter invariants and summarize();
+  6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
+     max abs error against the plain version, median ms per launch, the
+     plain version's ms, the bound in ms and what bounds it.
+
+The last two lines are the nvidia-smi name/power line and
+{"ok": true, "device": {...}}.  Without a CUDA device, or without the
+package beside it, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+# published H100 SXM figures (NVIDIA H100 datasheet, Hopper whitepaper):
+# HBM bytes/s, and the int32 issue rate that bounds the kernels' integer
+# ops: 132 SMs x 64 INT32 lanes per SM per clock x 1.98 GHz boost clock
+PEAK_BYTES_S = 3.35e12
+PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
+SEED = 0
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(fn, n: int, warmup: int = 2) -> float:
+    """Median over 5 repeats of the mean ms per call of ``fn`` over ``n``
+    back-to-back calls, timed with CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        reps.append(a.elapsed_time(b) / n)
+    return statistics.median(reps)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def fault_stream(topo, n_epochs: int):
+    """A fault stream built in the port with every mask kind live: the link
+    from router 14 to its east neighbour down in even epochs, router 21
+    browned out in epochs 1-2, the first MC stalled in epochs 1-3, and the
+    telemetry NaN in epoch 4 and spiked in epoch 5."""
+    from repro_torch.core.noc.faults import TELEM_NAN, TELEM_SPIKE, healthy_stream
+    from repro_torch.core.noc.topology import OPPOSITE, PORT_E
+
+    f = healthy_stream(n_epochs, topo.n_routers)
+    r, nb = 14, int(topo.neighbor[14, PORT_E])
+    link = f.link_ok.clone()
+    link[0::2, r, PORT_E] = False
+    link[0::2, nb, int(OPPOSITE[PORT_E])] = False
+    router = f.router_ok.clone()
+    router[1:3, 21] = False
+    mc = f.mc_ok.clone()
+    mc[1:4, int(topo.mc_ids[0])] = False
+    mode = f.telem_mode.clone()
+    mode[4], mode[5] = TELEM_NAN, TELEM_SPIKE
+    mag = f.telem_mag.clone()
+    mag[5] = 0.5
+    return f._replace(link_ok=link, router_ok=router, mc_ok=mc,
+                      telem_mode=mode, telem_mag=mag)
+
+
+def placement_stream(topo, n_epochs: int):
+    """A placement stream built in the port that moves tiles whatever the
+    controller does: CPU and GPU tiles swap places in the base plan from
+    the middle epoch on, and in the boosted plan before it."""
+    import torch
+
+    from repro_torch.core.noc.placement import PlacementStream
+
+    base = torch.as_tensor(topo.node_type, dtype=torch.int32)
+    swap = torch.where(base == 2, base, 1 - base)
+    late = (torch.arange(n_epochs) >= n_epochs // 2)[:, None]
+    return PlacementStream(cls0=torch.where(late, swap, base),
+                           cls1=torch.where(late, base, swap))
+
+
+def arb_inputs(d, st, xi_c, consts):
+    """The 11 lane rows B1 takes at one cycle of a lane state."""
+    import torch
+
+    from repro_torch.kernels.noc_cycle import fused as F
+
+    gm, cm, _, pol_sr, pol_r, ntype, route, exists = consts
+    _, _, valid, cls_h, out_port, down = F.head_rows(
+        d, st.buf_meta, st.buf_binj, st.head, st.count, route
+    )
+    can_accept = torch.where(
+        ntype == F.NT_MC,
+        st.mc[F.MC_COUNT:F.MC_COUNT + 1] <= d.Q - pol_r[F.PR_NREQ:F.PR_NREQ + 1],
+        True,
+    )
+    accept = torch.where(pol_sr[F.PS_IS_REQ:F.PS_IS_REQ + 1] != 0,
+                         can_accept[:, :F.R_PAD].repeat(1, d.S), True)
+    i32 = torch.int32
+    return (valid.to(i32), cls_h, out_port, st.rr, down, exists, gm, cm,
+            xi_c[F.XI_SA:F.XI_SA + 1].contiguous(), accept.to(i32),
+            xi_c[F.XI_ACTIVE:F.XI_ACTIVE + 1].contiguous())
+
+
+def plain_arbitrate(ins, depth):
+    from repro_torch.kernels.noc_cycle import fused
+
+    v, c, o, rr, dn, ex, gm, cm, sa, acc, act = ins
+    return fused.lane_arbitrate(v != 0, c, o, rr, dn, ex != 0, gm != 0,
+                                cm != 0, sa, acc != 0, act != 0, depth=depth)
+
+
+def max_diff(a, b) -> int:
+    """Max abs difference over the paired tensors of two NamedTuples."""
+    import torch
+
+    return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+               for x, y in zip(a, b))
+
+
+def b1_bound(d, L):
+    """Least time of one B1 launch: each input row read once, each output
+    row written once (int32), and an op count of the arbitration body
+    (per lane: per output a PV-wide masked packed-min of ~8 ops per
+    requester plus a V-wide credit pick of ~6 ops per VC; the grant filter
+    ~3*P*P; the dequeue one-hot 2*PV*P)."""
+    P, V, PV = 5, d.V, d.PV
+    rows_in = 3 * PV + P + P * V + P + 2 * V + 3
+    rows_out = 6 * P + PV
+    nbytes = (rows_in + rows_out) * L * 4
+    ops = L * (P * (8 * PV + 6 * V + 10) + 3 * P * P + 2 * PV * P)
+    return nbytes, ops
+
+
+def b2_bound(d, n_cycles):
+    """Least time of one B2 launch of n_cycles: the lane state read and
+    written once, the cycles' xs and the epoch rows read once, and per lane
+    per cycle the arbitration body plus the peek / pull / inject / MC /
+    counter stages (~8*PV + 6*P*V + 6*V + 60 ops)."""
+    L, LR, P, V, PV = d.lanes_sr, 128, 5, d.V, d.PV
+    state = (2 * PV * d.B + 2 * PV + P) * L * 4 + (d.Q + 6 + 3 + 1) * LR * 4
+    xs = n_cycles * (6 * L + 2 * LR) * 4
+    consts = (2 * V + 4 + P + d.R) * L * 4 + (5 + 2 + 1) * LR * 4
+    nbytes = 2 * state + xs + consts
+    _, arb_ops = b1_bound(d, L)
+    ops = n_cycles * (arb_ops + L * (8 * PV + 6 * P * V + 6 * V + 60))
+    return nbytes, ops
+
+
+def bound_ms(nbytes, ops):
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    try:
+        from repro_torch.core.allocator import PolicyConfig
+        from repro_torch.core.noc import sim, traffic
+        from repro_torch.core.noc.topology import make_topology
+        from repro_torch.kernels.noc_cycle import fused, kernel, ops
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing beside this "
+              f"script: {e}", file=sys.stderr)
+        return 2
+
+    t_start = time.time()
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    # ---- phase 1: device line + kernel build
+    print(f"[1] device: {smi} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda})")
+    t0 = time.time()
+    kernel.library()
+    print(f"[1] kernel build + load: {time.time() - t0:.1f} s "
+          f"({kernel.SOURCES[0].name})")
+    sys.stdout.flush()
+
+    # The kernel checks of phases 2-3 and the live case of phase 4 share one
+    # short run: kf with the guard and joint control, under a fault stream
+    # and a placement stream built here, so that every mask B1 and B2 take
+    # (link, router, MC, VC partition, node class) is live.  Its kernel
+    # inputs come from sim's own per-epoch builders.
+    topo = make_topology()
+    short = dict(n_epochs=6, epoch_len=500,
+                 policy=PolicyConfig(warmup=1000, hold=500, revert=1500))
+    live = sim.NoCConfig(mode="kf", guard=True, control="joint",
+                         faults=fault_stream(topo, 6),
+                         placement=placement_stream(topo, 6), **short)
+    run = sim.run_inputs(live, "SHIFT_PATH_BFS", device=dev,
+                         rng=torch.Generator(device=dev).manual_seed(SEED))
+    tables = sim.lane_tables(run)
+    d = tables[0]
+    L = d.lanes_sr
+    boosted = torch.tensor(1, dtype=torch.int32)  # VC boost + cls1 plan
+
+    # ---- phase 2: B1 against its plain version
+    subs, mc, outst, backlog = sim.init_sim_state(run.stc, dev)
+    st = fused.pack_state(d, subs, mc, outst, backlog,
+                          traffic.init_phase().to(dev))
+    samples, epoch_starts = [], []
+    for e in range(3):
+        ep = sim.epoch_inputs(run, e, boosted, e * run.stc.epoch_len)
+        xi, xf, consts = sim.lane_inputs(run, tables, ep)
+        epoch_starts.append((st, xi, xf, consts))
+        done = 0
+        for upto in (1, 40, 250, 499, 500):
+            st = ops.fused_cycle_step(d, st, xi[done:upto], xf[done:upto],
+                                      *consts)
+            done = upto
+            if done < xi.shape[0]:
+                samples.append((st, xi[done], consts))
+    b1_err = 0
+    for s_st, xi_c, consts in samples:
+        ins = arb_inputs(d, s_st, xi_c, consts)
+        b1_err = max(b1_err, max_diff(ops.arbitrate_rows(*ins, depth=d.B),
+                                      plain_arbitrate(ins, d.B)))
+    busy = int(samples[-1][0].count.sum())
+    check(busy > 0, "the sampled lane states hold no packets")
+    rg = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for _ in range(8):
+        def ri(lo, hi, rows):
+            return torch.randint(lo, hi, (rows, L), generator=rg, device=dev,
+                                 dtype=torch.int32)
+        ins = (ri(0, 2, d.PV), ri(0, 2, d.PV), ri(0, 5, d.PV), ri(0, d.PV, 5),
+               ri(0, d.B + 1, d.PV), ri(0, 2, 5), ri(0, 2, d.V), ri(0, 2, d.V),
+               ri(-1, 2, 1), ri(0, 2, 1), ri(0, 2, 1))
+        b1_err = max(b1_err, max_diff(ops.arbitrate_rows(*ins, depth=d.B),
+                                      plain_arbitrate(ins, d.B)))
+    check(b1_err == 0, f"B1 disagrees with its plain version (max abs err "
+                       f"{b1_err})")
+    ins = arb_inputs(d, *samples[-1])
+    b1_ms = cuda_ms(lambda: kernel.noc_arbitrate(*ins, depth=d.B), 200)
+    b1_plain_ms = cuda_ms(lambda: plain_arbitrate(ins, d.B), 20)
+    print(f"[2] B1 bitwise equal on {len(samples)} sampled (faults and "
+          f"placement live) + 8 random states ({busy} buffered packets): "
+          f"kernel {b1_ms:.4f} ms, plain {b1_plain_ms:.4f} ms per call")
+    sys.stdout.flush()
+
+    # ---- phase 3: B2 against its plain version, on epoch 2's inputs (link
+    # down, router browned out, MC stalled, boosted masks and cls1 plan)
+    st0, xi2, xf2, consts2 = epoch_starts[2]
+    b2_err = 0
+    for n in (1, 500):
+        k = ops.fused_cycle_step(d, st0, xi2[:n], xf2[:n], *consts2)
+        p = fused.cycle_steps_lanes(d, st0, xi2[:n], xf2[:n], *consts2)
+        err = max_diff(k, p)
+        check(err == 0, f"B2 disagrees with {n} plain cycles (max abs err "
+                        f"{err})")
+        b2_err = max(b2_err, err)
+    scratch = fused.LaneState(*(x.clone() for x in st0))
+    b2_ms = cuda_ms(lambda: kernel.noc_fused_cycles(
+        d, scratch, xi2, xf2, *consts2), 10)
+    b2_plain_ms = cuda_ms(lambda: fused.cycle_steps_lanes(
+        d, st0, xi2, xf2, *consts2), 1, warmup=1)
+    print(f"[3] B2 bitwise equal after 1 and 500 cycles: kernel {b2_ms:.4f} "
+          f"ms, plain {b2_plain_ms:.1f} ms per 500 cycles")
+    sys.stdout.flush()
+
+    # ---- phase 4: engine congruence at the full grid, 6 x 500 cycles
+    b1_launches = None
+    cases = (("kf", sim.NoCConfig(mode="kf", **short), "SHIFT_PATH_BFS"),
+             ("kf+guard+joint+faults+placement", live, "SHIFT_PATH_BFS"),
+             ("4subnet", sim.NoCConfig(mode="4subnet", **short), "STO"),
+             ("fair", sim.NoCConfig(mode="fair", **short), "STO"))
+    for label, cfg, wl in cases:
+        res, secs = {}, {}
+        for engine in ("fused", "arb", "ref"):
+            ops.reset_launches()
+            t0 = time.time()
+            res[engine] = sim.simulate(
+                cfg, wl, device=dev, engine=engine,
+                rng=torch.Generator(device=dev).manual_seed(SEED))
+            secs[engine] = time.time() - t0
+            if engine == "fused":
+                check(ops.LAUNCHES["noc_fused_cycles"] == 6,
+                      f"fused engine launched B2 {ops.LAUNCHES} times")
+            if engine == "arb":
+                check(ops.LAUNCHES["noc_arbitrate"] == 3000,
+                      f"arb engine launched B1 {ops.LAUNCHES} times")
+                if label == "kf":
+                    b1_launches = ops.LAUNCHES["noc_arbitrate"]
+        for engine in ("arb", "ref"):
+            a, b = res["fused"], res[engine]
+            for f in ("applied_config", "kf_signal", "gpu_vc_quota"):
+                check(torch.equal(getattr(a, f), getattr(b, f)),
+                      f"{label}: {f} differs between fused and {engine}")
+            for f, x, y in zip(sim.EpochCounters._fields, a.counters,
+                               b.counters):
+                check(torch.equal(x, y),
+                      f"{label}: counter {f} differs between fused and "
+                      f"{engine}")
+        conf = res["fused"].applied_config
+        if label == "kf":
+            check(bool((conf[1:] != conf[:-1]).any()),
+                  "kf run never changed its applied_config")
+        print(f"[4] {label}/{wl}: fused == arb == ref bitwise over 6x500 "
+              f"cycles; applied_config {conf.tolist()}; wall s "
+              + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+        sys.stdout.flush()
+
+    # ---- phase 5: the main path at full width through B2
+    b2_launches = None
+    for mode in ("kf", "fair"):
+        cfg = sim.NoCConfig(mode=mode)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = sim.simulate(cfg, "SHIFT_PATH_BFS")
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = ops.LAUNCHES["noc_fused_cycles"]
+        check(launches == cfg.n_epochs,
+              f"{mode}: B2 launched {launches} times, expected {cfg.n_epochs}")
+        check(ops.LAUNCHES["noc_arbitrate"] == 0, "main path launched B1")
+        if mode == "kf":
+            b2_launches = launches
+        c = res.counters
+        check(all(bool((x >= 0).all()) for x in c), f"{mode}: negative counter")
+        check(int(c.gpu_push.sum()) <= int(c.gpu_gen.sum()),
+              f"{mode}: gpu_push > gpu_gen")
+        check(int(c.gpu_done.sum()) <= int(c.gpu_push.sum()),
+              f"{mode}: gpu_done > gpu_push")
+        check(res.gpu_ipc.shape == (cfg.n_epochs,)
+              and bool(torch.isfinite(res.gpu_ipc).all())
+              and bool(torch.isfinite(res.avg_latency).all()),
+              f"{mode}: non-finite or misshapen result")
+        cycles = cfg.n_epochs * cfg.epoch_len
+        summ = {k: round(v, 6) for k, v in sim.summarize(res).items()}
+        print(f"[5] {mode}/SHIFT_PATH_BFS {cfg.n_epochs}x{cfg.epoch_len}: "
+              f"{launches} B2 launches, wall {wall:.2f} s, "
+              f"{cycles / wall:.0f} simulated cycles/s, summarize {summ}")
+        sys.stdout.flush()
+
+    # ---- phase 6: the kernels line
+    nb1, op1 = b1_bound(d, L)
+    nb2, op2 = b2_bound(d, 500)
+    bm1, by1 = bound_ms(nb1, op1)
+    bm2, by2 = bound_ms(nb2, op2)
+    kernels = [
+        dict(name="noc_arbitrate", route="cuda",
+             source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
+             replaces="src/repro/kernels/noc_cycle/kernel.py:34",
+             launches=b1_launches, max_abs_err=b1_err, ms=b1_ms,
+             plain_ms=b1_plain_ms, bound_ms=bm1, bound_by=by1,
+             library_ms=None),
+        dict(name="noc_fused_cycles", route="cuda",
+             source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
+             replaces="src/repro/kernels/noc_cycle/kernel.py:114",
+             launches=b2_launches, max_abs_err=b2_err, ms=b2_ms,
+             plain_ms=b2_plain_ms, bound_ms=bm2, bound_by=by2,
+             library_ms=None),
+    ]
+    print(f"[6] total {time.time() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,153 @@
+"""Kalman Filter (paper Eqs. 1-5) on torch tensors.
+
+    time update:         x^_k = A x_{k-1} + B u_{k-1}           (Eq. 1)
+                         P^_k = A P_{k-1} A^T + Q               (Eq. 2)
+    measurement update:  K_k  = P^_k H^T (H P^_k H^T + R)^-1    (Eq. 3)
+                         x_k  = x^_k + K_k (z_k - H x^_k)       (Eq. 4)
+                         P_k  = (I - K_k H) P^_k                (Eq. 5)
+
+Plain functions over a `KalmanState` NamedTuple, float32 by default.  The
+expressions follow `repro.core.kalman` term for term, so the only source
+of difference is the 3x3 solve inside two LAPACK builds.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+Tensor = torch.Tensor
+
+
+class KalmanState(NamedTuple):
+    x: Tensor  # (n,)   posterior state estimate
+    p: Tensor  # (n, n) posterior error covariance
+
+
+class KalmanParams(NamedTuple):
+    """Model matrices. Shapes: A (n,n), B (n,u), H (m,n), Q (n,n), R (m,m)."""
+
+    a: Tensor
+    b: Tensor
+    h: Tensor
+    q: Tensor
+    r: Tensor
+
+    @property
+    def state_dim(self) -> int:
+        return self.a.shape[0]
+
+    @property
+    def obs_dim(self) -> int:
+        return self.h.shape[0]
+
+
+def _solve(a: Tensor, b: Tensor) -> Tensor:
+    """LU solve that, like jnp.linalg.solve, returns non-finite values for a
+    singular system instead of raising (the coast below handles them)."""
+    return torch.linalg.solve_ex(a, b, check_errors=False)[0]
+
+
+def init_state(n: int, p0: float = 1.0, dtype=torch.float32) -> KalmanState:
+    return KalmanState(
+        x=torch.zeros((n,), dtype=dtype), p=torch.eye(n, dtype=dtype) * p0
+    )
+
+
+def time_update(
+    params: KalmanParams, state: KalmanState, u: Tensor | None = None
+) -> KalmanState:
+    """Eqs. (1)-(2): a-priori estimate (x^_k, P^_k)."""
+    x, p = state
+    x_prior = params.a @ x
+    if u is not None:
+        x_prior = x_prior + params.b @ u
+    p_prior = params.a @ p @ params.a.T + params.q
+    return KalmanState(x=x_prior, p=p_prior)
+
+
+def measurement_update(params: KalmanParams, prior: KalmanState, z: Tensor):
+    """Eqs. (3)-(5): posterior (x_k, P_k) given observation z (m,).
+
+    A non-finite or negative-variance posterior from a FINITE observation
+    coasts on the prior (the numerical-breakdown coast); a NaN observation
+    still poisons an unguarded filter.
+    """
+    x_prior, p_prior = prior
+    h = params.h
+    s = h @ p_prior @ h.T + params.r
+    k = _solve(s, h @ p_prior.T).T  # (n, m)
+    innovation = z - h @ x_prior
+    x_post = x_prior + k @ innovation
+    n = params.state_dim
+    p_post = (torch.eye(n, dtype=p_prior.dtype) - k @ h) @ p_prior
+    p_post = 0.5 * (p_post + p_post.T)
+    broke = ~(torch.isfinite(x_post).all()
+              & torch.isfinite(p_post).all()
+              & (torch.diagonal(p_post) > 0.0).all())
+    coast = broke & torch.isfinite(z).all()
+    x_post = torch.where(coast, x_prior, x_post)
+    p_post = torch.where(coast, p_prior, p_post)
+    return KalmanState(x=x_post, p=p_post), innovation
+
+
+def kalman_gain(params: KalmanParams, prior: KalmanState) -> Tensor:
+    """The gain K = P^ H^T S^-1 of the measurement update, (n, m)."""
+    h = params.h
+    s = h @ prior.p @ h.T + params.r
+    return _solve(s, h @ prior.p.T).T
+
+
+def innovation_nis(
+    params: KalmanParams, prior: KalmanState, z: Tensor
+) -> Tensor:
+    """Normalized innovation squared nu^T S^-1 nu, a () scalar (NaN for a
+    NaN observation)."""
+    h = params.h
+    s = h @ prior.p @ h.T + params.r
+    nu = z - h @ prior.x
+    return nu @ _solve(s, nu)
+
+
+def step(
+    params: KalmanParams, state: KalmanState, z: Tensor,
+    u: Tensor | None = None,
+):
+    """One predict+correct cycle. Returns (posterior, prior, innovation)."""
+    prior = time_update(params, state, u)
+    posterior, innovation = measurement_update(params, prior, z)
+    return posterior, prior, innovation
+
+
+def paper_params(
+    q: float = 1e-3,
+    r: float = 1e-1,
+    h: tuple[float, float, float] = (1.0, 1.0, 1.0),
+    dtype=torch.float32,
+) -> KalmanParams:
+    """Scalar IPC-pressure state, 3 normalized NoC observations, random
+    walk (A = 1, no control)."""
+    return KalmanParams(
+        a=torch.eye(1, dtype=dtype),
+        b=torch.zeros((1, 1), dtype=dtype),
+        h=torch.tensor(h, dtype=dtype).reshape(3, 1),
+        q=torch.eye(1, dtype=dtype) * q,
+        r=torch.eye(3, dtype=dtype) * r,
+    )
+
+
+def one_step_prediction(params: KalmanParams, state: KalmanState) -> Tensor:
+    """The forecast for the next epoch's state, `A x_k`."""
+    return params.a @ state.x
+
+
+def normalize_observations(raw: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    """Scale raw counters into [-1, 1] (paper §3.2 preprocessing)."""
+    mid = 0.5 * (hi + lo)
+    half = torch.clamp(0.5 * (hi - lo), min=1e-9)
+    return torch.clamp((raw - mid) / half, -1.0, 1.0)
+
+
+def binarize(x_post: Tensor, threshold: float | Tensor = 0.0) -> Tensor:
+    """Paper §3.2: KF output > 0 => IPC will decline => reconfigure (1)."""
+    return (x_post > threshold).to(torch.int32)

@@ -1,0 +1,698 @@
+"""Cycle-stepped heterogeneous-chiplet NoC simulation with the KF in the loop.
+
+  traffic sources -> routers (VC alloc + switch alloc) -> MCs -> replies
+        ^                                                          |
+        '------ per-epoch counters -> Kalman Filter -> policy <----'
+
+Modes (paper §4.2): ``baseline`` (shared VCs, RR arbitration), ``fair``
+(static 2:2 VC split), ``static`` (fixed [g : V-g] split), ``4subnet``
+(class-segregated subnets, half link width) and ``kf`` (KF-driven 2:2 <->
+3:1 VC split plus GPU,GPU,CPU arbitration under warmup/hold/revert
+hysteresis).  Every mode runs on a subnet axis padded to ``S_MAX``.
+
+One run is a Python loop over epochs.  Each epoch:
+
+* set-up: the epoch's VC masks, SA preference stream and node classes from
+  the applied configuration, the epoch prologue inject, and the epoch's
+  random streams (u_phase (L,), u_gen (L, R), d_idx (L, R));
+* ``epoch_len`` cycles on one of three engines, which agree bitwise:
+  ``"fused"`` (default) hands the whole epoch to one launch of the fused
+  cycle kernel on the lane state; ``"ref"`` runs the dense torch cycle
+  body; ``"arb"`` runs the dense body with the arbitration kernel;
+* the epoch boundary on the host CPU: normalize the counters, step the
+  predictor bank and KF, binarize, apply the hysteresis policy.
+
+The data plane runs on the run's device; the control plane (a scalar KF
+and a three-integer state machine) runs on the CPU, once per epoch.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch._util import resolve_device
+from repro_torch.core import kalman, predictor
+from repro_torch.core.allocator import (
+    ModePolicy,
+    PolicyConfig,
+    apply_policy_gated,
+    class_vc_masks,
+    degrade_policy,
+    epoch_sa_prefs,
+    init_policy_state,
+    mode_policy,
+    placement_class,
+)
+from repro_torch.core.noc import metrics
+from repro_torch.core.noc import router as rt
+from repro_torch.core.noc.faults import (
+    TELEM_DROP,
+    TELEM_NAN,
+    TELEM_SPIKE,
+    FaultSourceLike,
+    FaultStream,
+    resolve_faults,
+)
+from repro_torch.core.noc.placement import (
+    PlacementSourceLike,
+    PlacementStream,
+    resolve_placement,
+)
+from repro_torch.core.noc.topology import Topology, make_topology
+from repro_torch.core.noc.traffic import (
+    TrafficSourceLike,
+    WorkloadProfile,
+    init_phase,
+    injection_rates,
+    resolve_source,
+    step_phase_u,
+)
+
+Tensor = torch.Tensor
+_I32 = torch.int32
+
+BCAP = 64   # per-node source-queue capacity
+S_MAX = 4   # padded subnet-axis length shared by every mode
+ENGINES = ("fused", "ref", "arb")
+
+# epoch-stream provider: epoch -> (u_phase (L,), u_gen (L, R), d_idx (L, R))
+EpochStreams = Callable[[int], tuple[Tensor, Tensor, Tensor]]
+
+
+@dataclasses.dataclass(frozen=True)
+class SimStatic:
+    """The structural part of a simulation config."""
+
+    n_subnets: int
+    n_vcs: int
+    buf_depth: int
+    epoch_len: int
+    n_epochs: int
+    mc_queue_cap: int
+    mc_service_period: int
+    mshr_limit: int
+    policy: PolicyConfig
+    z_scales: tuple[float, float, float]
+    kf_q: float
+    kf_r: float
+    engine: str = "fused"
+    width: int = 6
+    height: int = 6
+    n_mc: int = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class NoCConfig:
+    mode: str = "kf"              # baseline | fair | 4subnet | kf | static
+    static_gpu_vcs: int = 2       # for mode=static: GPU gets [g : V-g]
+    n_vcs: int = 4
+    buf_depth: int = 4
+    epoch_len: int = 500
+    n_epochs: int = 120
+    mc_queue_cap: int = 16
+    mc_service_period: int = 2
+    mshr_limit: int = 16
+    policy: PolicyConfig = PolicyConfig()
+    z_scales: tuple[float, float, float] = (300.0, 160.0, 2500.0)
+    kf_q: float = 1e-3
+    kf_r: float = 2e-1
+    seed: int = 0
+    engine: str = "fused"         # cycle engine: fused | ref | arb
+    predictor: str = "kf"
+    ema_alpha: float = 0.5
+    guard: bool = False
+    faults: FaultSourceLike = None
+    placement: PlacementSourceLike = None
+    control: str = "bandwidth"
+    width: int = 6
+    height: int = 6
+    n_mc: int = 8
+
+    @property
+    def vcs_per_subnet(self) -> int:
+        return self.n_vcs // 2 if self.mode == "4subnet" else self.n_vcs
+
+    def static_spec(self) -> SimStatic:
+        """The structural spec; every mode shares the S_MAX-padded one."""
+        return SimStatic(
+            n_subnets=S_MAX,
+            n_vcs=self.n_vcs,
+            buf_depth=self.buf_depth,
+            epoch_len=self.epoch_len,
+            n_epochs=self.n_epochs,
+            mc_queue_cap=self.mc_queue_cap,
+            mc_service_period=self.mc_service_period,
+            mshr_limit=self.mshr_limit,
+            policy=self.policy,
+            z_scales=tuple(self.z_scales),
+            kf_q=self.kf_q,
+            kf_r=self.kf_r,
+            engine=self.engine,
+            width=self.width,
+            height=self.height,
+            n_mc=self.n_mc,
+        )
+
+    def mode_policy(self) -> ModePolicy:
+        stc = self.static_spec()
+        return mode_policy(
+            self.mode, stc.n_vcs, self.static_gpu_vcs,
+            n_subnets=stc.n_subnets, active_vcs=self.vcs_per_subnet,
+            predictor=self.predictor, ema_alpha=self.ema_alpha,
+            guard=self.guard, control=self.control,
+        )
+
+
+class MCState(NamedTuple):
+    q_meta: Tensor       # (R, Q) int8 — pending request src | cls << 6
+    head: Tensor         # (R,) int32
+    count: Tensor        # (R,) int32
+    timer: Tensor        # (R,) int32 cycles until service completes
+    stage_valid: Tensor  # (R,) bool staged reply waiting to inject
+    stage_dst: Tensor    # (R,) int32
+    stage_cls: Tensor    # (R,) int32
+
+
+class EpochCounters(NamedTuple):
+    gpu_push: Tensor
+    gpu_stall_icnt: Tensor
+    gpu_stall_dram: Tensor
+    cpu_push: Tensor
+    gpu_done: Tensor
+    cpu_done: Tensor
+    gpu_gen: Tensor
+    cpu_gen: Tensor
+    lat_sum: Tensor
+    lat_cnt: Tensor
+    cpu_lat_sum: Tensor
+    cpu_lat_cnt: Tensor
+    gpu_lat_sum: Tensor
+    gpu_lat_cnt: Tensor
+    moved: Tensor
+
+
+class SimResult(NamedTuple):
+    gpu_ipc: Tensor         # (E,) per-epoch GPU IPC proxy
+    cpu_ipc: Tensor         # (E,)
+    avg_latency: Tensor     # (E,) mean packet network latency
+    kf_signal: Tensor       # (E,) binarized predictor output
+    applied_config: Tensor  # (E,) configuration applied at the epoch's end
+    counters: EpochCounters  # (E,) leaves
+    gpu_inj_rate: Tensor    # (E,) offered GPU load
+    gpu_vc_quota: Tensor    # (E,) VCs the GPU class could use this epoch
+
+
+def stamp_mask(stc: SimStatic) -> int:
+    """0xFFFF when every age of the run fits 16 bits (total cycles <= 2^16):
+    latency ages are then masked as uint16 stamps would wrap them (the
+    reference's "auto" stamp dtype); 0 (no mask) for longer runs."""
+    return 0xFFFF if stc.epoch_len * stc.n_epochs <= 2**16 else 0
+
+
+def init_sim_state(stc: SimStatic, device: torch.device | str = "cpu"):
+    """Zero carry: (subnets, MC state, outstanding, backlog)."""
+    R = make_topology(stc.width, stc.height, stc.n_mc).n_routers
+    S, V, B, P = stc.n_subnets, stc.n_vcs, stc.buf_depth, rt.N_PORTS
+
+    def z(shape, dtype=_I32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    subnets0 = rt.SubnetState(
+        buf_meta=z((S, R, P, V, B), torch.int16),
+        buf_binj=z((S, R, P, V, B)),
+        head=z((S, R, P, V), torch.int8),
+        count=z((S, R, P, V), torch.int8),
+        rr_ptr=z((S, R, P), torch.int8),
+    )
+    mc0 = MCState(
+        q_meta=z((R, stc.mc_queue_cap), torch.int8),
+        head=z((R,)), count=z((R,)), timer=z((R,)),
+        stage_valid=z((R,), torch.bool), stage_dst=z((R,)), stage_cls=z((R,)),
+    )
+    return subnets0, mc0, z((R,)), z((R,))
+
+
+def torch_epoch_streams(
+    gen: torch.Generator, epoch_len: int, n_routers: int, n_mc: int,
+    device: torch.device,
+) -> EpochStreams:
+    """Per-epoch streams drawn from ``gen`` on ``device``, in epoch order:
+    u_phase ~ U[0,1) (L,), u_gen ~ U[0,1) (L, R), d_idx ~ U{0..n_mc-1}."""
+
+    def draw(epoch: int):
+        u_phase = torch.rand((epoch_len,), generator=gen, device=device)
+        u_gen = torch.rand((epoch_len, n_routers), generator=gen,
+                           device=device)
+        d_idx = torch.randint(0, n_mc, (epoch_len, n_routers),
+                              generator=gen, device=device)
+        return u_phase, u_gen, d_idx
+
+    return draw
+
+
+class RunInputs(NamedTuple):
+    """One run's resolved inputs.  Demand rows and fault masks live on the
+    run's device; telemetry faults and placement plans on the CPU."""
+
+    stc: SimStatic
+    mp: ModePolicy
+    topo: Topology
+    profile: WorkloadProfile      # (E,) float32 leaves
+    faults: FaultStream
+    placement: PlacementStream
+    streams: EpochStreams
+    device: torch.device
+
+
+def run_inputs(
+    cfg: NoCConfig,
+    source: TrafficSourceLike,
+    *,
+    device: str | torch.device | None = None,
+    rng: torch.Generator | EpochStreams | None = None,
+    engine: str | None = None,
+) -> RunInputs:
+    """Resolve `simulate`'s arguments (see there) into a `RunInputs`."""
+    dev = resolve_device(device)
+    stc = cfg.static_spec()
+    if engine is not None:
+        stc = dataclasses.replace(stc, engine=engine)
+    if stc.engine not in ENGINES:
+        raise ValueError(f"unknown cycle engine {stc.engine!r}; expected one "
+                         f"of {ENGINES}")
+    topo = make_topology(stc.width, stc.height, stc.n_mc)
+    if rng is None:
+        rng = torch.Generator(device=dev).manual_seed(cfg.seed)
+    if isinstance(rng, torch.Generator):
+        streams = torch_epoch_streams(
+            rng, stc.epoch_len, topo.n_routers, len(topo.mc_ids), dev
+        )
+    else:
+        streams = rng
+    mp = cfg.mode_policy()
+    profile = resolve_source(source, stc.n_epochs)
+    faults = resolve_faults(cfg.faults, stc.n_epochs, n_routers=topo.n_routers)
+    return RunInputs(
+        stc=stc, mp=mp, topo=topo,
+        profile=WorkloadProfile(*(x.to(dev) for x in profile)),
+        faults=faults._replace(
+            link_ok=faults.link_ok.to(dev), router_ok=faults.router_ok.to(dev),
+            mc_ok=faults.mc_ok.to(dev),
+        ),
+        placement=resolve_placement(cfg.placement, stc.n_epochs, topo),
+        streams=streams, device=dev,
+    )
+
+
+class EpochInputs(NamedTuple):
+    """Per-epoch data-plane inputs, shared by every cycle engine."""
+
+    gpu_masks: Tensor   # (S, V) bool
+    cpu_masks: Tensor
+    ntype_e: Tensor     # (R,) int32 virtual node type
+    node_cls: Tensor    # (R,) int32
+    req_sub: Tensor     # (R,) int32
+    prof: WorkloadProfile  # () float32 leaves
+    link_ok: Tensor     # (R, P) bool
+    router_ok: Tensor   # (R,) bool
+    mc_ok: Tensor       # (R,) bool
+    cycles: Tensor      # (L,) int32
+    u_phase: Tensor     # (L,) float32
+    u_gen: Tensor       # (L, R) float32
+    dests: Tensor       # (L, R) int32
+    sa_all: Tensor      # (L,) int32
+    active_all: Tensor  # (L, S) bool
+    rep_gate: Tensor    # (L,) bool
+
+
+def epoch_inputs(
+    run: RunInputs, e: int, config: Tensor, cycle0: int
+) -> EpochInputs:
+    """Epoch ``e``'s inputs under the applied ``config`` with its cycles
+    starting at ``cycle0``; draws the epoch's random streams."""
+    stc, mp, topo, dev = run.stc, run.mp, run.topo, run.device
+    S, V, ep_len = stc.n_subnets, stc.n_vcs, stc.epoch_len
+    g_vec, c_vec = class_vc_masks(mp, config)
+    cls_e = placement_class(mp, config, run.placement.cls0[e],
+                            run.placement.cls1[e])
+    is_mc = torch.as_tensor(topo.node_type) == 2
+    ntype_e = torch.where(is_mc, 2, cls_e).to(_I32).to(dev)
+    node_cls = (ntype_e == 1).to(_I32)
+    fs = mp.four_subnet.to(dev)
+    sub_enabled = mp.sub_enabled.to(dev)
+    sub_ids = torch.arange(S, dtype=_I32, device=dev)
+    mc_ids = torch.as_tensor(topo.mc_ids, dtype=torch.int64, device=dev)
+
+    u_phase, u_gen, d_idx = run.streams(e)
+    cycles_cpu = cycle0 + torch.arange(ep_len, dtype=_I32)
+    cycles = cycles_cpu.to(dev)
+    alternating = (cycles[:, None] % 2) == (sub_ids[None, :] % 2)
+    return EpochInputs(
+        gpu_masks=g_vec.to(dev).expand(S, V),
+        cpu_masks=c_vec.to(dev).expand(S, V),
+        ntype_e=ntype_e, node_cls=node_cls,
+        req_sub=torch.where(fs, 2 * node_cls, 0).to(_I32),
+        prof=WorkloadProfile(*(leaf[e] for leaf in run.profile)),
+        link_ok=run.faults.link_ok[e], router_ok=run.faults.router_ok[e],
+        mc_ok=run.faults.mc_ok[e], cycles=cycles,
+        u_phase=u_phase.to(dev), u_gen=u_gen.to(dev),
+        dests=mc_ids[d_idx.to(dev).long()].to(_I32),
+        sa_all=epoch_sa_prefs(mp, config, cycles_cpu).to(dev),
+        active_all=sub_enabled[None, :] & torch.where(fs, alternating, True),
+        rep_gate=torch.arange(ep_len, device=dev) < ep_len - 1,
+    )
+
+
+def lane_tables(run: RunInputs):
+    """The fused engine's run constants: its `LaneDims`, and the route and
+    link-exists lane tables."""
+    from repro_torch.kernels.noc_cycle import fused as lanes
+
+    stc, topo = run.stc, run.topo
+    d = lanes.lane_dims(
+        S=stc.n_subnets, R=topo.n_routers, V=stc.n_vcs, B=stc.buf_depth,
+        Q=stc.mc_queue_cap, width=topo.width,
+        mc_service_period=stc.mc_service_period, mshr_limit=stc.mshr_limit,
+        bcap=BCAP, stamp_mask=stamp_mask(stc),
+    )
+    route_rows, exists_rows, _ = lanes.run_consts(d, topo, run.device)
+    return d, route_rows, exists_rows
+
+
+def lane_inputs(run: RunInputs, tables, ep: EpochInputs):
+    """One epoch's inputs to `ops.fused_cycle_step` in the lane layout:
+    per-cycle ``xi``/``xf`` and the epoch-constant rows (gmask, cmask,
+    prof, pol_sr, pol_r, ntype, route, exists), link faults folded into
+    ``exists`` and router/MC faults into ``xi``."""
+    from repro_torch.kernels.noc_cycle import fused as lanes
+
+    d, route_rows, exists_rows = tables
+    mp, dev = run.mp, run.device
+    fs = mp.four_subnet.to(dev)
+    sub_enabled = mp.sub_enabled.to(dev)
+    sub_is_req = mp.sub_is_req.to(dev)
+    sub_ids = torch.arange(d.S, dtype=_I32, device=dev)
+    gm_rows, cm_rows = lanes.mask_rows(d, ep.gpu_masks[0], ep.cpu_masks[0])
+    req_match = (sub_ids[:, None] == ep.req_sub[None, :]) & sub_enabled[:, None]
+    pol_sr, pol_r = lanes.policy_rows(
+        d, sub_enabled, sub_is_req, sub_enabled & ~sub_is_req, req_match, fs,
+        sub_is_req.to(_I32).sum().to(_I32),
+    )
+    xi, xf = lanes.cycle_xs(
+        d, ep.cycles, ep.u_phase, ep.u_gen, ep.dests, ep.sa_all,
+        ep.active_all, ep.rep_gate, router_ok=ep.router_ok, mc_ok=ep.mc_ok,
+    )
+    link_rows = torch.nn.functional.pad(
+        ep.link_ok.to(_I32).T, (0, lanes.R_PAD - d.R)
+    ).repeat(1, d.S)
+    consts = (gm_rows, cm_rows, lanes.prof_rows(ep.prof), pol_sr, pol_r,
+              lanes.placement_rows(d, ep.ntype_e), route_rows,
+              exists_rows * link_rows)
+    return xi, xf, consts
+
+
+def _simulate_impl(run: RunInputs) -> SimResult:
+    stc, mp, topo, dev = run.stc, run.mp, run.topo, run.device
+    route_t, nb_t, opp_t, _, _ = rt.device_tables(topo, dev)
+    R, S, Q = topo.n_routers, stc.n_subnets, stc.mc_queue_cap
+    ep_len = stc.epoch_len
+    smask = stamp_mask(stc)
+
+    is_mc = (torch.as_tensor(topo.node_type) == 2).to(dev)
+    ar = torch.arange(R, dtype=_I32, device=dev)
+    fs = mp.four_subnet.to(dev)
+    sub_enabled = mp.sub_enabled.to(dev)
+    sub_is_req = mp.sub_is_req.to(dev)
+    sub_is_rep = sub_enabled & ~sub_is_req
+    n_req_subs = sub_is_req.to(_I32).sum().to(_I32)
+    sub_ids = torch.arange(S, dtype=_I32, device=dev)
+    is_req_row = sub_is_req[:, None]
+
+    subs, mc, outst, backlog = init_sim_state(stc, dev)
+    phase = init_phase().to(dev)
+    policy = init_policy_state()
+    pred_state = predictor.init_state()
+    kf_params = kalman.paper_params(q=stc.kf_q, r=stc.kf_r)
+    z_scales = torch.tensor(stc.z_scales, dtype=torch.float32)
+
+    if stc.engine == "fused":
+        from repro_torch.kernels.noc_cycle import fused as lanes
+        from repro_torch.kernels.noc_cycle import ops as lane_ops
+
+        tables = lane_tables(run)
+        d = tables[0]
+    arb_fn = rt.arbitrate
+    if stc.engine == "arb":
+        from repro_torch.kernels.noc_cycle.ops import arbitrate_lanes as arb_fn
+
+    def make_want_rep(mc):
+        rep_target = torch.where(fs, 2 * mc.stage_cls + 1, 1)
+        return (
+            (sub_ids[:, None] == rep_target[None, :])
+            & (mc.stage_valid & is_mc)[None, :]
+            & sub_enabled[:, None]
+        )
+
+    def dense_cycle(ep: EpochInputs, i: int, carry):
+        subs, mc, phase, outstanding, bl_count, cnt = carry
+        cycle = ep.cycles[i]
+
+        # MC acceptance (queue depth BEFORE this cycle's service)
+        can_accept = torch.where(is_mc, mc.count <= Q - n_req_subs, True)
+        accept_s = torch.where(is_req_row, can_accept[None, :], True)
+
+        # 1. MC service (a stalled MC freezes timer and staging)
+        can_serve = is_mc & (mc.count > 0) & ~mc.stage_valid & ep.mc_ok
+        timer = torch.where(can_serve, torch.clamp(mc.timer - 1, min=0),
+                            mc.timer)
+        done = can_serve & (timer == 0)
+        q_head = torch.gather(mc.q_meta, 1, mc.head.long()[:, None])[:, 0]
+        q_head = q_head.to(_I32)
+        src_out = q_head & ((1 << rt.META_SRC_SHIFT) - 1)
+        cls_out = q_head >> rt.META_SRC_SHIFT
+        mc = mc._replace(
+            head=torch.where(done, (mc.head + 1) % Q, mc.head),
+            count=mc.count - done.to(_I32),
+            timer=torch.where(done, stc.mc_service_period, timer),
+            stage_valid=mc.stage_valid | done,
+            stage_dst=torch.where(done, src_out, mc.stage_dst),
+            stage_cls=torch.where(done, cls_out, mc.stage_cls),
+        )
+
+        # 2. route/arbitrate every subnet
+        subs, ev = rt.router_cycle(
+            subs, route_t, nb_t, opp_t, ep.gpu_masks, ep.cpu_masks,
+            ep.sa_all[i], accept_s, ep.active_all[i], arbitrate_fn=arb_fn,
+            link_ok=ep.link_ok, router_ok=ep.router_ok,
+        )
+
+        # 3. request ejections at MCs -> MC queues; an exclusive prefix over
+        # subnets serializes same-MC arrivals into consecutive slots
+        req_ej = ev.eject_valid & is_req_row & is_mc[None, :]
+        arr_i = req_ej.to(_I32)
+        slot_off = torch.cumsum(arr_i, 0).to(_I32) - arr_i
+        slot = (mc.head[None, :] + mc.count[None, :] + slot_off) % Q
+        qmask = req_ej[..., None] & (
+            slot[..., None] == torch.arange(Q, device=dev)
+        )
+        qhit = qmask.any(0)
+        q_val = ev.eject_src + (ev.eject_cls << rt.META_SRC_SHIFT)
+        qm = torch.where(qmask, q_val[..., None], 0).sum(0)
+        mc = mc._replace(
+            q_meta=torch.where(qhit, qm.to(torch.int8), mc.q_meta),
+            count=mc.count + arr_i.sum(0).to(_I32),
+        )
+        # reply ejections at source nodes -> completed transactions
+        rep_ej = ev.eject_valid & sub_is_rep[:, None] & (~is_mc)[None, :]
+        rep_done = rep_ej.any(0)
+        outstanding = outstanding - rep_done.to(_I32)
+        rep_cls = torch.where(rep_ej, ev.eject_cls, 0).sum(0)
+
+        # network latency (16-bit wraparound when the stamps would be uint16)
+        age = cycle - ev.eject_binj
+        if smask:
+            age = age & smask
+        ej_lat = torch.where(ev.eject_valid, age, 0)
+        cpu_ej = ev.eject_valid & (ev.eject_cls == 0)
+        gpu_ej = ev.eject_valid & (ev.eject_cls == 1)
+
+        # 4. source generation -> per-node source-queue depth
+        phase = step_phase_u(ep.prof, phase, ep.u_phase[i])
+        rates = injection_rates(ep.prof, ep.ntype_e, phase)
+        gen = (ep.u_gen[i] < rates) & ~is_mc
+        bl_count = bl_count + (gen & (bl_count < BCAP)).to(_I32)
+        can_inj = (bl_count > 0) & (outstanding < stc.mshr_limit) & ~is_mc
+
+        # 5. ONE merged inject: sources (request rows) + staged replies
+        want_src = (
+            (sub_ids[:, None] == ep.req_sub[None, :])
+            & can_inj[None, :] & sub_enabled[:, None]
+        )
+        want_rep = make_want_rep(mc) & ep.rep_gate[i]
+        subs, ok = rt.inject_all(
+            subs, want_src | want_rep,
+            torch.where(is_req_row, ep.dests[i][None, :], mc.stage_dst[None, :]),
+            ar.expand(S, R),
+            torch.where(is_req_row, ep.node_cls[None, :], mc.stage_cls[None, :]),
+            torch.where(is_req_row, cycle, cycle + 1),
+            ep.gpu_masks, ep.cpu_masks,
+        )
+        inj_ok = (ok & is_req_row).any(0)
+        mc = mc._replace(
+            stage_valid=mc.stage_valid & ~(ok & ~is_req_row).any(0)
+        )
+        bl_count = bl_count - inj_ok.to(_I32)
+        outstanding = outstanding + inj_ok.to(_I32)
+
+        # 6. counters
+        is_gpu = ep.ntype_e == 1
+        is_cpu = ep.ntype_e == 0
+        inc = torch.stack([
+            (inj_ok & is_gpu).sum(),
+            (is_gpu & (bl_count > 0)).sum(),
+            ev.dram_block_gpu,
+            (inj_ok & is_cpu).sum(),
+            (rep_done & (rep_cls == 1)).sum(),
+            (rep_done & (rep_cls == 0)).sum(),
+            (gen & is_gpu).sum(),
+            (gen & is_cpu).sum(),
+            ej_lat.sum(),
+            ev.eject_valid.sum(),
+            torch.where(cpu_ej, ej_lat, 0).sum(),
+            cpu_ej.sum(),
+            torch.where(gpu_ej, ej_lat, 0).sum(),
+            gpu_ej.sum(),
+            ev.moved,
+        ]).to(_I32)
+        return subs, mc, phase, outstanding, bl_count, cnt + inc
+
+    outs = []
+    cycle0 = 0
+    for e in range(stc.n_epochs):
+        # ---- epoch set-up: masks, node classes, streams, prologue inject
+        ep = epoch_inputs(run, e, policy.config, cycle0)
+
+        # replies staged on the previous epoch's last cycle inject under
+        # THIS epoch's masks (the in-cycle inject is gated off on the last
+        # cycle of an epoch by rep_gate)
+        subs, ok0 = rt.inject_all(
+            subs, make_want_rep(mc), mc.stage_dst, ar, mc.stage_cls,
+            ep.cycles[0], ep.gpu_masks, ep.cpu_masks,
+        )
+        mc = mc._replace(stage_valid=mc.stage_valid & ~ok0.any(0))
+
+        # ---- the epoch's cycles
+        if stc.engine == "fused":
+            xi, xf, consts = lane_inputs(run, tables, ep)
+            ls = lane_ops.fused_cycle_step(
+                d, lanes.pack_state(d, subs, mc, outst, backlog, phase),
+                xi, xf, *consts, donate=True,
+            )
+            subs, mc, outst, backlog, phase = lanes.unpack_state(d, ls, MCState)
+            cnt = ls.cnt[0, :lanes.N_COUNTERS]
+        else:
+            carry = (subs, mc, phase, outst, backlog,
+                     torch.zeros(15, dtype=_I32, device=dev))
+            for i in range(ep_len):
+                carry = dense_cycle(ep, i, carry)
+            subs, mc, phase, outst, backlog, cnt = carry
+        cycle0 += ep_len
+        cnt = EpochCounters(*cnt.cpu().unbind())
+
+        # ---- epoch boundary on the host: KF + predictor bank + policy
+        raw = torch.stack([
+            cnt.gpu_stall_dram.float(), cnt.gpu_push.float(),
+            cnt.gpu_stall_icnt.float(),
+        ])
+        z = kalman.normalize_observations(
+            raw, torch.zeros(3, dtype=torch.float32), z_scales
+        )
+        tm = int(run.faults.telem_mode[e])
+        if tm == TELEM_DROP:
+            z = torch.full_like(z, -1.0)
+        elif tm == TELEM_SPIKE:
+            z = z + run.faults.telem_mag[e]
+        elif tm == TELEM_NAN:
+            z = torch.full_like(z, float("nan"))
+        pred_state, signal = predictor.step(mp.predictor, kf_params,
+                                            pred_state, z)
+        cyc = torch.tensor(cycle0, dtype=_I32)
+        policy = apply_policy_gated(stc.policy, mp, policy, signal, cyc)
+        policy = degrade_policy(policy, pred_state.healthy)
+
+        gpu_ipc = metrics.gpu_ipc_proxy(cnt.gpu_done.float(),
+                                        cnt.gpu_gen.float())
+        cpu_lat = cnt.cpu_lat_sum / torch.clamp(cnt.cpu_lat_cnt, min=1)
+        avg_lat = cnt.lat_sum / torch.clamp(cnt.lat_cnt, min=1)
+        n_gpu = int((ep.ntype_e == 1).sum())
+        inj_rate = cnt.gpu_push.float() / (ep_len * n_gpu)
+        quota = ep.gpu_masks[0].to(_I32).sum().to(_I32).cpu()
+        outs.append((
+            gpu_ipc, metrics.cpu_ipc_proxy(cpu_lat), avg_lat, signal,
+            policy.config, cnt, inj_rate, quota,
+        ))
+
+    gpu_ipc, cpu_ipc, avg_lat, sig, conf, cnts, inj, quota = zip(*outs)
+    return SimResult(
+        gpu_ipc=torch.stack(gpu_ipc).float(),
+        cpu_ipc=torch.stack(cpu_ipc).float(),
+        avg_latency=torch.stack(avg_lat).float(),
+        kf_signal=torch.stack(sig),
+        applied_config=torch.stack(conf),
+        counters=EpochCounters(*(torch.stack(x) for x in zip(*cnts))),
+        gpu_inj_rate=torch.stack(inj).float(),
+        gpu_vc_quota=torch.stack(quota),
+    )
+
+
+def simulate(
+    cfg: NoCConfig,
+    source: TrafficSourceLike,
+    *,
+    device: str | torch.device | None = None,
+    rng: torch.Generator | EpochStreams | None = None,
+    engine: str | None = None,
+) -> SimResult:
+    """Run one configuration.
+
+    ``device=None`` runs on the CUDA device and raises if there is none;
+    pass ``device="cpu"`` for the plain-torch path.  ``rng`` is a
+    `torch.Generator` on the run's device, an epoch-stream provider
+    (``epoch -> (u_phase, u_gen, d_idx)``), or None for a generator seeded
+    with ``cfg.seed``.  ``engine`` overrides ``cfg.engine``.  The result
+    lives on the CPU.
+    """
+    return _simulate_impl(run_inputs(cfg, source, device=device, rng=rng,
+                                     engine=engine))
+
+
+def run_workload(mode: str, workload: str, *, device=None,
+                 **overrides) -> SimResult:
+    return simulate(NoCConfig(mode=mode, **overrides), workload, device=device)
+
+
+def summarize(res: SimResult, warmup_epochs: int = 10) -> dict:
+    """Means over the epochs after the warmup (the tail epoch for short
+    runs)."""
+    n_epochs = int(res.gpu_ipc.shape[-1])
+    sl = slice(min(warmup_epochs, max(n_epochs - 1, 0)), None)
+    return {
+        "gpu_ipc": float(res.gpu_ipc[sl].float().mean()),
+        "cpu_ipc": float(res.cpu_ipc[sl].float().mean()),
+        "avg_latency": float(res.avg_latency[sl].float().mean()),
+        "kf_on_frac": float(res.applied_config[sl].float().mean()),
+    }
+
+
+def summarize_seeds(rows: Sequence[SimResult], warmup_epochs: int = 10) -> dict:
+    """Aggregate one point over its seed replicas: mean + `<k>_std`."""
+    per = [summarize(r, warmup_epochs) for r in rows]
+    out = {}
+    for k in per[0]:
+        vals = np.asarray([p[k] for p in per])
+        out[k] = float(vals.mean())
+        out[k + "_std"] = float(vals.std())
+    return out

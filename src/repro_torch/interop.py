@@ -1,0 +1,90 @@
+"""Carry inputs and state across from numpy into the port's NamedTuples.
+
+This system has no weights: what crosses over is demand, fault and
+placement streams, simulator state and random streams.  Each converter
+takes any object with the right field names whose leaves numpy can read
+(for example a NamedTuple of numpy arrays) and returns the port's
+NamedTuple of the same field names on ``device``.  uint16 injection stamps
+widen to the port's int32 stamps value for value.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.noc.faults import FaultStream
+from repro_torch.core.noc.placement import PlacementStream
+from repro_torch.core.noc.router import SubnetState
+from repro_torch.core.noc.sim import EpochStreams, MCState
+from repro_torch.core.noc.traffic import WorkloadProfile
+from repro_torch.kernels.noc_cycle.fused import LaneState
+
+
+def tensor(x, device="cpu", dtype: torch.dtype | None = None) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype == np.uint16:
+        a = a.astype(np.int32)
+    t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
+    if dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _convert(cls, obj, device, dtypes: dict | None = None):
+    dtypes = dtypes or {}
+    return cls(*(
+        tensor(getattr(obj, f), device, dtypes.get(f)) for f in cls._fields
+    ))
+
+
+def epoch_demand(obj, device="cpu") -> WorkloadProfile:
+    """Per-epoch demand rows (five (E,) float32 leaves)."""
+    return _convert(WorkloadProfile, obj, device,
+                    {f: torch.float32 for f in WorkloadProfile._fields})
+
+
+def fault_stream(obj, device="cpu") -> FaultStream:
+    return _convert(FaultStream, obj, device, {
+        "link_ok": torch.bool, "router_ok": torch.bool, "mc_ok": torch.bool,
+        "telem_mode": torch.int32, "telem_mag": torch.float32,
+    })
+
+
+def placement_stream(obj, device="cpu") -> PlacementStream:
+    return _convert(PlacementStream, obj, device,
+                    {"cls0": torch.int32, "cls1": torch.int32})
+
+
+def subnet_state(obj, device="cpu") -> SubnetState:
+    return _convert(SubnetState, obj, device, {
+        "buf_meta": torch.int16, "buf_binj": torch.int32,
+        "head": torch.int8, "count": torch.int8, "rr_ptr": torch.int8,
+    })
+
+
+def mc_state(obj, device="cpu") -> MCState:
+    return _convert(MCState, obj, device, {
+        "q_meta": torch.int8, "head": torch.int32, "count": torch.int32,
+        "timer": torch.int32, "stage_valid": torch.bool,
+        "stage_dst": torch.int32, "stage_cls": torch.int32,
+    })
+
+
+def lane_state(obj, device="cpu") -> LaneState:
+    return _convert(LaneState, obj, device,
+                    {f: torch.int32 for f in LaneState._fields})
+
+
+def epoch_stream_provider(
+    u_phase, u_gen, d_idx, device="cpu"
+) -> EpochStreams:
+    """An epoch-stream provider over pre-drawn arrays: u_phase (E, L),
+    u_gen (E, L, R) float32 and d_idx (E, L, R) int."""
+    up = tensor(u_phase, device, torch.float32)
+    ug = tensor(u_gen, device, torch.float32)
+    di = tensor(d_idx, device, torch.int64)
+
+    def streams(epoch: int):
+        return up[epoch], ug[epoch], di[epoch]
+
+    return streams

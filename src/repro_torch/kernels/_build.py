@@ -1,0 +1,73 @@
+"""Build the port's CUDA sources with nvcc on first use and load them.
+
+Each library is compiled from the sources in the checkout into
+``build/repro_torch/`` (listed in .gitignore) with a content hash of the
+sources and flags in its file name, so a stale library is never loaded:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/repro_torch/lib<name>_<hash>.so <sources>
+
+The sources have a plain C interface; the wrappers load them with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+REPO_ROOT = Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in /usr/local/cuda/bin); the "
+        "CUDA kernels are built from source on first use"
+    )
+
+
+def library_path(name: str, sources: list[Path]) -> Path:
+    h = hashlib.sha256()
+    for src in sources:
+        h.update(Path(src).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, sources: list[Path]) -> Path:
+    """Compile ``sources`` into the hashed library unless it exists."""
+    out = library_path(name, sources)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed building {name} ({proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:
+    """Build (if needed) and load one library."""
+    return ctypes.CDLL(str(build(name, sources)))

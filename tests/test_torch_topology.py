@@ -1,0 +1,99 @@
+"""Port congruence: topology tables, device tables and meta packing, plus the
+port's import boundary and its device default.
+
+Tables are integer data, held array-equal (no tolerance)."""
+import ast
+import pathlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.noc import router as jrt
+from repro.core.noc import topology as jtopo
+from repro_torch.core.noc import router as trt
+from repro_torch.core.noc import sim as tsim
+from repro_torch.core.noc import topology as ttopo
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the paper grid plus the two non-square grids of tests/test_placement.py
+GRIDS = [(6, 6, 8), (4, 5, 6), (4, 4, 8)]
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_topology_tables_equal(grid):
+    j = jtopo.make_topology(*grid)
+    t = ttopo.make_topology(*grid)
+    assert (j.width, j.height, j.n_routers) == (t.width, t.height, t.n_routers)
+    for name in ("route", "neighbor", "opposite", "node_type", "mc_ids"):
+        np.testing.assert_array_equal(
+            getattr(j, name), getattr(t, name), err_msg=name
+        )
+    for name in ("N_PORTS", "PORT_N", "PORT_E", "PORT_S", "PORT_W", "PORT_L",
+                 "NT_CPU", "NT_GPU", "NT_MC", "MAX_ROUTERS"):
+        assert getattr(jtopo, name) == getattr(ttopo, name), name
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_device_tables_equal(grid):
+    jt = jrt.device_tables(jtopo.make_topology(*grid))
+    tt = trt.device_tables(ttopo.make_topology(*grid), "cpu")
+    for a, b in zip(jt, tt):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("args", [(2, 8, 5), (1, 6, 2), (9, 8, 8), (2, 2, 4)])
+def test_validate_topology_args_rejects_like_reference(args):
+    with pytest.raises(ValueError) as je:
+        jtopo.validate_topology_args(*args)
+    with pytest.raises(ValueError) as te:
+        ttopo.validate_topology_args(*args)
+    assert str(je.value) == str(te.value)
+
+
+def test_pack_meta_tables_equal():
+    R = 36
+    dest, src, cls = np.meshgrid(
+        np.arange(R), np.arange(R), np.arange(2), indexing="ij"
+    )
+    d, s, c = (x.ravel().astype(np.int32) for x in (dest, src, cls))
+    jm = np.asarray(jrt.pack_meta(jnp.asarray(d), jnp.asarray(s), jnp.asarray(c)))
+    tm = trt.pack_meta(torch.from_numpy(d), torch.from_numpy(s),
+                       torch.from_numpy(c))
+    assert tm.dtype == torch.int16
+    np.testing.assert_array_equal(jm, tm.numpy())
+    for a, b in zip(jrt.unpack_meta(jnp.asarray(jm)), trt.unpack_meta(tm)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """No module of the port, nor chip_smoke.py, imports jax or repro."""
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for n in names:
+                if n.split(".")[0] in ("jax", "jaxlib", "repro"):
+                    bad.append(f"{path.relative_to(ROOT)}: {n}")
+    assert not bad, bad
+
+
+def test_simulate_defaults_to_cuda(monkeypatch):
+    """Without ``device=`` the entry point asks for CUDA and names the CPU
+    escape hatch; it never silently runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tsim.NoCConfig(mode="fair", n_epochs=1, epoch_len=2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tsim.simulate(cfg, "PATH")
