@@ -6,23 +6,33 @@
 Builds the hand-written CUDA kernels from src/repro_torch (nvcc, into
 build/repro_torch/), then runs, each phase failing the script on error:
 
-  1. the card's name and power limit (nvidia-smi) and the kernel build time;
+  1. the card's name and power limit (nvidia-smi), the kernel build time
+     and ptxas's registers, stack and spill bytes per kernel;
   2. B1 (noc_arbitrate) against its plain torch version, bitwise, on lane
      states sampled from a lane-engine run on the card and on seeded random
      states, at the paper's 256 lanes;
   3. B2 (noc_fused_cycles) against the plain `cycle_step_lanes` stepped as
-     many times, bitwise on every LaneState field, for 1 and 500 cycles;
+     many times, bitwise on every LaneState field, for 1 and 500 cycles,
+     then B3 (noc_fused_cycles_probed) against the same with the flight-
+     recorder carry, from a non-zero carry, bitwise on every LaneState and
+     ProbeLanes field; B2 and B3 are timed in turns (B2, B3, B3, B2);
      phases 2 and 3 take their inputs from sim's own per-epoch builders,
      under a fault stream and a placement stream built here, so that every
      link, router, MC and node-class mask is live;
-  4. engine congruence at the full grid for 6 epochs x 500 cycles: "fused"
-     (B2), "arb" (B1) and "ref" (plain dense torch) from one generator seed
-     agree bitwise on counters, applied_config, kf_signal and gpu_vc_quota
+  4. engine congruence at the full grid for 6 epochs x 500 cycles through
+     simulate_with_trace: "fused" (B3), "arb" (B1) and "ref" (plain dense
+     torch) from one generator seed agree bitwise on counters,
+     applied_config, kf_signal, gpu_vc_quota and every SimTrace channel
      (kf on SHIFT_PATH_BFS, kf with the guard and joint control under those
      fault and placement streams, 4subnet and fair on STO);
-  5. the main path: simulate(NoCConfig(mode="kf"), "SHIFT_PATH_BFS") and
-     mode="fair", 120 epochs x 500 cycles each, through B2 (exactly 120
-     launches per run), with counter invariants and summarize();
+  5. the main paths, 120 epochs x 500 cycles each: simulate(NoCConfig(
+     mode="kf"), "SHIFT_PATH_BFS") and mode="fair" through B2 (exactly 120
+     launches per run), with counter invariants and summarize(); then the
+     traced path, simulate_with_trace of kf with the guard, joint control
+     and 120-epoch fault and placement streams through B3 (120 launches, no
+     B2), its SimResult bitwise the untraced run's, and the recorder:
+     TraceRecorder(observe=True).record_to an npz, RecordedTrace.load, and
+     the replay through simulate bitwise the untraced run;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch, the
      plain version's ms, the bound in ms and what bounds it.
@@ -35,9 +45,11 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -197,6 +209,87 @@ def b2_bound(d, n_cycles):
     return nbytes, ops
 
 
+def b3_bound(d, n_cycles):
+    """B2's bound plus the flight-recorder carry: the three probe arrays
+    read and written once, and per lane per cycle PV occupancy adds, ~3*P
+    ops for the grant/refusal sums and 2 for the MC-queue sum and max."""
+    nbytes, ops = b2_bound(d, n_cycles)
+    probe = (d.PV * d.lanes_sr + 2 * d.lanes_sr + 2 * 128) * 4
+    return (nbytes + 2 * probe,
+            ops + n_cycles * d.lanes_sr * (d.PV + 3 * 5 + 2))
+
+
+def ptxas_usage(log: str) -> dict:
+    """Registers, stack and spill bytes per kernel from ptxas -v output."""
+    labels = (("noc_arbitrate_kernel", "B1"),
+              ("noc_fused_cycles_kernelILi4ELi4ELb0E", "B2"),
+              ("noc_fused_cycles_kernelILi4ELi4ELb1E", "B3"))
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$.]+)", line)
+        if m:
+            cur = next((b for a, b in labels if a in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
+
+
+def same(a, b) -> bool:
+    """Bitwise equality that counts NaN == NaN (the KF channels of a NaN-
+    telemetry epoch)."""
+    import torch
+
+    if a.dtype.is_floating_point:
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+    return torch.equal(a, b)
+
+
+def results_equal(a, b) -> str | None:
+    """The first SimResult field (or counter) where a and b differ."""
+    from repro_torch.core.noc import sim
+
+    for f in ("gpu_ipc", "cpu_ipc", "avg_latency", "kf_signal",
+              "applied_config", "gpu_inj_rate", "gpu_vc_quota"):
+        if not same(getattr(a, f), getattr(b, f)):
+            return f
+    for f, x, y in zip(sim.EpochCounters._fields, a.counters, b.counters):
+        if not same(x, y):
+            return f"counter {f}"
+    return None
+
+
+def random_probe(d, gen):
+    """A non-zero ProbeLanes carry on the card: random counts on the real
+    router lanes, 0 on the padded ones (which never accumulate)."""
+    import torch
+
+    from repro_torch.kernels.noc_cycle import fused
+
+    dev = gen.device
+    lane = torch.arange(d.lanes_sr, device=dev) % fused.R_PAD < d.R
+    node = torch.arange(fused.LANES_R, device=dev) < d.R
+
+    def ri(hi, rows, mask):
+        x = torch.randint(0, hi, (rows, mask.numel()), generator=gen,
+                          device=dev, dtype=torch.int32)
+        return x * mask.to(torch.int32)
+
+    return fused.ProbeLanes(occ=ri(2000, d.PV, lane), arb=ri(1000, 2, lane),
+                            mcq=ri(16, 2, node))
+
+
 def bound_ms(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_INT32_OPS_S * 1e3
@@ -205,6 +298,7 @@ def bound_ms(nbytes, ops):
 
 def main() -> int:
     try:
+        import numpy as np
         import torch
     except ImportError as e:
         print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
@@ -216,7 +310,9 @@ def main() -> int:
         from repro_torch.core.allocator import PolicyConfig
         from repro_torch.core.noc import sim, traffic
         from repro_torch.core.noc.topology import make_topology
+        from repro_torch.kernels import _build
         from repro_torch.kernels.noc_cycle import fused, kernel, ops
+        from repro_torch.obs import TraceRecorder, summarize_trace
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing beside this "
               f"script: {e}", file=sys.stderr)
@@ -233,6 +329,11 @@ def main() -> int:
     kernel.library()
     print(f"[1] kernel build + load: {time.time() - t0:.1f} s "
           f"({kernel.SOURCES[0].name})")
+    log = _build.build_log("noc_cycle", kernel.SOURCES)
+    usage = ptxas_usage(log.read_text()) if log.exists() else {}
+    check(set(usage) == {"B1", "B2", "B3"},
+          f"ptxas report lacks a kernel: {sorted(usage)} ({log})")
+    print(f"[1] ptxas -v per thread: {json.dumps(usage, sort_keys=True)}")
     sys.stdout.flush()
 
     # The kernel checks of phases 2-3 and the live case of phase 4 share one
@@ -307,54 +408,97 @@ def main() -> int:
         check(err == 0, f"B2 disagrees with {n} plain cycles (max abs err "
                         f"{err})")
         b2_err = max(b2_err, err)
-    scratch = fused.LaneState(*(x.clone() for x in st0))
-    b2_ms = cuda_ms(lambda: kernel.noc_fused_cycles(
-        d, scratch, xi2, xf2, *consts2), 10)
     b2_plain_ms = cuda_ms(lambda: fused.cycle_steps_lanes(
         d, st0, xi2, xf2, *consts2), 1, warmup=1)
-    print(f"[3] B2 bitwise equal after 1 and 500 cycles: kernel {b2_ms:.4f} "
-          f"ms, plain {b2_plain_ms:.1f} ms per 500 cycles")
+
+    # B3 on the same inputs from a non-zero flight-recorder carry; the
+    # plain 500-cycle run is timed as it is checked
+    pb0 = random_probe(d, torch.Generator(device=dev).manual_seed(SEED + 2))
+    b3_err = 0
+    for n in (1, 500):
+        k, kp = ops.fused_cycle_step(d, st0, xi2[:n], xf2[:n], *consts2,
+                                     probe=pb0)
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        p, pp = fused.cycle_steps_lanes(d, st0, xi2[:n], xf2[:n], *consts2,
+                                        probe=pb0)
+        b.record()
+        torch.cuda.synchronize()
+        b3_plain_ms = a.elapsed_time(b)
+        err = max(max_diff(k, p), max_diff(kp, pp))
+        check(err == 0, f"B3 disagrees with {n} plain cycles (max abs err "
+                        f"{err})")
+        b3_err = max(b3_err, err)
+        check(bool((kp.occ > pb0.occ).any()), "B3 added nothing to occ")
+    # B2 and B3 in turns on scratch copies (B2, B3, B3, B2)
+    scratch = fused.LaneState(*(x.clone() for x in st0))
+    scratch_pb = fused.ProbeLanes(*(x.clone() for x in pb0))
+
+    def time_b2():
+        return cuda_ms(lambda: kernel.noc_fused_cycles(
+            d, scratch, xi2, xf2, *consts2), 10)
+
+    def time_b3():
+        return cuda_ms(lambda: kernel.noc_fused_cycles_probed(
+            d, scratch, scratch_pb, xi2, xf2, *consts2), 10)
+
+    turns = [time_b2(), time_b3(), time_b3(), time_b2()]
+    b2_ms = (turns[0] + turns[3]) / 2
+    b3_ms = (turns[1] + turns[2]) / 2
+    print(f"[3] B2 bitwise equal after 1 and 500 cycles, B3 (B2 + probes) "
+          f"bitwise equal after 1 and 500 cycles from a non-zero carry; ms "
+          f"per 500-cycle launch in turns B2/B3/B3/B2 "
+          f"{' / '.join(f'{t:.4f}' for t in turns)}: B2 {b2_ms:.4f}, B3 "
+          f"{b3_ms:.4f} ({b3_ms / b2_ms:.3f}x); plain B2 {b2_plain_ms:.1f} "
+          f"ms, plain B3 {b3_plain_ms:.1f} ms per 500 cycles")
     sys.stdout.flush()
 
-    # ---- phase 4: engine congruence at the full grid, 6 x 500 cycles
+    # ---- phase 4: engine congruence at the full grid, 6 x 500 cycles, with
+    # the flight recorder on
     b1_launches = None
     cases = (("kf", sim.NoCConfig(mode="kf", **short), "SHIFT_PATH_BFS"),
              ("kf+guard+joint+faults+placement", live, "SHIFT_PATH_BFS"),
              ("4subnet", sim.NoCConfig(mode="4subnet", **short), "STO"),
              ("fair", sim.NoCConfig(mode="fair", **short), "STO"))
     for label, cfg, wl in cases:
-        res, secs = {}, {}
+        res, trc, secs = {}, {}, {}
         for engine in ("fused", "arb", "ref"):
             ops.reset_launches()
             t0 = time.time()
-            res[engine] = sim.simulate(
+            res[engine], trc[engine] = sim.simulate_with_trace(
                 cfg, wl, device=dev, engine=engine,
                 rng=torch.Generator(device=dev).manual_seed(SEED))
             secs[engine] = time.time() - t0
             if engine == "fused":
-                check(ops.LAUNCHES["noc_fused_cycles"] == 6,
-                      f"fused engine launched B2 {ops.LAUNCHES} times")
+                check(ops.LAUNCHES["noc_fused_cycles_probed"] == 6
+                      and ops.LAUNCHES["noc_fused_cycles"] == 0,
+                      f"traced fused engine launched {ops.LAUNCHES}")
             if engine == "arb":
                 check(ops.LAUNCHES["noc_arbitrate"] == 3000,
                       f"arb engine launched B1 {ops.LAUNCHES} times")
                 if label == "kf":
                     b1_launches = ops.LAUNCHES["noc_arbitrate"]
         for engine in ("arb", "ref"):
-            a, b = res["fused"], res[engine]
-            for f in ("applied_config", "kf_signal", "gpu_vc_quota"):
-                check(torch.equal(getattr(a, f), getattr(b, f)),
-                      f"{label}: {f} differs between fused and {engine}")
-            for f, x, y in zip(sim.EpochCounters._fields, a.counters,
-                               b.counters):
-                check(torch.equal(x, y),
-                      f"{label}: counter {f} differs between fused and "
-                      f"{engine}")
+            diff = results_equal(res["fused"], res[engine])
+            check(diff is None, f"{label}: {diff} differs between fused and "
+                                f"{engine}")
+            for f, x, y in zip(trc["fused"]._fields, trc["fused"],
+                               trc[engine]):
+                check(same(x, y), f"{label}: SimTrace {f} differs between "
+                                  f"fused and {engine}")
         conf = res["fused"].applied_config
         if label == "kf":
             check(bool((conf[1:] != conf[:-1]).any()),
                   "kf run never changed its applied_config")
-        print(f"[4] {label}/{wl}: fused == arb == ref bitwise over 6x500 "
-              f"cycles; applied_config {conf.tolist()}; wall s "
+        tsum = summarize_trace(trc["fused"])
+        print(f"[4] {label}/{wl}: fused == arb == ref bitwise (SimResult "
+              f"and SimTrace) over 6x500 cycles; applied_config "
+              f"{conf.tolist()}; trace digest grants "
+              f"{tsum['arb_grant_total']}, denies {tsum['arb_deny_total']}, "
+              f"rejects {tsum['kf_rejected_total']}, fault epochs "
+              f"{tsum['fault_epochs']}, moves {tsum['place_moves_total']}; "
+              f"wall s "
               + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         sys.stdout.flush()
 
@@ -391,11 +535,76 @@ def main() -> int:
               f"{cycles / wall:.0f} simulated cycles/s, summarize {summ}")
         sys.stdout.flush()
 
+    # ---- phase 5b: the traced path at full width through B3, and the
+    # recorder's record -> npz -> replay
+    n_full = sim.NoCConfig().n_epochs
+    traced_cfg = sim.NoCConfig(mode="kf", guard=True, control="joint",
+                               faults=fault_stream(topo, n_full),
+                               placement=placement_stream(topo, n_full))
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res_t, trace = sim.simulate_with_trace(traced_cfg, "SHIFT_PATH_BFS")
+    torch.cuda.synchronize()
+    wall_t = time.time() - t0
+    b3_launches = ops.LAUNCHES["noc_fused_cycles_probed"]
+    check(b3_launches == n_full and ops.LAUNCHES["noc_fused_cycles"] == 0
+          and ops.LAUNCHES["noc_arbitrate"] == 0,
+          f"traced path launched {ops.LAUNCHES}, expected {n_full} of B3 "
+          f"and nothing else")
+    check(trace.occ_sum.shape == (n_full, 4, topo.n_routers, 5, 4)
+          and bool((trace.occ_sum >= 0).all())
+          and bool((trace.mcq_max <= trace.mcq_sum).all())
+          and bool(torch.isfinite(trace.kf_gain).all()),
+          "traced path: misshapen or out-of-range SimTrace")
+    tsum = summarize_trace(trace)
+    check(tsum["fault_epochs"] > 0 and tsum["place_moves_total"] > 0
+          and tsum["kf_rejected_total"] > 0,
+          f"traced path: fault, placement or guard channel idle: {tsum}")
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res_u = sim.simulate(traced_cfg, "SHIFT_PATH_BFS")
+    torch.cuda.synchronize()
+    wall_u = time.time() - t0
+    check(ops.LAUNCHES["noc_fused_cycles"] == n_full,
+          f"untraced twin launched {ops.LAUNCHES}")
+    diff = results_equal(res_t, res_u)
+    check(diff is None, f"traced SimResult differs from untraced at {diff}")
+    cycles = n_full * traced_cfg.epoch_len
+    print(f"[5] traced kf+guard+joint+faults+placement/SHIFT_PATH_BFS "
+          f"{n_full}x{traced_cfg.epoch_len}: {b3_launches} B3 launches, "
+          f"wall {wall_t:.2f} s, {cycles / wall_t:.0f} simulated cycles/s; "
+          f"untraced twin {wall_u:.2f} s, {cycles / wall_u:.0f} cycles/s; "
+          f"SimResult bitwise equal; digest {tsum}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "capture.npz")
+        rec = TraceRecorder(name="chip_smoke").record_to(
+            path, traced_cfg, "SHIFT_PATH_BFS")
+        # (json text, so that a NaN innovation of a NaN-telemetry epoch
+        # compares equal to itself)
+        check(json.dumps(rec.meta["observed"], sort_keys=True)
+              == json.dumps(tsum, sort_keys=True),
+              "the recorder's observed digest differs from the traced run's")
+        with np.load(path, allow_pickle=False) as data:
+            problems = traffic.validate_trace_npz(data)
+        check(problems == [], f"recorded npz invalid: {problems}")
+        loaded = traffic.RecordedTrace.load(path)
+    replay = sim.simulate(traced_cfg, loaded)
+    diff = results_equal(replay, res_u)
+    check(diff is None, f"replayed npz differs from the run at {diff}")
+    print(f"[5] TraceRecorder(observe=True) -> npz ({loaded.n_epochs_recorded}"
+          f" rows) -> RecordedTrace.load -> simulate: bitwise equal to the "
+          f"untraced run")
+    sys.stdout.flush()
+
     # ---- phase 6: the kernels line
     nb1, op1 = b1_bound(d, L)
     nb2, op2 = b2_bound(d, 500)
+    nb3, op3 = b3_bound(d, 500)
     bm1, by1 = bound_ms(nb1, op1)
     bm2, by2 = bound_ms(nb2, op2)
+    bm3, by3 = bound_ms(nb3, op3)
     kernels = [
         dict(name="noc_arbitrate", route="cuda",
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
@@ -408,6 +617,12 @@ def main() -> int:
              replaces="src/repro/kernels/noc_cycle/kernel.py:114",
              launches=b2_launches, max_abs_err=b2_err, ms=b2_ms,
              plain_ms=b2_plain_ms, bound_ms=bm2, bound_by=by2,
+             library_ms=None),
+        dict(name="noc_fused_cycles_probed", route="cuda",
+             source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
+             replaces="src/repro/kernels/noc_cycle/kernel.py:152",
+             launches=b3_launches, max_abs_err=b3_err, ms=b3_ms,
+             plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),
     ]
     print(f"[6] total {time.time() - t_start:.1f} s")

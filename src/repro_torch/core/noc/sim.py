@@ -22,6 +22,13 @@ One run is a Python loop over epochs.  Each epoch:
 * the epoch boundary on the host CPU: normalize the counters, step the
   predictor bank and KF, binarize, apply the hysteresis policy.
 
+`simulate_with_trace` runs the same loop with the flight recorder on and
+returns a `SimTrace` beside the `SimResult`: the fabric probes accumulate
+per cycle (the fused engine then launches the probed cycle kernel), and
+the KF internals, the observation, the fault count and the node-class plan
+are kept per epoch.  The switch is a Python flag, so `simulate` runs none
+of it, and the `SimResult` of a traced run is bitwise the untraced one.
+
 The data plane runs on the run's device; the control plane (a scalar KF
 and a three-integer state machine) runs on the CPU, once per epoch.
 """
@@ -70,6 +77,7 @@ from repro_torch.core.noc.traffic import (
     resolve_source,
     step_phase_u,
 )
+from repro_torch.obs.probes import SimTrace
 
 Tensor = torch.Tensor
 _I32 = torch.int32
@@ -194,6 +202,25 @@ class EpochCounters(NamedTuple):
     moved: Tensor
 
 
+class _ProbeAcc(NamedTuple):
+    """Dense-engine flight-recorder accumulators over one epoch; the fused
+    engine's twin is `fused.ProbeLanes`.  Both sample END-of-cycle state."""
+
+    occ: Tensor      # (S, R, P, V) int32 summed VC occupancy
+    grant: Tensor    # (S, R) int32 switch grants, summed over outputs
+    deny: Tensor     # (S, R) int32 refused requests, summed over outputs
+    mcq_sum: Tensor  # (R,) int32 summed MC queue depth
+    mcq_max: Tensor  # (R,) int32 running max MC queue depth
+
+
+def _zero_probe_acc(S: int, R: int, V: int, device) -> _ProbeAcc:
+    def z(*shape):
+        return torch.zeros(shape, dtype=_I32, device=device)
+
+    return _ProbeAcc(occ=z(S, R, rt.N_PORTS, V), grant=z(S, R),
+                     deny=z(S, R), mcq_sum=z(R), mcq_max=z(R))
+
+
 class SimResult(NamedTuple):
     gpu_ipc: Tensor         # (E,) per-epoch GPU IPC proxy
     cpu_ipc: Tensor         # (E,)
@@ -312,7 +339,8 @@ class EpochInputs(NamedTuple):
 
     gpu_masks: Tensor   # (S, V) bool
     cpu_masks: Tensor
-    ntype_e: Tensor     # (R,) int32 virtual node type
+    place_cls: Tensor   # (R,) int32 node-class plan of the applied config
+    ntype_e: Tensor     # (R,) int32 virtual node type (MC tiles 2)
     node_cls: Tensor    # (R,) int32
     req_sub: Tensor     # (R,) int32
     prof: WorkloadProfile  # () float32 leaves
@@ -353,7 +381,7 @@ def epoch_inputs(
     return EpochInputs(
         gpu_masks=g_vec.to(dev).expand(S, V),
         cpu_masks=c_vec.to(dev).expand(S, V),
-        ntype_e=ntype_e, node_cls=node_cls,
+        place_cls=cls_e.to(_I32), ntype_e=ntype_e, node_cls=node_cls,
         req_sub=torch.where(fs, 2 * node_cls, 0).to(_I32),
         prof=WorkloadProfile(*(leaf[e] for leaf in run.profile)),
         link_ok=run.faults.link_ok[e], router_ok=run.faults.router_ok[e],
@@ -414,7 +442,8 @@ def lane_inputs(run: RunInputs, tables, ep: EpochInputs):
     return xi, xf, consts
 
 
-def _simulate_impl(run: RunInputs) -> SimResult:
+def _simulate_impl(run: RunInputs, probe: bool = False):
+    """The epoch loop; with ``probe`` it also returns the `SimTrace`."""
     stc, mp, topo, dev = run.stc, run.mp, run.topo, run.device
     route_t, nb_t, opp_t, _, _ = rt.device_tables(topo, dev)
     R, S, Q = topo.n_routers, stc.n_subnets, stc.mc_queue_cap
@@ -457,7 +486,7 @@ def _simulate_impl(run: RunInputs) -> SimResult:
         )
 
     def dense_cycle(ep: EpochInputs, i: int, carry):
-        subs, mc, phase, outstanding, bl_count, cnt = carry
+        subs, mc, phase, outstanding, bl_count, cnt = carry[:6]
         cycle = ep.cycles[i]
 
         # MC acceptance (queue depth BEFORE this cycle's service)
@@ -567,9 +596,21 @@ def _simulate_impl(run: RunInputs) -> SimResult:
             gpu_ej.sum(),
             ev.moved,
         ]).to(_I32)
-        return subs, mc, phase, outstanding, bl_count, cnt + inc
+        out = (subs, mc, phase, outstanding, bl_count, cnt + inc)
+        if not probe:
+            return out
+        # 7. flight recorder: END-of-cycle state (the fused engine samples
+        # at the same point)
+        prb = carry[6]
+        return out + (_ProbeAcc(
+            occ=prb.occ + subs.count.to(_I32),
+            grant=prb.grant + ev.grant_cnt,
+            deny=prb.deny + ev.deny_cnt,
+            mcq_sum=prb.mcq_sum + mc.count,
+            mcq_max=torch.maximum(prb.mcq_max, mc.count),
+        ),)
 
-    outs = []
+    outs, probes = [], []
     cycle0 = 0
     for e in range(stc.n_epochs):
         # ---- epoch set-up: masks, node classes, streams, prologue inject
@@ -587,18 +628,28 @@ def _simulate_impl(run: RunInputs) -> SimResult:
         # ---- the epoch's cycles
         if stc.engine == "fused":
             xi, xf, consts = lane_inputs(run, tables, ep)
-            ls = lane_ops.fused_cycle_step(
-                d, lanes.pack_state(d, subs, mc, outst, backlog, phase),
-                xi, xf, *consts, donate=True,
-            )
+            ls0 = lanes.pack_state(d, subs, mc, outst, backlog, phase)
+            if probe:
+                ls, pb = lane_ops.fused_cycle_step(
+                    d, ls0, xi, xf, *consts,
+                    probe=lanes.zero_probe(d, dev), donate=True,
+                )
+                prb = _ProbeAcc(*lanes.unpack_probe(d, pb))
+            else:
+                ls = lane_ops.fused_cycle_step(d, ls0, xi, xf, *consts,
+                                               donate=True)
             subs, mc, outst, backlog, phase = lanes.unpack_state(d, ls, MCState)
             cnt = ls.cnt[0, :lanes.N_COUNTERS]
         else:
             carry = (subs, mc, phase, outst, backlog,
                      torch.zeros(15, dtype=_I32, device=dev))
+            if probe:
+                carry += (_zero_probe_acc(S, R, stc.n_vcs, dev),)
             for i in range(ep_len):
                 carry = dense_cycle(ep, i, carry)
-            subs, mc, phase, outst, backlog, cnt = carry
+            subs, mc, phase, outst, backlog, cnt = carry[:6]
+            if probe:
+                prb = carry[6]
         cycle0 += ep_len
         cnt = EpochCounters(*cnt.cpu().unbind())
 
@@ -617,8 +668,14 @@ def _simulate_impl(run: RunInputs) -> SimResult:
             z = z + run.faults.telem_mag[e]
         elif tm == TELEM_NAN:
             z = torch.full_like(z, float("nan"))
-        pred_state, signal = predictor.step(mp.predictor, kf_params,
-                                            pred_state, z)
+        if probe:
+            pred_state, signal, kfi = predictor.step_probed(
+                mp.predictor, kf_params, pred_state, z
+            )
+            probes.append((prb, kfi, z, ep.place_cls))
+        else:
+            pred_state, signal = predictor.step(mp.predictor, kf_params,
+                                                pred_state, z)
         cyc = torch.tensor(cycle0, dtype=_I32)
         policy = apply_policy_gated(stc.policy, mp, policy, signal, cyc)
         policy = degrade_policy(policy, pred_state.healthy)
@@ -636,7 +693,7 @@ def _simulate_impl(run: RunInputs) -> SimResult:
         ))
 
     gpu_ipc, cpu_ipc, avg_lat, sig, conf, cnts, inj, quota = zip(*outs)
-    return SimResult(
+    result = SimResult(
         gpu_ipc=torch.stack(gpu_ipc).float(),
         cpu_ipc=torch.stack(cpu_ipc).float(),
         avg_latency=torch.stack(avg_lat).float(),
@@ -645,6 +702,35 @@ def _simulate_impl(run: RunInputs) -> SimResult:
         counters=EpochCounters(*(torch.stack(x) for x in zip(*cnts))),
         gpu_inj_rate=torch.stack(inj).float(),
         gpu_vc_quota=torch.stack(quota),
+    )
+    if not probe:
+        return result
+    return result, _trace(run, probes)
+
+
+def _trace(run: RunInputs, probes) -> SimTrace:
+    """Stack the per-epoch probe records into a `SimTrace` on the CPU."""
+    prbs, kfis, zs, place = zip(*probes)
+
+    def stack(xs):
+        return torch.stack(xs).cpu()
+
+    acc = _ProbeAcc(*(stack(x) for x in zip(*prbs)))
+    kfi = predictor.KFInternals(*(stack(x) for x in zip(*kfis)))
+    # suppressed fabric elements per epoch + the telemetry-corruption flag
+    f = run.faults
+    faults_active = (
+        (~f.link_ok).sum((1, 2)).cpu() + (~f.router_ok).sum(1).cpu()
+        + (~f.mc_ok).sum(1).cpu() + (f.telem_mode.cpu() != 0)
+    ).to(_I32)
+    return SimTrace(
+        occ_sum=acc.occ, arb_grant=acc.grant, arb_deny=acc.deny,
+        mcq_sum=acc.mcq_sum, mcq_max=acc.mcq_max,
+        kf_innovation=kfi.innovation, kf_gain=kfi.gain,
+        kf_cov_trace=kfi.cov_trace, kf_x_pred=kfi.x_pred,
+        z_obs=stack(zs), kf_nis=kfi.nis, kf_rejected=kfi.rejected,
+        kf_reset=kfi.reset, kf_healthy=kfi.healthy,
+        faults_active=faults_active, place_cls=stack(place),
     )
 
 
@@ -667,6 +753,25 @@ def simulate(
     """
     return _simulate_impl(run_inputs(cfg, source, device=device, rng=rng,
                                      engine=engine))
+
+
+def simulate_with_trace(
+    cfg: NoCConfig,
+    source: TrafficSourceLike,
+    *,
+    device: str | torch.device | None = None,
+    rng: torch.Generator | EpochStreams | None = None,
+    engine: str | None = None,
+) -> tuple[SimResult, SimTrace]:
+    """`simulate` with the flight recorder on: returns (SimResult,
+    SimTrace), both on the CPU.  The SimResult is bitwise `simulate`'s on
+    the same arguments; the SimTrace is bitwise equal across the three
+    engines.  On the CUDA device the "fused" engine launches the probed
+    cycle kernel (B3) once per epoch."""
+    return _simulate_impl(
+        run_inputs(cfg, source, device=device, rng=rng, engine=engine),
+        probe=True,
+    )
 
 
 def run_workload(mode: str, workload: str, *, device=None,

@@ -7,13 +7,17 @@ source lowers through `resolve_source` to the canonical `EpochDemand`: a
 parameter row per epoch.  Scenario schedules are materialized with numpy
 exactly as the JAX package does, so their rows agree bit for bit.
 
-Recorded traces, their npz schema and the workload registry are not part
-of this package yet.
+A `RecordedTrace` replays per-epoch rows saved in a versioned npz file
+(schema ``noc_demand_trace`` v1, no pickling).  The format is the one the
+JAX package reads and writes, so a file written by either package loads
+and validates in the other.  Named workloads resolve through a registry
+first, then PROFILES, then SCENARIOS.
 """
 from __future__ import annotations
 
 import dataclasses
 import difflib
+import json
 from typing import Iterable, NamedTuple, Protocol, runtime_checkable
 
 import numpy as np
@@ -262,15 +266,236 @@ class TrafficSource(Protocol):
 
 EpochDemand = WorkloadProfile
 
-TrafficSourceLike = str | WorkloadProfile | ScenarioSchedule
+# Versioned npz trace schema.  A trace file is a plain npz (no pickling):
+#   schema          — the literal "noc_demand_trace"
+#   schema_version  — int, currently 1
+#   name            — short trace name (informational)
+#   meta_json       — JSON object of provenance
+#   demand_<field>  — (T,) float32 row per WorkloadProfile field
+TRACE_SCHEMA = "noc_demand_trace"
+TRACE_SCHEMA_VERSION = 1
+
+_FIT_MODES = ("exact", "tile", "stretch")
+
+
+@dataclasses.dataclass(frozen=True)
+class RecordedTrace:
+    """A replayed per-epoch demand trace (a TrafficSource).
+
+    ``demand`` holds the recorded rows as a ``WorkloadProfile`` of ``(T,)``
+    float32 numpy leaves.  ``fit`` says how T rows meet a run of
+    ``n_epochs`` epochs:
+
+      * ``"exact"``   — require T == n_epochs (bitwise replay);
+      * ``"tile"``    — epoch e reads row e % T;
+      * ``"stretch"`` — resample the rows linearly onto n_epochs points
+                        (numpy float64, then float32, as the reference).
+
+    When T == n_epochs every mode passes the rows through untouched.
+    """
+
+    demand: WorkloadProfile
+    fit: str = "exact"
+    name: str = "trace"
+    meta: dict = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if self.fit not in _FIT_MODES:
+            raise ValueError(
+                f"fit must be one of {_FIT_MODES}, got {self.fit!r}"
+            )
+        rows = {}
+        length = None
+        for f in WorkloadProfile._fields:
+            row = np.asarray(getattr(self.demand, f), np.float32)
+            if row.ndim == 0:
+                raise ValueError(
+                    f"RecordedTrace leaf {f!r} is a scalar; recorded demand "
+                    "must be per-epoch (T,) rows — use WorkloadProfile for "
+                    "stationary sources"
+                )
+            if row.ndim != 1:
+                raise ValueError(
+                    f"RecordedTrace leaf {f!r} has shape {row.shape}, "
+                    "expected (T,)"
+                )
+            if length is None:
+                length = row.shape[0]
+            elif row.shape[0] != length:
+                raise ValueError(
+                    f"RecordedTrace leaves disagree on length: {f!r} has "
+                    f"{row.shape[0]}, expected {length}"
+                )
+            rows[f] = row
+        if length == 0:
+            raise ValueError("RecordedTrace needs at least one epoch row")
+        object.__setattr__(self, "demand", WorkloadProfile(**rows))
+
+    @property
+    def n_epochs_recorded(self) -> int:
+        return int(self.demand.gpu_rate_lo.shape[0])
+
+    def epoch_demand(self, n_epochs: int) -> WorkloadProfile:
+        """Fit the recorded rows to ``n_epochs`` epochs (float32 tensors)."""
+        T = self.n_epochs_recorded
+        if T == n_epochs:
+            rows = {f: getattr(self.demand, f) for f in WorkloadProfile._fields}
+        elif self.fit == "exact":
+            raise ValueError(
+                f"trace {self.name!r} has {T} recorded epochs but the run "
+                f"wants {n_epochs}; use fit='tile' or fit='stretch' to "
+                "adapt it"
+            )
+        elif self.fit == "tile":
+            idx = np.arange(n_epochs) % T
+            rows = {f: getattr(self.demand, f)[idx]
+                    for f in WorkloadProfile._fields}
+        else:  # stretch
+            src = np.linspace(0.0, 1.0, T, dtype=np.float64)
+            dst = np.linspace(0.0, 1.0, n_epochs, dtype=np.float64)
+            rows = {
+                f: np.interp(
+                    dst, src, getattr(self.demand, f).astype(np.float64)
+                ).astype(np.float32)
+                for f in WorkloadProfile._fields
+            }
+        return WorkloadProfile(**{
+            f: torch.from_numpy(np.array(rows[f], np.float32))
+            for f in WorkloadProfile._fields
+        })
+
+    def with_fit(self, fit: str) -> "RecordedTrace":
+        return dataclasses.replace(self, fit=fit)
+
+    def save(self, path) -> None:
+        """Write the trace as a versioned npz file (no pickling)."""
+        payload = {
+            "schema": TRACE_SCHEMA,
+            "schema_version": np.int64(TRACE_SCHEMA_VERSION),
+            "name": self.name,
+            "meta_json": json.dumps(self.meta, sort_keys=True),
+        }
+        for f in WorkloadProfile._fields:
+            payload[f"demand_{f}"] = getattr(self.demand, f)
+        np.savez(path, **payload)
+
+    @classmethod
+    def load(cls, path, fit: str = "exact") -> "RecordedTrace":
+        """Load a schema-validated trace file."""
+        with np.load(path, allow_pickle=False) as data:
+            problems = validate_trace_npz(data)
+            if problems:
+                raise ValueError(
+                    f"{path}: not a valid {TRACE_SCHEMA} file: "
+                    + "; ".join(problems)
+                )
+            demand = WorkloadProfile(**{
+                f: np.asarray(data[f"demand_{f}"], np.float32)
+                for f in WorkloadProfile._fields
+            })
+            name = str(np.asarray(data["name"]).item())
+            meta = json.loads(str(np.asarray(data["meta_json"]).item()))
+        return cls(demand=demand, fit=fit, name=name, meta=meta)
+
+
+def validate_trace_npz(data) -> list[str]:
+    """Schema problems of an opened npz mapping ([] when valid)."""
+    problems = []
+    keys = set(getattr(data, "files", data.keys()))
+    for key in ("schema", "schema_version", "name", "meta_json"):
+        if key not in keys:
+            problems.append(f"missing key {key!r}")
+    if "schema" in keys:
+        schema = str(np.asarray(data["schema"]).item())
+        if schema != TRACE_SCHEMA:
+            problems.append(f"schema is {schema!r}, expected {TRACE_SCHEMA!r}")
+    if "schema_version" in keys:
+        version = int(np.asarray(data["schema_version"]).item())
+        if version > TRACE_SCHEMA_VERSION:
+            problems.append(
+                f"schema_version {version} is newer than supported "
+                f"{TRACE_SCHEMA_VERSION}"
+            )
+    length = None
+    for f in WorkloadProfile._fields:
+        key = f"demand_{f}"
+        if key not in keys:
+            problems.append(f"missing key {key!r}")
+            continue
+        row = np.asarray(data[key])
+        if row.ndim != 1 or row.shape[0] == 0:
+            problems.append(f"{key} has shape {row.shape}, expected (T,)")
+        elif length is None:
+            length = row.shape[0]
+        elif row.shape[0] != length:
+            problems.append(
+                f"{key} has length {row.shape[0]}, expected {length}"
+            )
+        if row.size and not np.all(np.isfinite(row)):
+            problems.append(f"{key} contains non-finite values")
+        elif row.size and np.any(row < 0):
+            problems.append(f"{key} contains negative values")
+    if "meta_json" in keys:
+        try:
+            meta = json.loads(str(np.asarray(data["meta_json"]).item()))
+            if not isinstance(meta, dict):
+                problems.append("meta_json is not a JSON object")
+        except (json.JSONDecodeError, ValueError):
+            problems.append("meta_json is not valid JSON")
+    return problems
+
+
+TrafficSourceLike = str | WorkloadProfile | ScenarioSchedule | RecordedTrace
+
+# Registered workloads share one namespace with PROFILES and SCENARIOS and
+# win on collision, so a registered trace can shadow a builtin.
+_REGISTRY: dict[str, TrafficSource] = {}
+
+
+def register_workload(
+    name: str, source: TrafficSource, overwrite: bool = False
+) -> None:
+    """Register a named workload (any TrafficSource).  Refuses an existing
+    registered or builtin name unless ``overwrite``."""
+    if not isinstance(source, TrafficSource):
+        raise TypeError(
+            f"source for {name!r} does not implement TrafficSource "
+            "(needs an epoch_demand(n_epochs) method)"
+        )
+    if not overwrite and (
+        name in _REGISTRY or name in PROFILES or name in SCENARIOS
+    ):
+        raise ValueError(
+            f"workload {name!r} already exists; pass overwrite=True to "
+            "replace it"
+        )
+    _REGISTRY[name] = source
+
+
+def register_trace(
+    name: str, path, fit: str = "exact", overwrite: bool = False
+) -> RecordedTrace:
+    """Load a trace file and register it as a named workload."""
+    trace = RecordedTrace.load(path, fit=fit)
+    register_workload(name, trace, overwrite=overwrite)
+    return trace
+
+
+def unregister_workload(name: str) -> None:
+    """Remove a registered workload (builtins are untouchable)."""
+    _REGISTRY.pop(name, None)
 
 
 def lookup_workload(name: str) -> TrafficSource:
+    """Resolve a name from the registry, PROFILES or SCENARIOS; an unknown
+    name raises ValueError listing close matches across all three."""
+    if name in _REGISTRY:
+        return _REGISTRY[name]
     if name in PROFILES:
         return PROFILES[name]
     if name in SCENARIOS:
         return SCENARIOS[name]
-    known = sorted({*PROFILES, *SCENARIOS})
+    known = sorted({*PROFILES, *SCENARIOS, *_REGISTRY})
     near = difflib.get_close_matches(name, known, n=3, cutoff=0.4)
     hint = f"; did you mean {near}?" if near else ""
     raise ValueError(
@@ -292,7 +517,8 @@ def resolve_source(source: TrafficSourceLike, n_epochs: int) -> EpochDemand:
             raise TypeError(
                 f"cannot resolve demand source of type "
                 f"{type(source).__name__}; expected a workload name, "
-                "WorkloadProfile, ScenarioSchedule, or any TrafficSource"
+                "WorkloadProfile, ScenarioSchedule, RecordedTrace, or any "
+                "TrafficSource"
             )
     demand = source.epoch_demand(n_epochs)
     for f in WorkloadProfile._fields:

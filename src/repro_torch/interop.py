@@ -1,7 +1,8 @@
 """Carry inputs and state across from numpy into the port's NamedTuples.
 
 This system has no weights: what crosses over is demand, fault and
-placement streams, simulator state and random streams.  Each converter
+placement streams, recorded traces, simulator state, the flight-recorder
+carry and random streams.  Each converter
 takes any object with the right field names whose leaves numpy can read
 (for example a NamedTuple of numpy arrays) and returns the port's
 NamedTuple of the same field names on ``device``.  uint16 injection stamps
@@ -16,8 +17,8 @@ from repro_torch.core.noc.faults import FaultStream
 from repro_torch.core.noc.placement import PlacementStream
 from repro_torch.core.noc.router import SubnetState
 from repro_torch.core.noc.sim import EpochStreams, MCState
-from repro_torch.core.noc.traffic import WorkloadProfile
-from repro_torch.kernels.noc_cycle.fused import LaneState
+from repro_torch.core.noc.traffic import RecordedTrace, WorkloadProfile
+from repro_torch.kernels.noc_cycle.fused import LaneState, ProbeLanes
 
 
 def tensor(x, device="cpu", dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -73,6 +74,23 @@ def mc_state(obj, device="cpu") -> MCState:
 def lane_state(obj, device="cpu") -> LaneState:
     return _convert(LaneState, obj, device,
                     {f: torch.int32 for f in LaneState._fields})
+
+
+def probe_lanes(obj, device="cpu") -> ProbeLanes:
+    """The lane engine's flight-recorder carry (three int32 leaves)."""
+    return _convert(ProbeLanes, obj, device,
+                    {f: torch.int32 for f in ProbeLanes._fields})
+
+
+def recorded_trace(obj) -> RecordedTrace:
+    """A recorded trace (``demand`` rows, ``fit``, ``name``, ``meta``) as
+    the port's `RecordedTrace`; its rows stay float32 numpy arrays."""
+    demand = WorkloadProfile(*(
+        np.array(getattr(obj.demand, f), np.float32)
+        for f in WorkloadProfile._fields
+    ))
+    return RecordedTrace(demand=demand, fit=obj.fit, name=obj.name,
+                         meta=dict(obj.meta))
 
 
 def epoch_stream_provider(

@@ -5,9 +5,11 @@ Each library is compiled from the sources in the checkout into
 sources and flags in its file name, so a stale library is never loaded:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/repro_torch/lib<name>_<hash>.so <sources>
+         -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>_<hash>.so <sources>
 
-The sources have a plain C interface; the wrappers load them with ctypes.
+ptxas's report of each kernel's registers, stack and spill bytes is kept
+beside the library as lib<name>_<hash>.ptxas.txt (`build_log`).  The
+sources have a plain C interface; the wrappers load them with ctypes.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 
@@ -48,6 +50,11 @@ def library_path(name: str, sources: list[Path]) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+def build_log(name: str, sources: list[Path]) -> Path:
+    """ptxas's resource report of the library's last build."""
+    return library_path(name, sources).with_suffix(".ptxas.txt")
+
+
 def build(name: str, sources: list[Path]) -> Path:
     """Compile ``sources`` into the hashed library unless it exists."""
     out = library_path(name, sources)
@@ -64,6 +71,7 @@ def build(name: str, sources: list[Path]) -> Path:
             f"nvcc failed building {name} ({proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
+    build_log(name, sources).write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return out
 

@@ -33,7 +33,22 @@
 //   reduces counters with shared-memory integer atomics (integer sums are
 //   order-independent, so results stay bitwise).
 //
-// Both kernels call one __device__ lane_arbitrate, so they cannot drift.
+// noc_fused_cycles_probed  replaces
+//   repro/kernels/noc_cycle/kernel.py::_fused_cycle_probed_kernel
+//   B2 plus the flight-recorder carry (fused.ProbeLanes): per lane the
+//   summed end-of-cycle VC counts and the summed switch grants and
+//   refusals, per node the summed and maxed MC queue depth after service
+//   and enqueue.  It is the PROBE = true instantiation of B2's kernel: the
+//   probe code sits in `if constexpr` blocks, so the probes-off
+//   instantiation is B2 unchanged.  The accumulators live in registers
+//   across the cycle loop (20 + 2 ints per lane thread, 2 per node thread)
+//   and are added to the probe arrays once, after the loop; no barrier is
+//   added.  Bound on this card: B2's, plus ~46 KB of probe reads and
+//   writes and ~50 integer adds per lane per cycle; the limit is still
+//   B2's barrier chain.
+//
+// All three kernels call one __device__ lane_arbitrate, so they cannot
+// drift.
 // Every C entry point returns cudaGetLastError() (0 = launched).
 
 #include <cuda_runtime.h>
@@ -56,6 +71,8 @@ enum { ND_OUTST, ND_BACKLOG, ND_PHASE, ND_ROWS };
 enum { PS_ENABLED, PS_IS_REQ, PS_IS_REP, PS_REQ_MATCH, PS_ROWS };
 enum { PR_FS, PR_NREQ, PR_ROWS };
 enum { PF_LO, PF_HI, PF_ENTER, PF_EXIT, PF_CPU, PF_ROWS };
+enum { PB_GRANT, PB_DENY };
+enum { PB_MCQ_SUM, PB_MCQ_MAX };
 enum {
   C_GPU_PUSH, C_GPU_STALL_ICNT, C_GPU_STALL_DRAM, C_CPU_PUSH, C_GPU_DONE,
   C_CPU_DONE, C_GPU_GEN, C_CPU_GEN, C_LAT_SUM, C_LAT_CNT, C_CPU_LAT_SUM,
@@ -197,7 +214,7 @@ __global__ void noc_arbitrate_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// B2: whole cycles, one block per simulation
+// B2 / B3: whole cycles, one block per simulation
 // ---------------------------------------------------------------------------
 struct CycleArgs {
   int *buf_meta, *buf_binj, *head, *count, *rr;  // (rows, L) lane state
@@ -209,9 +226,10 @@ struct CycleArgs {
   const int *pol_sr, *pol_r, *ntype;             // (4, L), (2, 128), (1, 128)
   const int *route, *exists;                     // (R, L) shared, (P, L)
   int n_cycles, S, R, Q, width, mc_period, mshr_limit, bcap, stamp_mask;
+  int *p_occ, *p_arb, *p_mcq;  // B3's ProbeLanes: (P*V, L), (2, L), (2, 128)
 };
 
-template <int V, int B>
+template <int V, int B, bool PROBE>
 __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
   constexpr int PV = P * V;
   const int L = g.S * R_PAD;
@@ -298,6 +316,27 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
     for (int i = 0; i < PF_ROWS; ++i) pf[i] = prof[i * LANES_R + l];
   }
   if (l < N_COUNTERS) s_cnt[l] = cnt[l];
+
+  // flight-recorder accumulators (B3), carried in registers from the
+  // probe arrays handed in
+  int acc_occ[PROBE ? PV : 1];
+  int acc_grant = 0, acc_deny = 0, acc_mcq_sum = 0, acc_mcq_max = 0;
+  int* p_occ = nullptr;
+  int* p_arb = nullptr;
+  int* p_mcq = nullptr;
+  if constexpr (PROBE) {
+    p_occ = g.p_occ + b * PV * L;
+    p_arb = g.p_arb + b * 2 * L;
+    p_mcq = g.p_mcq + b * 2 * LANES_R;
+#pragma unroll
+    for (int i = 0; i < PV; ++i) acc_occ[i] = p_occ[i * L + l];
+    acc_grant = p_arb[PB_GRANT * L + l];
+    acc_deny = p_arb[PB_DENY * L + l];
+    if (node_thread) {
+      acc_mcq_sum = p_mcq[PB_MCQ_SUM * LANES_R + l];
+      acc_mcq_max = p_mcq[PB_MCQ_MAX * LANES_R + l];
+    }
+  }
   __syncthreads();
 
   for (int c = 0; c < g.n_cycles; ++c) {
@@ -376,6 +415,10 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
       s_wbinj[o][l] = wb;
       rr[o] = a.new_rr[o];
       moved += a.grant[o];
+      if constexpr (PROBE) {
+        acc_grant += a.grant[o];
+        acc_deny += a.any_req[o] && !a.grant[o];
+      }
     }
 #pragma unroll
     for (int pv = 0; pv < PV; ++pv) {
@@ -455,6 +498,10 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
         }
         mc_count += off;
       }
+      if constexpr (PROBE) {  // queue depth after service and enqueue
+        acc_mcq_sum += mc_count;
+        acc_mcq_max = max(acc_mcq_max, mc_count);
+      }
       outst -= rep_done;
       const float u_ph = fc[XF_UPHASE * LANES_R + l];
       const float u_gen = fc[XF_UGEN * LANES_R + l];
@@ -509,6 +556,10 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
       s_ok[l] = ok;
 #pragma unroll
       for (int i = 0; i < PV; ++i) count_g[i * L + l] = count[i];
+      if constexpr (PROBE) {  // end-of-cycle counts
+#pragma unroll
+        for (int i = 0; i < PV; ++i) acc_occ[i] += count[i];
+      }
     }
     __syncthreads();  // barrier 5: inject outcomes + end-of-cycle counts
 
@@ -548,6 +599,16 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
     node[ND_BACKLOG * LANES_R + l] = backlog;
     node[ND_PHASE * LANES_R + l] = phase;
   }
+  if constexpr (PROBE) {
+#pragma unroll
+    for (int i = 0; i < PV; ++i) p_occ[i * L + l] = acc_occ[i];
+    p_arb[PB_GRANT * L + l] = acc_grant;
+    p_arb[PB_DENY * L + l] = acc_deny;
+    if (node_thread) {
+      p_mcq[PB_MCQ_SUM * LANES_R + l] = acc_mcq_sum;
+      p_mcq[PB_MCQ_MAX * LANES_R + l] = acc_mcq_max;
+    }
+  }
   __syncthreads();
   if (l < N_COUNTERS) cnt[l] = s_cnt[l];
 }
@@ -563,10 +624,20 @@ void launch_arbitrate(const int* const* in, int depth, int L, int* const* out,
       out[6]);
 }
 
-template <int V, int B>
-void launch_fused(const CycleArgs& args, int batch, cudaStream_t stream) {
-  noc_fused_cycles_kernel<V, B>
-      <<<batch, args.S * R_PAD, 0, stream>>>(args);
+// Launches B2 (PROBE = false) or B3 on `batch` simulations.  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a (V, B) pair without
+// an instantiation or a lane axis wider than one block.
+template <bool PROBE>
+int launch_fused(const CycleArgs& args, int batch, int V, int B,
+                 void* stream) {
+  if (args.S * R_PAD > MAX_L || (args.S * R_PAD) % LANES_R != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Only the paper's (V, B) = (4, 4) is instantiated, as for B1.
+  if (V != 4 || B != 4) return static_cast<int>(cudaErrorInvalidValue);
+  noc_fused_cycles_kernel<4, 4, PROBE>
+      <<<batch, args.S * R_PAD, 0, static_cast<cudaStream_t>(stream)>>>(
+          args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -595,10 +666,8 @@ int noc_arbitrate(const int* valid, const int* cls, const int* out_port,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Runs n_cycles whole cycles on `batch` simulations, updating the nine
-// LaneState arrays in place.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a (V, B) pair without an instantiation or a
-// lane axis wider than one block.
+// B2: runs n_cycles whole cycles on `batch` simulations, updating the
+// nine LaneState arrays in place.
 int noc_fused_cycles(int batch, int n_cycles, int S, int R, int V, int B,
                      int Q, int width, int mc_period, int mshr_limit,
                      int bcap, int stamp_mask, int* buf_meta, int* buf_binj,
@@ -607,18 +676,30 @@ int noc_fused_cycles(int batch, int n_cycles, int S, int R, int V, int B,
                      const int* gmask, const int* cmask, const float* prof,
                      const int* pol_sr, const int* pol_r, const int* ntype,
                      const int* route, const int* exists, void* stream) {
-  if (S * R_PAD > MAX_L || (S * R_PAD) % LANES_R != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
   CycleArgs a{buf_meta, buf_binj, head,  count, rr,     mcq,    mc,
               node,     cnt,      xi,    xf,    gmask,  cmask,  prof,
               pol_sr,   pol_r,    ntype, route, exists, n_cycles, S,
               R,        Q,        width, mc_period, mshr_limit, bcap,
-              stamp_mask};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // Only the paper's (V, B) = (4, 4) is instantiated, as for B1.
-  if (V != 4 || B != 4) return static_cast<int>(cudaErrorInvalidValue);
-  launch_fused<4, 4>(a, batch, st);
-  return static_cast<int>(cudaGetLastError());
+              stamp_mask, nullptr, nullptr, nullptr};
+  return launch_fused<false>(a, batch, V, B, stream);
+}
+
+// B3: B2 plus the ProbeLanes carry (p_occ (P*V, L), p_arb (2, L), p_mcq
+// (2, 128) per simulation), which it ADDS to in place.
+int noc_fused_cycles_probed(
+    int batch, int n_cycles, int S, int R, int V, int B, int Q, int width,
+    int mc_period, int mshr_limit, int bcap, int stamp_mask, int* buf_meta,
+    int* buf_binj, int* head, int* count, int* rr, int* mcq, int* mc,
+    int* node, int* cnt, const int* xi, const float* xf, const int* gmask,
+    const int* cmask, const float* prof, const int* pol_sr,
+    const int* pol_r, const int* ntype, const int* route,
+    const int* exists, int* p_occ, int* p_arb, int* p_mcq, void* stream) {
+  CycleArgs a{buf_meta, buf_binj, head,  count, rr,     mcq,    mc,
+              node,     cnt,      xi,    xf,    gmask,  cmask,  prof,
+              pol_sr,   pol_r,    ntype, route, exists, n_cycles, S,
+              R,        Q,        width, mc_period, mshr_limit, bcap,
+              stamp_mask, p_occ, p_arb, p_mcq};
+  return launch_fused<true>(a, batch, V, B, stream);
 }
 
 }  // extern "C"

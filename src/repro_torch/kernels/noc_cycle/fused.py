@@ -1,8 +1,9 @@
-"""Lane-layout cycle engine in plain torch: the plain version of both kernels.
+"""Lane-layout cycle engine in plain torch: the plain version of the kernels.
 
-`lane_arbitrate` is the plain version of the arbitration kernel and
-`cycle_step_lanes` of the whole-cycle kernel
-(`csrc/noc_cycle.cu`).  Both mirror `repro.kernels.noc_cycle.fused` value
+`lane_arbitrate` is the plain version of the arbitration kernel (B1),
+`cycle_step_lanes` of the whole-cycle kernel (B2) and, with a
+`ProbeLanes` carry, of the probed whole-cycle kernel (B3), all in
+`csrc/noc_cycle.cu`.  Both mirror `repro.kernels.noc_cycle.fused` value
 for value, including its garbage-value conventions, so the CPU tests can
 hold them against the JAX Pallas kernels and `chip_smoke.py` can hold the
 CUDA kernels against them.
@@ -23,6 +24,12 @@ with routers in lanes 0..R-1.  All state is int32, rows first:
   mc                : (6,     128)   rows MC_HEAD..MC_SCLS
   node              : (3,     128)   rows ND_OUTST/ND_BACKLOG/ND_PHASE
   cnt               : (1,     128)   lane i = EpochCounters field i
+
+The flight-recorder carry `ProbeLanes` (B3 only) is int32 too:
+
+  occ               : (P*V,   S*64)  summed end-of-cycle VC counts
+  arb               : (2,     S*64)  rows PB_GRANT/PB_DENY
+  mcq               : (2,     128)   rows PB_MCQ_SUM/PB_MCQ_MAX
 """
 from __future__ import annotations
 
@@ -120,6 +127,28 @@ class LaneState(NamedTuple):
     mc: Tensor        # (MC_ROWS, 128)
     node: Tensor      # (ND_ROWS, 128)
     cnt: Tensor       # (1, 128)
+
+
+class ProbeLanes(NamedTuple):
+    """Flight-recorder counter lanes, accumulated per cycle from END-of-
+    cycle state so the lane engine agrees bitwise with the dense engine's
+    probe accumulators."""
+
+    occ: Tensor  # (P*V, S*64) sum over cycles of per-buffer flit count
+    arb: Tensor  # (2, S*64)   rows (PB_GRANT, PB_DENY) switch outcomes
+    mcq: Tensor  # (2, 128)    rows (PB_MCQ_SUM, PB_MCQ_MAX) queue depth
+
+
+PB_GRANT, PB_DENY = 0, 1
+PB_MCQ_SUM, PB_MCQ_MAX = 0, 1
+
+
+def zero_probe(d: LaneDims, device="cpu") -> ProbeLanes:
+    def z(rows, lanes):
+        return torch.zeros((rows, lanes), dtype=_I32, device=device)
+
+    return ProbeLanes(occ=z(d.PV, d.lanes_sr), arb=z(2, d.lanes_sr),
+                      mcq=z(2, LANES_R))
 
 
 class LaneArb(NamedTuple):
@@ -449,11 +478,13 @@ def cycle_step_lanes(
     ntype: Tensor,   # (1, 128) int32 (padded lanes -1)
     route: Tensor,   # (R, S*64) int32 — route[dst, lane]
     exists: Tensor,  # (P, S*64) int32 0/1 — link usable through port p
-) -> LaneState:
+    probe: ProbeLanes | None = None,
+):
     """ONE simulated NoC cycle over lanes, in the dense engine's stage
     order: MC acceptance and service, route/arbitrate/traverse, MC enqueue,
     reply completion, latency, source generation, the merged inject and the
-    15 counters."""
+    15 counters.  Returns the new LaneState, or (LaneState, ProbeLanes)
+    when a flight-recorder ``probe`` is given."""
     S = d.S
     dev = xi.device
 
@@ -496,7 +527,7 @@ def cycle_step_lanes(
     # 2. route/arbitrate every subnet
     (buf_meta, buf_binj, head, count, rr,
      ej, eject_src, eject_cls, eject_binj, moved, dram_gpu,
-     _, _) = router_stage_lanes(
+     grant_cnt, deny_cnt) = router_stage_lanes(
         d, st.buf_meta, st.buf_binj, st.head, st.count, st.rr,
         gmask_b, cmask_b, sa, accept, active, route, exists != 0,
     )
@@ -590,21 +621,40 @@ def cycle_step_lanes(
         [mc_head, mc_count, mc_timer, svalid.to(_I32), sdst, scls], dim=0
     ).to(_I32)
     node_rows = torch.cat([outstanding, backlog, phase.to(_I32)], dim=0)
-    return LaneState(
+    st2 = LaneState(
         buf_meta=buf_meta, buf_binj=buf_binj, head=head.to(_I32),
         count=count.to(_I32), rr=rr, mcq=mcq, mc=mc_rows,
         node=node_rows.to(_I32), cnt=cnt,
     )
+    if probe is None:
+        return st2
+    # 7. flight recorder: END-of-cycle counts, this cycle's switch
+    # outcomes, the MC queue depth after service and enqueue
+    probe2 = ProbeLanes(
+        occ=probe.occ + st2.count,
+        arb=probe.arb + torch.cat([grant_cnt, deny_cnt], dim=0),
+        mcq=torch.cat([
+            probe.mcq[PB_MCQ_SUM:PB_MCQ_SUM + 1] + mc_count,
+            torch.maximum(probe.mcq[PB_MCQ_MAX:PB_MCQ_MAX + 1], mc_count),
+        ], dim=0).to(_I32),
+    )
+    return st2, probe2
 
 
 def cycle_steps_lanes(
-    d: LaneDims, st: LaneState, xi: Tensor, xf: Tensor, *consts: Tensor
-) -> LaneState:
+    d: LaneDims, st: LaneState, xi: Tensor, xf: Tensor, *consts: Tensor,
+    probe: ProbeLanes | None = None,
+):
     """`cycle_step_lanes` over every cycle row of xi (n, XI_ROWS, S*64) and
-    xf (n, XF_ROWS, 128) — the plain version of one kernel launch."""
+    xf (n, XF_ROWS, 128) — the plain version of one kernel launch (B2, or
+    B3 with ``probe``: then it returns (LaneState, ProbeLanes))."""
     for c in range(xi.shape[0]):
-        st = cycle_step_lanes(d, st, xi[c], xf[c], *consts)
-    return st
+        if probe is None:
+            st = cycle_step_lanes(d, st, xi[c], xf[c], *consts)
+        else:
+            st, probe = cycle_step_lanes(d, st, xi[c], xf[c], *consts,
+                                         probe=probe)
+    return st if probe is None else (st, probe)
 
 
 # ---------------------------------------------------------------------------
@@ -798,3 +848,18 @@ def unpack_state(d: LaneDims, ls: LaneState, mc_cls,
     backlog = ls.node[ND_BACKLOG, :d.R].clone()
     phase = ls.node[ND_PHASE, 0].clone()
     return subs, mc, outstanding, backlog, phase
+
+
+def unpack_probe(d: LaneDims, pb: ProbeLanes):
+    """Probe lanes -> dense probe accumulators, all int32: (occ (S,R,P,V),
+    grant (S,R), deny (S,R), mcq_sum (R,), mcq_max (R,)).  Padded lanes
+    never accumulate, so the [:R] slices are exact."""
+    occ = _from_sr_rows(d, pb.occ, (N_PORTS, d.V), _I32)
+    arb = _from_sr_rows(d, pb.arb, (2,), _I32)
+    return (
+        occ,
+        arb[..., PB_GRANT].contiguous(),
+        arb[..., PB_DENY].contiguous(),
+        pb.mcq[PB_MCQ_SUM, :d.R].clone(),
+        pb.mcq[PB_MCQ_MAX, :d.R].clone(),
+    )

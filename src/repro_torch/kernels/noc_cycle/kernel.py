@@ -1,8 +1,9 @@
 """ctypes launchers for the CUDA kernels in csrc/noc_cycle.cu.
 
 `noc_arbitrate` (B1) replaces repro/kernels/noc_cycle/kernel.py::
-_noc_cycle_kernel and `noc_fused_cycles` (B2) replaces ::_fused_cycle_kernel.
-Both check device, dtype, shape and contiguity, launch on PyTorch's current
+_noc_cycle_kernel, `noc_fused_cycles` (B2) replaces ::_fused_cycle_kernel
+and `noc_fused_cycles_probed` (B3) replaces ::_fused_cycle_probed_kernel.
+Each checks device, dtype, shape and contiguity, launch on PyTorch's current
 stream without synchronising, and raise if the launch reports a CUDA
 error.  The library is built at first call (`repro_torch.kernels._build`),
 never at import.
@@ -35,6 +36,8 @@ def library() -> ctypes.CDLL:
     lib.noc_arbitrate.restype = _I
     lib.noc_fused_cycles.argtypes = [_I] * 12 + [_P] * 19 + [_P]
     lib.noc_fused_cycles.restype = _I
+    lib.noc_fused_cycles_probed.argtypes = [_I] * 12 + [_P] * 22 + [_P]
+    lib.noc_fused_cycles_probed.restype = _I
     return lib
 
 
@@ -84,18 +87,14 @@ def noc_arbitrate(
     return tuple(outs)
 
 
-def noc_fused_cycles(
-    d: fused.LaneDims,
-    state: fused.LaneState,
-    xi: torch.Tensor, xf: torch.Tensor,
-    gmask: torch.Tensor, cmask: torch.Tensor, prof: torch.Tensor,
-    pol_sr: torch.Tensor, pol_r: torch.Tensor, ntype: torch.Tensor,
-    route: torch.Tensor, exists: torch.Tensor,
-) -> None:
-    """B2: run xi.shape[0] cycles, updating ``state``'s arrays IN PLACE."""
+def _fused_args(
+    d: fused.LaneDims, state: fused.LaneState, xi: torch.Tensor,
+    xf: torch.Tensor, consts: tuple[torch.Tensor, ...], what: str,
+) -> list[int]:
+    """Check B2/B3's common operands; returns the C arguments up to the
+    probe pointers (ints, then data pointers)."""
     if (d.V, d.B) not in FUSED_VB:
-        raise ValueError(f"noc_fused_cycles has no instantiation for "
-                         f"V={d.V}, B={d.B}")
+        raise ValueError(f"{what} has no instantiation for V={d.V}, B={d.B}")
     L, LR, P = d.lanes_sr, fused.LANES_R, fused.N_PORTS
     n = xi.shape[0]
     shapes = dict(
@@ -105,26 +104,62 @@ def noc_fused_cycles(
     )
     for name, x in zip(fused.LaneState._fields, state):
         _check(name, x, shapes[name])
-    consts = [
+    named = [
         ("xi", xi, (n, fused.XI_ROWS, L), torch.int32),
         ("xf", xf, (n, fused.XF_ROWS, LR), torch.float32),
-        ("gmask", gmask, (d.V, L), torch.int32),
-        ("cmask", cmask, (d.V, L), torch.int32),
-        ("prof", prof, (fused.N_PROF, LR), torch.float32),
-        ("pol_sr", pol_sr, (fused.PS_ROWS, L), torch.int32),
-        ("pol_r", pol_r, (fused.PR_ROWS, LR), torch.int32),
-        ("ntype", ntype, (1, LR), torch.int32),
-        ("route", route, (d.R, L), torch.int32),
-        ("exists", exists, (P, L), torch.int32),
+        ("gmask", consts[0], (d.V, L), torch.int32),
+        ("cmask", consts[1], (d.V, L), torch.int32),
+        ("prof", consts[2], (fused.N_PROF, LR), torch.float32),
+        ("pol_sr", consts[3], (fused.PS_ROWS, L), torch.int32),
+        ("pol_r", consts[4], (fused.PR_ROWS, LR), torch.int32),
+        ("ntype", consts[5], (1, LR), torch.int32),
+        ("route", consts[6], (d.R, L), torch.int32),
+        ("exists", consts[7], (P, L), torch.int32),
     ]
-    for name, x, shape, dtype in consts:
+    for name, x, shape, dtype in named:
         _check(name, x, shape, dtype)
-    stream = torch.cuda.current_stream(xi.device).cuda_stream
-    rc = library().noc_fused_cycles(
+    return [
         1, n, d.S, d.R, d.V, d.B, d.Q, d.width, d.mc_service_period,
         d.mshr_limit, d.bcap, d.stamp_mask,
         *(x.data_ptr() for x in state),
-        *(x.data_ptr() for _, x, _, _ in consts),
-        stream,
+        *(x.data_ptr() for _, x, _, _ in named),
+    ]
+
+
+def noc_fused_cycles(
+    d: fused.LaneDims,
+    state: fused.LaneState,
+    xi: torch.Tensor, xf: torch.Tensor,
+    gmask: torch.Tensor, cmask: torch.Tensor, prof: torch.Tensor,
+    pol_sr: torch.Tensor, pol_r: torch.Tensor, ntype: torch.Tensor,
+    route: torch.Tensor, exists: torch.Tensor,
+) -> None:
+    """B2: run xi.shape[0] cycles, updating ``state``'s arrays IN PLACE."""
+    consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
+    args = _fused_args(d, state, xi, xf, consts, "noc_fused_cycles")
+    stream = torch.cuda.current_stream(xi.device).cuda_stream
+    _raise_on(library().noc_fused_cycles(*args, stream), "noc_fused_cycles")
+
+
+def noc_fused_cycles_probed(
+    d: fused.LaneDims,
+    state: fused.LaneState,
+    probe: fused.ProbeLanes,
+    xi: torch.Tensor, xf: torch.Tensor,
+    gmask: torch.Tensor, cmask: torch.Tensor, prof: torch.Tensor,
+    pol_sr: torch.Tensor, pol_r: torch.Tensor, ntype: torch.Tensor,
+    route: torch.Tensor, exists: torch.Tensor,
+) -> None:
+    """B3: B2 plus the flight-recorder carry; updates ``state`` IN PLACE
+    and ADDS this launch's probe counts to ``probe``'s arrays."""
+    consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
+    args = _fused_args(d, state, xi, xf, consts, "noc_fused_cycles_probed")
+    L, LR = d.lanes_sr, fused.LANES_R
+    for name, x, shape in zip(fused.ProbeLanes._fields, probe,
+                              ((d.PV, L), (2, L), (2, LR))):
+        _check(f"probe.{name}", x, shape)
+    stream = torch.cuda.current_stream(xi.device).cuda_stream
+    rc = library().noc_fused_cycles_probed(
+        *args, *(x.data_ptr() for x in probe), stream
     )
-    _raise_on(rc, "noc_fused_cycles")
+    _raise_on(rc, "noc_fused_cycles_probed")

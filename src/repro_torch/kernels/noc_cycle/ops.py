@@ -1,11 +1,12 @@
 """Entry points of the noc_cycle kernels, with launch counters.
 
-`fused_cycle_step` runs whole cycles on the lane state (B2) and backs
-`simulate(..., engine="fused")`; `arbitrate_lanes` is signature-compatible
-with `router.arbitrate` and backs `engine="arb"` (B1).  On CUDA tensors
-they launch the hand-written kernels; on CPU tensors they run the plain
-versions in `fused.py`.  There is no fallback: a CUDA tensor either
-launches the kernel or raises.
+`fused_cycle_step` runs whole cycles on the lane state and backs
+`simulate(..., engine="fused")`: B2, or B3 when it is handed the flight-
+recorder carry (`simulate_with_trace`).  `arbitrate_lanes` is
+signature-compatible with `router.arbitrate` and backs `engine="arb"`
+(B1).  On CUDA tensors they launch the hand-written kernels; on CPU
+tensors they run the plain versions in `fused.py`.  There is no fallback:
+a CUDA tensor either launches the kernel or raises.
 
 `LAUNCHES` counts kernel launches per kernel; each wrapper adds one where
 it launches and nowhere else.
@@ -17,7 +18,8 @@ import torch
 from repro_torch.core.noc.router import Arbitration
 from repro_torch.kernels.noc_cycle import fused
 
-LAUNCHES = {"noc_fused_cycles": 0, "noc_arbitrate": 0}
+LAUNCHES = {"noc_fused_cycles": 0, "noc_fused_cycles_probed": 0,
+            "noc_arbitrate": 0}
 
 
 def reset_launches() -> None:
@@ -39,28 +41,36 @@ def fused_cycle_step(
     gmask: torch.Tensor, cmask: torch.Tensor, prof: torch.Tensor,
     pol_sr: torch.Tensor, pol_r: torch.Tensor,
     ntype: torch.Tensor, route: torch.Tensor, exists: torch.Tensor,
-    *, donate: bool = False,
-) -> fused.LaneState:
+    *, probe: fused.ProbeLanes | None = None, donate: bool = False,
+):
     """Run the cycles of ``xi`` (XI_ROWS, L) or (n, XI_ROWS, L) — with the
-    matching ``xf`` — from ``state``; returns the new state.  The input is
-    left unchanged unless ``donate``: then the kernel may update its
-    (contiguous) arrays in place."""
+    matching ``xf`` — from ``state``; returns the new state, or (state,
+    ProbeLanes) with the flight-recorder carry ``probe`` added to.  The
+    inputs are left unchanged unless ``donate``: then the kernel may update
+    their (contiguous) arrays in place."""
     if xi.ndim == 2:
         xi, xf = xi[None], xf[None]
     consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
-    if not _on_cuda(*state, xi, xf, *consts):
-        return fused.cycle_steps_lanes(d, state, xi, xf, *consts)
+    carried = tuple(state) + (() if probe is None else tuple(probe))
+    if not _on_cuda(*carried, xi, xf, *consts):
+        return fused.cycle_steps_lanes(d, state, xi, xf, *consts, probe=probe)
     from repro_torch.kernels.noc_cycle import kernel
 
-    out = state if donate else fused.LaneState(
-        *(x.clone(memory_format=torch.contiguous_format) for x in state)
-    )
-    kernel.noc_fused_cycles(
-        d, out, xi.contiguous(), xf.contiguous(),
-        *(c.contiguous() for c in consts),
-    )
-    LAUNCHES["noc_fused_cycles"] += 1
-    return out
+    def own(t):
+        return t if donate else type(t)(
+            *(x.clone(memory_format=torch.contiguous_format) for x in t)
+        )
+
+    out = own(state)
+    args = (xi.contiguous(), xf.contiguous(), *(c.contiguous() for c in consts))
+    if probe is None:
+        kernel.noc_fused_cycles(d, out, *args)
+        LAUNCHES["noc_fused_cycles"] += 1
+        return out
+    pb = own(probe)
+    kernel.noc_fused_cycles_probed(d, out, pb, *args)
+    LAUNCHES["noc_fused_cycles_probed"] += 1
+    return out, pb
 
 
 def arbitrate_rows(

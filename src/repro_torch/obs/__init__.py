@@ -1,0 +1,14 @@
+"""Flight-recorder observability of the port.
+
+  * probes.py   — `SimTrace`, the per-epoch introspection stream that
+                  `sim.simulate_with_trace` returns (occupancy, arbitration
+                  grant/deny, MC queue depth, KF internals, fault and
+                  placement channels), and `summarize_trace`.
+  * recorder.py — `TraceRecorder`: captures the per-epoch demand rows of a
+                  run as a replayable `traffic.RecordedTrace`, optionally
+                  stamped with the observed `SimTrace` digest.
+"""
+from repro_torch.obs.probes import SimTrace, summarize_trace
+from repro_torch.obs.recorder import TraceRecorder, capture_demand
+
+__all__ = ["SimTrace", "summarize_trace", "TraceRecorder", "capture_demand"]

@@ -12,7 +12,10 @@ package and carried across the same way.
 
 Counters, applied_config, kf_signal and gpu_vc_quota are held bitwise.
 IPC, latency and injection rate are float32 quotients of equal integers,
-held to rtol 1e-6."""
+held to rtol 1e-6.  The traced runs (`simulate_with_trace`) hold the
+SimTrace's integer channels bitwise and its KF floats to rtol 1e-5: the
+filter's 3-observation update runs in another order of float32 operations
+in the two frameworks."""
 import functools
 
 import jax
@@ -45,6 +48,14 @@ CASES = {
     "kf_guard_flap": dict(mode="kf", guard=True, faults="FLAP_DURING_SHIFT"),
     "kf_joint_near_mc": dict(mode="kf", control="joint",
                              placement="GPU_NEAR_MC"),
+    # four NaN-telemetry epochs in a row during a link flap: the guard's
+    # watchdog trips, so the covariance reset and the fallback fire at
+    # this size too (FLAP_DURING_SHIFT rejects only one epoch here)
+    "kf_guard_nan_run": dict(mode="kf", guard=True, faults=jfaults.FaultSchedule((
+        jfaults.FaultEvent(0.45, 0.65, "link", routers=(8, 9),
+                           ports=(jfaults.PORT_N,), period=3),
+        jfaults.FaultEvent(0.5, 0.8, "telem", mode=jfaults.TELEM_NAN),
+    ))),
 }
 
 
@@ -85,7 +96,14 @@ def jax_result(case: str):
     return jsim.simulate(cfg, WORKLOAD, backend="ref")
 
 
-def port_result(case: str, engine: str):
+@functools.lru_cache(maxsize=None)
+def jax_trace_result(case: str):
+    kw = CASES[case]
+    cfg = jsim.NoCConfig(policy=JPolicyConfig(*POLICY), **SIZE, **kw)
+    return jsim.simulate_with_trace(cfg, WORKLOAD, backend="ref")
+
+
+def port_config(case: str) -> tsim.NoCConfig:
     kw = dict(CASES[case])
     if kw.get("faults"):
         kw["faults"] = interop.fault_stream(jax_fault_stream(kw["faults"]))
@@ -93,9 +111,16 @@ def port_result(case: str, engine: str):
         kw["placement"] = interop.placement_stream(
             jax_placement_stream(kw["placement"])
         )
-    cfg = tsim.NoCConfig(policy=PolicyConfig(*POLICY), **SIZE, **kw)
+    return tsim.NoCConfig(policy=PolicyConfig(*POLICY), **SIZE, **kw)
+
+
+def port_result(case: str, engine: str, traced: bool = False):
+    """The port's run of ``case`` on the CPU; with ``traced`` the
+    (SimResult, SimTrace) of `simulate_with_trace`."""
+    cfg = port_config(case)
     rng = interop.epoch_stream_provider(*jax_streams(cfg.seed))
-    return tsim.simulate(cfg, WORKLOAD, device="cpu", rng=rng, engine=engine)
+    run = tsim.simulate_with_trace if traced else tsim.simulate
+    return run(cfg, WORKLOAD, device="cpu", rng=rng, engine=engine)
 
 
 def assert_congruent(j, t):

@@ -1,6 +1,7 @@
 """Port congruence: the plain lane engine (`fused.cycle_step_lanes`, the
-plain version of the CUDA whole-cycle kernel) against the JAX B2 Pallas
-kernel in interpret mode for one cycle, bitwise on every LaneState field.
+plain version of the CUDA whole-cycle kernels) against the JAX B2 and B3
+Pallas kernels in interpret mode for one cycle, bitwise on every LaneState
+and ProbeLanes field.
 States are built the way tests/test_cycle_engine.py builds its stage
 states: random subnet and MC state from numpy, packed into lanes."""
 import jax.numpy as jnp
@@ -51,3 +52,47 @@ def test_one_cycle_matches_pallas_interpret(mode, config):
                               torch.from_numpy(np.asarray(xf[0])),
                               *map(torch.from_numpy, consts))
     _assert_lanes_equal(j, t, mode)
+
+
+def _random_probe(rng):
+    """A non-zero ProbeLanes carry as numpy: random counts on the real
+    lanes, 0 on the padded ones (which never accumulate)."""
+    d = _dims(jf)
+
+    def rows(n, lanes, hi):
+        return rng.integers(0, hi, (n, lanes)).astype(np.int32)
+
+    occ = rows(d.PV, d.lanes_sr, 500)
+    arb = rows(2, d.lanes_sr, 300)
+    mcq = rows(2, jf.LANES_R, 40)
+    for x in (occ, arb):
+        x.reshape(x.shape[0], d.S, jf.R_PAD)[:, :, d.R:] = 0
+    mcq[:, d.R:] = 0
+    return jf.ProbeLanes(occ=occ, arb=arb, mcq=mcq)
+
+
+def test_one_probed_cycle_matches_pallas_interpret():
+    mode, config = "kf", 1
+    rng, js, _ = _lane_states(4)
+    xi, xf, consts = _epoch_inputs(rng, 1, mode, config)
+    pb = _random_probe(rng)
+    j, jp = fused_cycle_kernel(
+        js, jnp.asarray(xi[0]), jnp.asarray(xf[0]), *map(jnp.asarray, consts),
+        dims=_dims(jf), interpret=True,
+        probe=jf.ProbeLanes(*map(jnp.asarray, pb)),
+    )
+    t, tp = tops.fused_cycle_step(
+        _dims(tf), interop.lane_state(js), torch.from_numpy(np.asarray(xi[0])),
+        torch.from_numpy(np.asarray(xf[0])), *map(torch.from_numpy, consts),
+        probe=interop.probe_lanes(pb),
+    )
+    _assert_lanes_equal(j, t, mode)
+    for name, a, b in zip(jf.ProbeLanes._fields, jp, tp):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(),
+                                      err_msg=f"{mode} probe {name}")
+    # the step added to the carry it was handed
+    assert (tp.occ.numpy() >= pb.occ).all() and (tp.occ.numpy() > pb.occ).any()
+    # unpacked to the dense accumulators, as the reference unpacks them
+    for a, b in zip(jf.unpack_probe(_dims(jf), jp), tf.unpack_probe(_dims(tf), tp)):
+        assert b.dtype == torch.int32
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

@@ -91,9 +91,14 @@ def test_port_imports_neither_jax_nor_reference():
 
 
 def test_simulate_defaults_to_cuda(monkeypatch):
-    """Without ``device=`` the entry point asks for CUDA and names the CPU
-    escape hatch; it never silently runs on the CPU."""
+    """Without ``device=`` the entry points (simulate, simulate_with_trace
+    and the observing TraceRecorder) ask for CUDA and name the CPU escape
+    hatch; they never silently run on the CPU."""
+    from repro_torch.obs import TraceRecorder
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tsim.NoCConfig(mode="fair", n_epochs=1, epoch_len=2)
-    with pytest.raises(RuntimeError, match='device="cpu"'):
-        tsim.simulate(cfg, "PATH")
+    for run in (tsim.simulate, tsim.simulate_with_trace,
+                TraceRecorder(observe=True).record):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            run(cfg, "PATH")
