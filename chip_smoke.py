@@ -33,9 +33,31 @@ build/repro_torch/), then runs, each phase failing the script on error:
      B2), its SimResult bitwise the untraced run's, and the recorder:
      TraceRecorder(observe=True).record_to an npz, RecordedTrace.load, and
      the replay through simulate bitwise the untraced run;
+  [B4] the KF bank kernel (kf_bank) against its plain version, bitwise,
+     at n = 7 ... 1,048,576 filters and M = 3, 5 observations, timed with
+     its bytes bound; then the fleet path: FleetKF(65,536).epoch for 200
+     epochs (exactly 200 launches), held against the same epochs through
+     the plain version on the card;
+  [B5] the flash attention kernel (flash_attn) against its plain version in
+     bf16 and f32 at the llama3.2-3b shape (S = 48, 512, 2048, causal), the
+     h2o-danube-1.8b shape at S = 6144 with its 4096 window, and the grok-1
+     shape with its logit cap (and kv_len < Sk); timed at the llama shapes
+     beside the bound and torch's scaled_dot_product_attention;
+  [serve-w] llama3.2-3b at full width cut to 2 layers: prefill of a
+     256-token prompt and 2 decode steps on the card (B5) against the same
+     parameters on the CPU (plain), relative L2 of K/V and logits;
+  [serve] the serving main path: Engine(mode="kf") over 32 requests on
+     llama3.2-3b at full width (28 layers) on the card, exactly 28 B5
+     launches per prefill, every request finished, finite logits, and
+     EngineStats equal to the same Engine run at smoke size on the CPU
+     (the reference's zero-token prompts make the schedule independent of
+     the model's numbers); the run's wall time (no sync added inside it),
+     then a decode step and a 512-token prefill each timed alone, back to
+     back, and profiled for the device's busy time;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch, the
-     plain version's ms, the bound in ms and what bounds it.
+     plain version's ms, the bound in ms and what bounds it, and the time
+     of one PyTorch call computing the same function where there is one.
 
 The last two lines are the nvidia-smi name/power line and
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the
@@ -60,6 +82,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # ops: 132 SMs x 64 INT32 lanes per SM per clock x 1.98 GHz boost clock
 PEAK_BYTES_S = 3.35e12
 PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
+# dense peaks (NVIDIA H100 SXM datasheet): bf16 tensor cores, f32 outside
+# the tensor cores
+PEAK_BF16_FLOP_S = 989e12
+PEAK_F32_FLOP_S = 67e12
 SEED = 0
 
 
@@ -91,6 +117,51 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         reps.append(a.elapsed_time(b) / n)
     return statistics.median(reps)
+
+
+def profile_device(fn, n: int):
+    """``fn`` run n times under torch.profiler, ending in a sync: the host
+    wall ms per call under the profiler, the device's busy ms per call (the
+    summed durations of the kernels, copies and sets it records on the
+    card; 0 if it records none), the top device ops and the top host ops by
+    self time, each as (name, ms per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3 / n
+    device, host = {}, {}
+    for e in prof.events():
+        us = e.time_range.elapsed_us()
+        if e.device_type == DeviceType.CUDA:
+            device[e.name] = device.get(e.name, 0.0) + us
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            host[e.key] = e.self_cpu_time_total
+
+    def top(d):
+        return [(k[:48], v / 1e3 / n)
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:5]]
+
+    return wall, sum(device.values()) / 1e3 / n, top(device), top(host)
+
+
+def fmt_ms(ms: float) -> str:
+    """A profiled device time, or "not measured" where the profiler
+    recorded no device activity."""
+    return f"{ms:.4f} ms" if ms > 0 else "not measured"
+
+
+def fmt_top(pairs) -> str:
+    return "; ".join(f"{k} {v:.4f}" for k, v in pairs)
 
 
 def smi_line() -> str:
@@ -223,7 +294,11 @@ def ptxas_usage(log: str) -> dict:
     """Registers, stack and spill bytes per kernel from ptxas -v output."""
     labels = (("noc_arbitrate_kernel", "B1"),
               ("noc_fused_cycles_kernelILi4ELi4ELb0E", "B2"),
-              ("noc_fused_cycles_kernelILi4ELi4ELb1E", "B3"))
+              ("noc_fused_cycles_kernelILi4ELi4ELb1E", "B3"),
+              ("kf_bank_kernel", "B4"),
+              *((f"flash_fwd_kernelILi{d}E{t}", f"B5 {n} D{d}")
+                for d in (64, 80, 128)
+                for t, n in (("13__nv_bfloat16", "bf16"), ("f", "f32"))))
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -290,10 +365,382 @@ def random_probe(d, gen):
                             mcq=ri(16, 2, node))
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, ops_per_s=PEAK_INT32_OPS_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kf_bank_bound(n, m):
+    """Least time of one B4 launch: x, p and z read once, x and p written
+    once (float32); per filter 2 + 4M + 6 flops at the f32 rate."""
+    return bound_ms((2 + m + 2) * 4 * n, (4 * m + 8) * n, PEAK_F32_FLOP_S)
+
+
+def flash_bound(b, h, kv, sq, sk, d, causal, window, kv_len, dtype):
+    """Least time of one B5 launch on these inputs: q, k and v read once
+    and o written once; 4*D flops (QK^T and PV) per (q, k) pair that this
+    call's masks leave valid, at the peak rate of the input type (bf16
+    tensor cores; f32 outside them)."""
+    import numpy as np
+    import torch
+
+    qp = np.arange(sq)[:, None]
+    kp = np.arange(sk)[None, :]
+    valid = kp < min(sk if kv_len is None else kv_len, sk)
+    if causal:
+        valid = valid & (qp >= kp)
+    if window is not None:
+        valid = valid & (qp - kp < window)
+    pairs = int(valid.sum())
+    elem = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * kv * d) * elem
+    rate = PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_S
+    return bound_ms(nbytes, 4 * d * h * b * pairs, rate), pairs
+
+
+def rel_l2(a, b) -> float:
+    import torch
+
+    a, b = a.to(torch.float64).cpu(), b.to(torch.float64).cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def phase_b4(dev):
+    """B4 against its plain version, then the fleet path through B4."""
+    import torch
+
+    from repro_torch.core import kalman
+    from repro_torch.dist.kf_scheduler import FleetKF, SchedulerConfig
+    from repro_torch.kernels.kf_bank import kernel as kf_kernel
+    from repro_torch.kernels.kf_bank import ops as kf_ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def bank(n, m):
+        u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+            shape, generator=g, device=dev)
+        return (torch.randn(n, generator=g, device=dev), u(n, 0.1, 2.0),
+                torch.randn((n, m), generator=g, device=dev),
+                u(m, 0.5, 1.5), u(m, 0.05, 0.5))
+
+    err, checked = 0.0, 0
+    for n in (7, 1024, 65_536, 1_048_576):
+        for m in (3, 5):
+            ins = bank(n, m)
+            for a, q in ((1.0, 1e-3), (0.9, 1e-2)):
+                kx, kp = kf_kernel.kf_bank(*ins, a=a, q=q)
+                px, pp = kf_ops.kf_bank_step_plain(*ins, a=a, q=q)
+                err = max(err, float((kx - px).abs().max()),
+                          float((kp - pp).abs().max()))
+                check(torch.equal(kx, px) and torch.equal(kp, pp),
+                      f"B4 differs from its plain version at n={n}, m={m}, "
+                      f"a={a} (max abs err {err})")
+                checked += 1
+    times = {}
+    for n in (65_536, 1_048_576):
+        ins = bank(n, 3)
+        times[n] = (cuda_ms(lambda: kf_kernel.kf_bank(*ins, a=1.0, q=1e-3),
+                            200),
+                    cuda_ms(lambda: kf_ops.kf_bank_step_plain(
+                        *ins, a=1.0, q=1e-3), 50))
+        times[n] += profile_device(
+            lambda: kf_kernel.kf_bank(*ins, a=1.0, q=1e-3), 50)[1:2]
+    bm, by = kf_bank_bound(65_536, 3)
+    big = times[1_048_576][0]
+    print(f"[B4] kf_bank bitwise equal to its plain version in {checked} "
+          f"cases (n 7 .. 1,048,576, M 3 and 5, a 1.0 and 0.9); ms per "
+          f"launch at n=65,536, M=3: kernel {times[65_536][0]:.4f}, plain "
+          f"{times[65_536][1]:.4f}, bound {bm:.5f} ({by}); at n=1,048,576: "
+          f"kernel {big:.4f} ms ({(7 * 4 * 1_048_576) / big / 1e6:.0f} GB/s)"
+          f", plain {times[1_048_576][1]:.4f} ms; device time per launch "
+          f"(torch.profiler) {fmt_ms(times[65_536][2])} at n=65,536, "
+          f"{fmt_ms(times[1_048_576][2])} at n=1,048,576")
+
+    # the fleet path: 200 epochs of FleetKF(65,536) through B4, and the same
+    # epochs through the plain version on the card
+    n, epochs = 65_536, 200
+    zs = 0.7 * torch.randn((epochs, n, 3), generator=g, device=dev)
+    cfg = SchedulerConfig(kf_q=3e-3, kf_r=2e-1)
+    fleet = FleetKF(n, cfg)
+    kf_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sigs = [fleet.epoch(zs[t]) for t in range(epochs)]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = kf_ops.LAUNCHES["kf_bank"]
+    check(launches == epochs, f"FleetKF launched B4 {launches} times over "
+                              f"{epochs} epochs")
+    x = torch.zeros(n, device=dev)
+    p = torch.ones(n, device=dev)
+    for t in range(epochs):
+        x, p = kf_ops.kf_bank_step_plain(x, p, zs[t], fleet.h, fleet.r,
+                                         a=1.0, q=cfg.kf_q)
+        check(torch.equal(kalman.binarize(x), sigs[t]),
+              f"FleetKF signals differ from the plain path at epoch {t}")
+    check(torch.equal(x, fleet.x) and torch.equal(p, fleet.p),
+          "FleetKF state differs from the plain path after 200 epochs")
+    boost = float(sigs[-1].float().mean())
+    print(f"[B4] FleetKF({n:,}) x {epochs} epochs: {launches} B4 launches, "
+          f"wall {wall:.3f} s ({wall / epochs * 1e3:.3f} ms per epoch); x, p "
+          f"and every epoch's signals bitwise equal to the plain path; last "
+          f"epoch boosts {boost:.3f} of the links")
+    sys.stdout.flush()
+    return dict(name="kf_bank", route="cuda",
+                source="src/repro_torch/kernels/kf_bank/csrc/kf_bank.cu",
+                replaces="src/repro/kernels/kf_bank/kernel.py:34",
+                launches=launches, max_abs_err=err, ms=times[65_536][0],
+                plain_ms=times[65_536][1], bound_ms=bm, bound_by=by,
+                library_ms=None)
+
+
+def phase_b5(dev):
+    """B5 against its plain version at the models' shapes, and its time at
+    the llama3.2-3b shape beside the bound and torch's SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    llama = ("llama3.2-3b", 24, 8, 128)
+    cases = [(llama, s, True, None, None, None) for s in (48, 512, 2048)] + [
+        (("h2o-danube-1.8b", 32, 8, 80), 6144, True, 4096, None, None),
+        (("grok-1-314b", 48, 8, 128), 512, True, None, 30.0, None),
+        (("grok-1-314b", 48, 8, 128), 512, True, None, 30.0, 300),
+    ]
+    tol = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (8e-3, 2 ** -7)}
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    timing = []
+    for (arch, h, kv, d), s, causal, window, cap, kv_len in cases:
+        base = [torch.randn(shape, generator=g, device=dev)
+                for shape in ((1, s, h, d), (1, s, kv, d), (1, s, kv, d))]
+        kw = dict(causal=causal, window=window, logit_cap=cap, kv_len=kv_len)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (t.to(dtype) for t in base)
+            out = fa_kernel.flash_attn(q, k, v, **kw)
+            want = fa_ops.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            diff = (out.float() - want.float()).abs()
+            atol, rtol = tol[dtype]
+            check(out.dtype == dtype and bool(torch.isfinite(out).all())
+                  and bool((diff <= atol + rtol * want.float().abs()).all()),
+                  f"B5 differs from its plain version: {arch} S={s} {dtype} "
+                  f"(max abs err {float(diff.max())})")
+            errs[dtype] = max(errs[dtype], float(diff.max()))
+            if arch == "llama3.2-3b" and dtype == torch.bfloat16:
+                reps = {48: 200, 512: 50, 2048: 20}[s]
+                ms = cuda_ms(lambda: fa_kernel.flash_attn(q, k, v, **kw), reps)
+                plain = cuda_ms(lambda: fa_ops.flash_attention_plain(
+                    q, k, v, **kw), 5)
+                (bm, by), pairs = flash_bound(1, h, kv, s, s, d, causal,
+                                              window, kv_len, dtype)
+                dev_ms = profile_device(
+                    lambda: fa_kernel.flash_attn(q, k, v, **kw), 5)[1]
+                lib = None
+                if s == 2048:
+                    qt, kt, vt = (t.transpose(1, 2).contiguous()
+                                  for t in (q, k, v))
+                    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+                timing.append((s, ms, plain, bm, by, lib,
+                               4 * d * h * pairs / ms / 1e9, dev_ms))
+        del base, q, k, v, out, want
+        torch.cuda.empty_cache()
+    print(f"[B5] flash_attn within tolerance of its plain version at "
+          f"{len(cases)} shapes x (bf16, f32): max abs err bf16 "
+          f"{errs[torch.bfloat16]:.3g} (atol 8e-3 + 2^-7 rel), f32 "
+          f"{errs[torch.float32]:.3g} (atol 2e-5 + 1e-5 rel)")
+    for s, ms, plain, bm, by, lib, tflops, dev_ms in timing:
+        print(f"[B5] llama3.2-3b bf16 B=1 H=24 KV=8 D=128 S={s} causal: "
+              f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s; device time "
+              f"{fmt_ms(dev_ms)}), plain "
+              f"{plain:.4f} ms, bound {bm:.5f} ms ({by})"
+              + ("" if lib is None else f", SDPA {lib:.4f} ms"))
+    sys.stdout.flush()
+    s, ms, plain, bm, by, lib, _, _ = timing[-1]
+    return dict(name="flash_attn", route="cuda",
+                source="src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+                replaces="src/repro/kernels/flash_attn/kernel.py:31",
+                launches=None, max_abs_err=errs[torch.bfloat16], ms=ms,
+                plain_ms=plain, bound_ms=bm, bound_by=by, library_ms=lib)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+def phase_serve_w(dev):
+    """llama3.2-3b at full width, depth cut to 2 layers: the card (B5)
+    against the CPU (plain) on one seeded parameter set."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get("llama3.2-3b"), n_layers=2)
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    cpu_params = _to_cpu(params)
+    g = torch.Generator().manual_seed(SEED + 6)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
+    fa_ops.reset_launches()
+    t0 = time.time()
+    on_card = lm.prefill_caches(params, toks.to(dev), cfg, 512)
+    check(fa_ops.LAUNCHES["flash_attn"] == cfg.n_layers,
+          f"full-width prefill launched B5 {fa_ops.LAUNCHES} times")
+    on_cpu = lm.prefill_caches(cpu_params, toks, cfg, 512)
+    errs = {}
+    for tag in ("prefill", "decode 0", "decode 1"):
+        if tag != "prefill":
+            t = int(tag[-1])
+            lg, on_card = lm.decode_step(params, steps[t].to(dev), on_card, cfg)
+            lc, on_cpu = lm.decode_step(cpu_params, steps[t], on_cpu, cfg)
+            check(lg.shape == (1, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(lg).all()),
+                  f"full-width logits misshapen or non-finite ({tag})")
+            errs[f"logits {tag}"] = rel_l2(lg, lc)
+        errs[f"K {tag}"] = rel_l2(on_card.caches[0].k, on_cpu.caches[0].k)
+        errs[f"V {tag}"] = rel_l2(on_card.caches[0].v, on_cpu.caches[0].v)
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
+    print(f"[serve-w] llama3.2-3b full width (d_model 3072, 24/8 heads, "
+          f"d_ff 8192, vocab 128,256), 2 layers: prefill 256 tokens + 2 "
+          f"decode steps, card (B5, bf16 cuBLAS) vs CPU (plain) relative L2 "
+          f"worst {errs[worst]:.3e} ({worst}; bound 1e-2), all: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; {time.time() - t0:.1f} s")
+    sys.stdout.flush()
+    del params, cpu_params, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+
+def wall_ms(fn, n: int) -> float:
+    """Host wall ms per call of ``fn`` over ``n`` back-to-back calls that
+    end in one sync (after one warm-up call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / n
+
+
+def phase_serve(dev):
+    """The serving main path at full width through B5, and its EngineStats
+    against the same Engine at smoke size on the CPU."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+    from repro_torch.serve import batching
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    cfg = configs.get("llama3.2-3b")
+    ecfg = EngineConfig(mode="kf", max_slots=8, max_len=2048,
+                        budget_tokens=1024)
+    wl = batching.WorkloadConfig(n_requests=32, mean_prompt=512, mean_gen=16,
+                                 seed=0)
+    t0 = time.time()
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+
+    # the run as a user makes it: no sync is added inside it
+    engine = Engine(params, cfg, ecfg)
+    fa_ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    stats = engine.run(batching.generate(wl))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fa_ops.LAUNCHES["flash_attn"]
+    # the engine prefills each request once, in one prefill_caches call
+    check(len(stats.finished) == wl.n_requests,
+          f"{len(stats.finished)} of {wl.n_requests} requests finished")
+    check(launches == cfg.n_layers * wl.n_requests,
+          f"serving path: {launches} B5 launches for {wl.n_requests} "
+          f"prefills of {cfg.n_layers} layers")
+    logits, _ = lm.decode_step(params, engine._tokens, engine.state, cfg)
+    check(logits.shape == (ecfg.max_slots, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and bool(torch.isfinite(engine.state.caches[0].k).all()),
+          "serving path: non-finite logits or caches")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prompt_toks = sum(r.prompt_len for r in stats.finished)
+    gen_toks = sum(r.tokens_out for r in stats.finished)
+
+    # each model call alone, after the run: host wall per call over
+    # back-to-back calls, and the device's busy time under torch.profiler
+    def decode():
+        return lm.decode_step(params, engine._tokens, engine.state, cfg)
+
+    toks = torch.zeros((1, 512), dtype=torch.int64, device=dev)
+
+    def prefill():
+        return lm.prefill_caches(params, toks, cfg, ecfg.max_len)
+
+    d_wall = wall_ms(decode, 10)
+    p_wall = wall_ms(prefill, 5)
+    _, d_busy, d_dev, d_host = profile_device(decode, 3)
+    _, p_busy, p_dev, _ = profile_device(prefill, 1)
+    prof_lines = [
+        f"[serve] decode step alone: wall {d_wall:.2f} ms ({1e3 / d_wall:.1f}"
+        f" steps/s, 10 back-to-back steps), device busy {fmt_ms(d_busy)} "
+        f"(torch.profiler), idle share "
+        + (f"{1 - d_busy / d_wall:.3f}" if d_busy > 0 else "not measured")
+        + f"; top device ops (ms per step): {fmt_top(d_dev)}; top host "
+        f"ops by self time: {fmt_top(d_host)}",
+        f"[serve] prefill of 512 tokens alone: wall {p_wall:.2f} ms "
+        f"({512e3 / p_wall:.0f} tokens/s, 5 back-to-back prefills), device "
+        f"busy {fmt_ms(p_busy)}; top device ops: {fmt_top(p_dev)}",
+    ]
+
+    smoke = configs.smoke("llama3.2-3b")
+    cpu_params = lm.make_lm(torch.Generator().manual_seed(SEED), smoke)
+    t1 = time.time()
+    ref = Engine(cpu_params, smoke, ecfg, device="cpu").run(
+        batching.generate(wl))
+    t_ref = time.time() - t1
+
+    def trace(st):
+        return (st.configs, st.kf_signals, st.iters, st.clock,
+                [(r.rid, r.t_first_token, r.t_done, r.tokens_out)
+                 for r in st.finished], st.summary())
+
+    check(trace(stats) == trace(ref),
+          "EngineStats on the card differ from the CPU smoke run")
+    summ = {k: round(v, 6) for k, v in stats.summary().items()}
+    print(f"[serve] {cfg.name} full width, {cfg.n_layers} layers, Engine(kf, "
+          f"8 slots, max_len 2048, budget 1024), 32 requests (mean prompt "
+          f"512, mean gen 16): {launches} B5 launches = {cfg.n_layers} x "
+          f"{wl.n_requests} prefills; all finished; logits finite; "
+          f"EngineStats equal to the CPU smoke run ({t_ref:.1f} s); init "
+          f"{t_init:.1f} s; wall {wall:.2f} s for {prompt_toks} prompt and "
+          f"{gen_toks} generated tokens ({(prompt_toks + gen_toks) / wall:.0f}"
+          f" tokens/s over the run); peak device memory {peak_gb:.1f} GB; "
+          f"{stats.iters} iterations, KF boosted {sum(stats.configs)}")
+    print(f"[serve] summary() on the virtual clock (not wall time): {summ}")
+    print("\n".join(prof_lines))
+    sys.stdout.flush()
+    del params, engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -311,6 +758,8 @@ def main() -> int:
         from repro_torch.core.noc import sim, traffic
         from repro_torch.core.noc.topology import make_topology
         from repro_torch.kernels import _build
+        from repro_torch.kernels.flash_attn import kernel as fa_kernel
+        from repro_torch.kernels.kf_bank import kernel as kf_kernel
         from repro_torch.kernels.noc_cycle import fused, kernel, ops
         from repro_torch.obs import TraceRecorder, summarize_trace
     except ImportError as e:
@@ -325,14 +774,26 @@ def main() -> int:
     # ---- phase 1: device line + kernel build
     print(f"[1] device: {smi} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})")
+    torch.backends.cuda.matmul.allow_tf32 = False   # torch's default: f32
+    torch.backends.cudnn.allow_tf32 = False         # products compared in f32
     t0 = time.time()
+    libs = [("noc_cycle", kernel.SOURCES), ("kf_bank", kf_kernel.SOURCES),
+            ("flash_attn", fa_kernel.SOURCES)]
+    _build.build_all(libs)              # one nvcc per source, in parallel
     kernel.library()
+    kf_kernel.library()
+    fa_kernel.library()
     print(f"[1] kernel build + load: {time.time() - t0:.1f} s "
-          f"({kernel.SOURCES[0].name})")
-    log = _build.build_log("noc_cycle", kernel.SOURCES)
-    usage = ptxas_usage(log.read_text()) if log.exists() else {}
-    check(set(usage) == {"B1", "B2", "B3"},
-          f"ptxas report lacks a kernel: {sorted(usage)} ({log})")
+          f"({', '.join(src[0].name for _, src in libs)})")
+    usage = {}
+    for lib, src in libs:
+        log = _build.build_log(lib, src)
+        if log.exists():
+            usage.update(ptxas_usage(log.read_text()))
+    want = {"B1", "B2", "B3", "B4"} | {f"B5 {t} D{d}" for t in ("bf16", "f32")
+                                      for d in fa_kernel.HEAD_DIMS}
+    check(set(usage) == want,
+          f"ptxas report lacks a kernel: {sorted(want - set(usage))}")
     print(f"[1] ptxas -v per thread: {json.dumps(usage, sort_keys=True)}")
     sys.stdout.flush()
 
@@ -598,6 +1059,12 @@ def main() -> int:
           f"untraced run")
     sys.stdout.flush()
 
+    # ---- the fleet path (B4) and the serving path (B5)
+    b4 = phase_b4(dev)
+    b5 = phase_b5(dev)
+    phase_serve_w(dev)
+    b5["launches"] = phase_serve(dev)
+
     # ---- phase 6: the kernels line
     nb1, op1 = b1_bound(d, L)
     nb2, op2 = b2_bound(d, 500)
@@ -624,6 +1091,7 @@ def main() -> int:
              launches=b3_launches, max_abs_err=b3_err, ms=b3_ms,
              plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),
+        b4, b5,
     ]
     print(f"[6] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

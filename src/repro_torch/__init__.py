@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the KF-reconfigured chiplet NoC simulator.
+"""PyTorch + CUDA port of the KF-reconfigured chiplet NoC simulator, the
+fleet KF bank and the KF-arbitrated serving engine.
 
 The package mirrors `repro`'s layout module for module.  It imports torch
 and numpy only: never jax, and nothing of the JAX package.  Entry points

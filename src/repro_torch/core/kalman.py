@@ -151,3 +151,36 @@ def normalize_observations(raw: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
 def binarize(x_post: Tensor, threshold: float | Tensor = 0.0) -> Tensor:
     """Paper §3.2: KF output > 0 => IPC will decline => reconfigure (1)."""
     return (x_post > threshold).to(torch.int32)
+
+
+def batched_step(
+    params: KalmanParams, states: KalmanState, z: Tensor,
+    u: Tensor | None = None,
+):
+    """`step` over a bank of independent filters sharing ``params``: states
+    x (B, n), p (B, n, n), observations z (B, m), controls u (B, u) or None.
+    The batch dimension is written out (the JAX package vmaps `step`); the
+    coast is decided per filter.  Returns (posterior, prior, innovation),
+    each with the leading B."""
+    x, p = states
+    a, h = params.a, params.h
+    x_prior = x @ a.T
+    if u is not None:
+        x_prior = x_prior + u @ params.b.T
+    p_prior = a @ p @ a.T + params.q
+    s = h @ p_prior @ h.T + params.r                        # (B, m, m)
+    k = _solve(s, h @ p_prior.transpose(-1, -2)).transpose(-1, -2)
+    innovation = z - x_prior @ h.T                          # (B, m)
+    x_post = x_prior + (k @ innovation[..., None])[..., 0]
+    n = params.state_dim
+    eye = torch.eye(n, dtype=p_prior.dtype, device=p_prior.device)
+    p_post = (eye - k @ h) @ p_prior
+    p_post = 0.5 * (p_post + p_post.transpose(-1, -2))
+    broke = ~(torch.isfinite(x_post).all(-1)
+              & torch.isfinite(p_post).all((-2, -1))
+              & (torch.diagonal(p_post, dim1=-2, dim2=-1) > 0.0).all(-1))
+    coast = broke & torch.isfinite(z).all(-1)
+    x_post = torch.where(coast[:, None], x_prior, x_post)
+    p_post = torch.where(coast[:, None, None], p_prior, p_post)
+    return (KalmanState(x=x_post, p=p_post), KalmanState(x=x_prior, p=p_prior),
+            innovation)

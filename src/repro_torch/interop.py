@@ -1,12 +1,13 @@
-"""Carry inputs and state across from numpy into the port's NamedTuples.
+"""Carry inputs, state and weights across from numpy into the port.
 
-This system has no weights: what crosses over is demand, fault and
-placement streams, recorded traces, simulator state, the flight-recorder
-carry and random streams.  Each converter
-takes any object with the right field names whose leaves numpy can read
-(for example a NamedTuple of numpy arrays) and returns the port's
-NamedTuple of the same field names on ``device``.  uint16 injection stamps
-widen to the port's int32 stamps value for value.
+What crosses over: demand, fault and placement streams, recorded traces,
+simulator state, the flight-recorder carry and random streams (the NoC
+simulator has no weights), and a language model's parameter tree and decode
+state (the serving path).  Each converter takes any object with the right
+field names whose leaves numpy can read (for example a NamedTuple of numpy
+arrays) and returns the port's structure of the same names on ``device``.
+uint16 injection stamps widen to the port's int32 stamps value for value;
+bfloat16 leaves (numpy's ml_dtypes type) cross as torch.bfloat16 exactly.
 """
 from __future__ import annotations
 
@@ -19,13 +20,21 @@ from repro_torch.core.noc.router import SubnetState
 from repro_torch.core.noc.sim import EpochStreams, MCState
 from repro_torch.core.noc.traffic import RecordedTrace, WorkloadProfile
 from repro_torch.kernels.noc_cycle.fused import LaneState, ProbeLanes
+from repro_torch.models import lm
+from repro_torch.models.attention import KVCache
+from repro_torch.models.config import ModelConfig
 
 
 def tensor(x, device="cpu", dtype: torch.dtype | None = None) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.uint16:
         a = a.astype(np.int32)
+    bf16 = a.dtype.name == "bfloat16"
+    if bf16:
+        a = a.astype(np.float32)  # every bfloat16 value is a float32 value
     t = torch.from_numpy(np.array(a))  # a writable, contiguous copy
+    if bf16:
+        t = t.to(torch.bfloat16)
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device)
@@ -106,3 +115,37 @@ def epoch_stream_provider(
         return up[epoch], ug[epoch], di[epoch]
 
     return streams
+
+
+def lm_params(tree, cfg: ModelConfig, device="cpu") -> dict:
+    """A dense LM's parameter tree as the reference's `make_lm` builds it
+    (dicts of arrays, each pattern position's blocks stacked over n_super)
+    -> the port's tree (`lm.make_lm`'s layout: a list of per-layer dicts
+    per pattern position).  Leaf types are kept."""
+    pattern, n_super = lm.layer_pattern(cfg)
+
+    def conv(node, i=None):
+        if isinstance(node, dict):
+            return {k: conv(v, i) for k, v in node.items()}
+        return tensor(node if i is None else np.asarray(node)[i], device)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [[conv(tree["blocks"][j], i) for i in range(n_super)]
+                     for j in range(len(pattern))]
+    return out
+
+
+def decode_state(obj, device="cpu") -> lm.DecodeState:
+    """A decode state (``caches`` of (k, v, length) leaves stacked over
+    n_super, ``shared_kv``, ``length``) as the port's `lm.DecodeState`:
+    bf16 K/V, int32 lengths."""
+    def kv(c):
+        return KVCache(k=tensor(c.k, device, torch.bfloat16),
+                       v=tensor(c.v, device, torch.bfloat16),
+                       length=tensor(c.length, device, torch.int32))
+
+    shared = getattr(obj, "shared_kv", None)
+    return lm.DecodeState(
+        caches=[kv(c) for c in obj.caches],
+        shared_kv=None if shared is None else kv(shared),
+        length=tensor(obj.length, device, torch.int32))

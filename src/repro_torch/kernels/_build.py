@@ -8,8 +8,10 @@ sources and flags in its file name, so a stale library is never loaded:
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>_<hash>.so <sources>
 
 ptxas's report of each kernel's registers, stack and spill bytes is kept
-beside the library as lib<name>_<hash>.ptxas.txt (`build_log`).  The
-sources have a plain C interface; the wrappers load them with ctypes.
+beside the library as lib<name>_<hash>.ptxas.txt (`build_log`).
+`build_all` compiles several libraries with one nvcc process each, all
+started together.  The sources have a plain C interface; the wrappers load
+them with ctypes.
 """
 from __future__ import annotations
 
@@ -55,25 +57,39 @@ def build_log(name: str, sources: list[Path]) -> Path:
     return library_path(name, sources).with_suffix(".ptxas.txt")
 
 
+def build_all(libs: list[tuple[str, list[Path]]]) -> list[Path]:
+    """Compile each (name, sources) library that does not exist yet, one
+    nvcc process per library, all started together; raise if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name, sources in libs:
+        out = library_path(name, sources)
+        if out.exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, sources, out, tmp, cmd, proc))
+    failed = []
+    for name, sources, out, tmp, cmd, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed building {name} ({proc.returncode}):"
+                          f"\n{' '.join(cmd)}\n{log}")
+            continue
+        build_log(name, sources).write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(name, sources) for name, sources in libs]
+
+
 def build(name: str, sources: list[Path]) -> Path:
     """Compile ``sources`` into the hashed library unless it exists."""
-    out = library_path(name, sources)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed building {name} ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    build_log(name, sources).write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return build_all([(name, sources)])[0]
 
 
 def load_library(name: str, sources: list[Path]) -> ctypes.CDLL:

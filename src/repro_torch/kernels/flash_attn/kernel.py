@@ -1,0 +1,84 @@
+"""ctypes launcher for the CUDA kernel in csrc/flash_attn.cu (B5), which
+replaces repro/kernels/flash_attn/kernel.py::_flash_kernel.  It checks
+device, dtype, shape and strides, launches on PyTorch's current stream
+without synchronising, and raises if the launch reports a CUDA error.  The
+library is built at first call (`repro_torch.kernels._build`), never at
+import.
+
+Instantiated for head dims 64, 80 and 128 and for float32 and bfloat16
+inputs; any other combination raises on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attn.ops import LAUNCHES
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"]
+HEAD_DIMS = (64, 80, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BLOCK_Q = 64        # query rows per block (the kernel's BQ)
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (first call) and load the flash_attn library."""
+    lib = _build.load_library("flash_attn", SOURCES)
+    lib.flash_attn_fwd.argtypes = (
+        [_I, _I] + [_P] * 4 + [_L] * 12 + [_I] * 8 + [_F, _P])
+    lib.flash_attn_fwd.restype = _I
+    return lib
+
+
+def flash_attn(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool, window: int | None, logit_cap: float | None,
+    kv_len: int | None,
+) -> torch.Tensor:
+    """B5 on q (B, Sq, H, D), k/v (B, Sk, KV, D) CUDA tensors of one type,
+    each with a unit stride on D (any strides on B, S and H)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.ndim != 4 or t.stride(3) != 1:
+            raise ValueError(f"{name} must be 4-d with a unit stride on D")
+    if q.dtype not in DTYPES or d not in HEAD_DIMS:
+        raise ValueError(f"flash_attn has no instantiation for {q.dtype}, "
+                         f"D={d} (instantiated: {list(DTYPES)} x {HEAD_DIMS})")
+    if k.shape != (b, sk, kvh, d) or v.shape != k.shape:
+        raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    if kvh == 0 or h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if logit_cap is not None and not logit_cap > 0:
+        raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    if out.numel() == 0:
+        return out
+    kv_len = sk if kv_len is None else kv_len
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    rc = library().flash_attn_fwd(
+        DTYPES[q.dtype], d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        b, h, kvh, sq, sk, max(0, min(kv_len, sk)), int(causal),
+        0 if window is None else int(window),
+        0.0 if logit_cap is None else float(logit_cap), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attn launch failed: CUDA error {rc}")
+    LAUNCHES["flash_attn"] += 1
+    return out

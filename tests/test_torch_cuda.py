@@ -109,3 +109,59 @@ def test_engines_agree_on_trace_on_card():
         for name, a, b in zip(tf._fields, tf, t):
             assert torch.equal(a, b) or torch.allclose(
                 a, b, rtol=0, atol=0, equal_nan=True), (e, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(7, 3), (1000, 5), (65_536, 3)])
+def test_kf_bank_kernel_matches_plain(n, m):
+    """B4 against `kf_bank_step_plain` on the card, bitwise (both round
+    every operation once, in the same order)."""
+    _need_cuda()
+    from repro_torch.kernels.kf_bank import kernel as kf_kernel
+    from repro_torch.kernels.kf_bank import ops as kf_ops
+
+    g = torch.Generator(device="cuda").manual_seed(n)
+
+    def u(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g, device="cuda")
+
+    x, p, z = torch.randn(n, generator=g, device="cuda"), u(n, 0.1, 2.0), \
+        torch.randn((n, m), generator=g, device="cuda")
+    h, r = u(m, 0.5, 1.5), u(m, 0.05, 0.5)
+    for a, q in ((1.0, 1e-3), (0.9, 1e-2)):
+        kx, kp = kf_kernel.kf_bank(x, p, z, h, r, a=a, q=q)
+        px, pp = kf_ops.kf_bank_step_plain(x, p, z, h, r, a=a, q=q)
+        assert torch.equal(kx, px) and torch.equal(kp, pp), (n, m, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,cap,kv_len", [
+    (2, 48, 48, 6, 2, 64, True, None, None, None),
+    (1, 200, 200, 24, 8, 128, True, None, None, None),
+    (1, 200, 200, 32, 8, 80, True, 64, None, None),
+    (1, 130, 130, 48, 8, 128, True, None, 30.0, None),
+    (2, 64, 100, 8, 2, 128, False, None, None, 77),
+])
+def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, d, causal,
+                                    window, cap, kv_len):
+    """B5 against `flash_attention_plain` on the card.  f32: atol 2e-5,
+    rtol 1e-5 (summation order, expf; TF32 is off, torch's default, so the
+    plain products are full f32); bf16: atol 8e-3 plus rtol 2^-7, one bf16
+    ulp of the value (both round the same f32 result to bf16, and a last-bit
+    difference can fall on either side of a rounding boundary)."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(sq + d)
+    q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, sk, kv, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, sk, kv, d), generator=g, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, logit_cap=cap, kv_len=kv_len)
+    out = fa_kernel.flash_attn(q, k, v, **kw)
+    want = fa_ops.flash_attention_plain(q, k, v, **kw)
+    assert out.dtype == dtype and out.shape == q.shape
+    tol = dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32 else \
+        dict(atol=8e-3, rtol=2 ** -7)
+    torch.testing.assert_close(out.float(), want.float(), **tol)

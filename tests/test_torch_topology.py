@@ -88,6 +88,12 @@ def test_port_imports_neither_jax_nor_reference():
                 if n.split(".")[0] in ("jax", "jaxlib", "repro"):
                     bad.append(f"{path.relative_to(ROOT)}: {n}")
     assert not bad, bad
+    # the walk covers every subpackage of the port, the serving and fleet
+    # ones and their kernels included
+    covered = {p.parent.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in _port_files()[:-1]}
+    assert {"configs", "dist", "launch", "models", "serve",
+            "kernels/kf_bank", "kernels/flash_attn"} <= covered
 
 
 def test_simulate_defaults_to_cuda(monkeypatch):
@@ -102,3 +108,36 @@ def test_simulate_defaults_to_cuda(monkeypatch):
                 TraceRecorder(observe=True).record):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             run(cfg, "PATH")
+
+
+def test_fleet_and_serving_entry_points_default_to_cuda(monkeypatch):
+    """Without a device the fleet and serving entry points, and the kernel
+    wrappers handed arrays that are not tensors, ask for CUDA and name the
+    CPU escape hatch; none of them runs on the CPU unasked."""
+    import numpy as np
+
+    import repro_torch.configs as configs
+    from repro_torch.dist.kf_scheduler import FleetKF
+    from repro_torch.kernels.flash_attn.ops import flash_attention
+    from repro_torch.kernels.kf_bank.ops import kf_bank_step
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, EngineConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.smoke("llama3.2-3b")
+    params = lm.make_lm(torch.Generator().manual_seed(0), cfg)
+    x = np.zeros(4, np.float32)
+    qkv = np.zeros((1, 8, 2, 64), np.float32)
+    calls = (
+        lambda: Engine(params, cfg, EngineConfig()),
+        lambda: serve.run("llama3.2-3b", "kf", n_requests=2),
+        lambda: FleetKF(16),
+        lambda: lm.init_decode_state(2, 16, cfg),
+        lambda: kf_bank_step(x, x + 1, np.zeros((4, 3), np.float32),
+                             np.ones(3, np.float32), np.ones(3, np.float32)),
+        lambda: flash_attention(qkv, qkv, qkv),
+    )
+    for call in calls:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
