@@ -54,6 +54,24 @@ build/repro_torch/), then runs, each phase failing the script on error:
      the model's numbers); the run's wall time (no sync added inside it),
      then a decode step and a 512-token prefill each timed alone, back to
      back, and profiled for the device's busy time;
+  [B6] the selective-scan kernel (mamba_scan) against its plain version
+     `scan_ref`, bitwise, at the JAX kernel test's four shapes and at the
+     forward shape (1, 2048, 8192, 16), timed there beside its bytes bound;
+  [B7] the fused scan kernel (mamba_fused) against its plain version within
+     1e-5 (abs + rel), at the JAX test's two shapes in f32 and at
+     (1, L, 8192, 16) with bf16 xc/B/C and a nonzero h0 for L = 48, 517,
+     2048, timed at 517 and 2048 beside its bound;
+  [fwd-m] falcon-mamba-7b at full width and depth (64 layers, random
+     weights from the seed), B = 1, L = 2048: lm.forward with use_kernel
+     (exactly 64 B6 launches) and without (exactly 64 B7 launches), logits
+     of the two within relative L2 1e-2, and the wall of each;
+  [serve-mw] falcon-mamba-7b at full width cut to 2 layers: forward +
+     prefill of a 300-token prompt and 2 decode steps on the card (B7)
+     against the same parameters on the CPU (plain), relative L2 <= 1e-2
+     on the logits, SSM states and conv rings;
+  [serve-m] the [serve] run on the full falcon-mamba-7b: exactly 64 B7
+     launches per prefill (2,048), EngineStats equal to a CPU smoke run,
+     the wall, and a decode step and a 512-token prefill timed alone;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch, the
      plain version's ms, the bound in ms and what bounds it, and the time
@@ -86,6 +104,9 @@ PEAK_INT32_OPS_S = 132 * 64 * 1.98e9
 # the tensor cores
 PEAK_BF16_FLOP_S = 989e12
 PEAK_F32_FLOP_S = 67e12
+# exponentials through the special-function units: 132 SMs x 16 MUFU
+# lanes per SM per clock x 1.98 GHz
+PEAK_EXP_S = 132 * 16 * 1.98e9
 SEED = 0
 
 
@@ -296,6 +317,10 @@ def ptxas_usage(log: str) -> dict:
               ("noc_fused_cycles_kernelILi4ELi4ELb0E", "B2"),
               ("noc_fused_cycles_kernelILi4ELi4ELb1E", "B3"),
               ("kf_bank_kernel", "B4"),
+              ("mamba_scan_kernel", "B6"),
+              *((f"mamba_fused_kernelI{t}Li{n}E", f"B7 {tn} S{n}")
+                for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
+                for n in (8, 16)),
               *((f"flash_fwd_kernelILi{d}E{t}", f"B5 {n} D{d}")
                 for d in (64, 80, 128)
                 for t, n in (("13__nv_bfloat16", "bf16"), ("f", "f32"))))
@@ -639,48 +664,48 @@ def wall_ms(fn, n: int) -> float:
     return (time.time() - t0) * 1e3 / n
 
 
-def phase_serve(dev):
-    """The serving main path at full width through B5, and its EngineStats
-    against the same Engine at smoke size on the CPU."""
+def serve_main(dev, tag, cfg, params, t_init, counter, key, kname):
+    """The serving main path at full width: Engine(mode="kf") over 32
+    requests on the card with ``params``, exactly n_layers launches of
+    kernel ``key`` (counted in ``counter.LAUNCHES``) per prefill and no
+    other launch of that counter, and EngineStats equal to the same Engine
+    run at smoke size on the CPU; then a decode step and a 512-token
+    prefill timed alone and profiled.  Returns the launches."""
     import torch
 
     import repro_torch.configs as configs
-    from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.models import lm
     from repro_torch.serve import batching
     from repro_torch.serve.engine import Engine, EngineConfig
 
-    cfg = configs.get("llama3.2-3b")
     ecfg = EngineConfig(mode="kf", max_slots=8, max_len=2048,
                         budget_tokens=1024)
     wl = batching.WorkloadConfig(n_requests=32, mean_prompt=512, mean_gen=16,
                                  seed=0)
-    t0 = time.time()
-    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
-    torch.cuda.synchronize()
-    t_init = time.time() - t0
-
     # the run as a user makes it: no sync is added inside it
     engine = Engine(params, cfg, ecfg)
-    fa_ops.reset_launches()
+    counter.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.time()
     stats = engine.run(batching.generate(wl))
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = fa_ops.LAUNCHES["flash_attn"]
+    counts = dict(counter.LAUNCHES)
+    launches = counts[key]
     # the engine prefills each request once, in one prefill_caches call
     check(len(stats.finished) == wl.n_requests,
-          f"{len(stats.finished)} of {wl.n_requests} requests finished")
-    check(launches == cfg.n_layers * wl.n_requests,
-          f"serving path: {launches} B5 launches for {wl.n_requests} "
-          f"prefills of {cfg.n_layers} layers")
+          f"{tag} {len(stats.finished)} of {wl.n_requests} requests finished")
+    check(counts == {**{k: 0 for k in counts},
+                     key: cfg.n_layers * wl.n_requests},
+          f"serving path: launches {counts}, expected {key} = "
+          f"{cfg.n_layers} layers x {wl.n_requests} prefills and no other")
     logits, _ = lm.decode_step(params, engine._tokens, engine.state, cfg)
     check(logits.shape == (ecfg.max_slots, 1, cfg.vocab_size)
           and bool(torch.isfinite(logits).all())
-          and bool(torch.isfinite(engine.state.caches[0].k).all()),
-          "serving path: non-finite logits or caches")
+          and all(bool(torch.isfinite(leaf.float()).all())
+                  for leaf in engine.state.caches[0]),
+          f"{tag} serving path: non-finite logits or caches")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prompt_toks = sum(r.prompt_len for r in stats.finished)
     gen_toks = sum(r.tokens_out for r in stats.finished)
@@ -700,18 +725,18 @@ def phase_serve(dev):
     _, d_busy, d_dev, d_host = profile_device(decode, 3)
     _, p_busy, p_dev, _ = profile_device(prefill, 1)
     prof_lines = [
-        f"[serve] decode step alone: wall {d_wall:.2f} ms ({1e3 / d_wall:.1f}"
+        f"{tag} decode step alone: wall {d_wall:.2f} ms ({1e3 / d_wall:.1f}"
         f" steps/s, 10 back-to-back steps), device busy {fmt_ms(d_busy)} "
         f"(torch.profiler), idle share "
         + (f"{1 - d_busy / d_wall:.3f}" if d_busy > 0 else "not measured")
         + f"; top device ops (ms per step): {fmt_top(d_dev)}; top host "
         f"ops by self time: {fmt_top(d_host)}",
-        f"[serve] prefill of 512 tokens alone: wall {p_wall:.2f} ms "
+        f"{tag} prefill of 512 tokens alone: wall {p_wall:.2f} ms "
         f"({512e3 / p_wall:.0f} tokens/s, 5 back-to-back prefills), device "
         f"busy {fmt_ms(p_busy)}; top device ops: {fmt_top(p_dev)}",
     ]
 
-    smoke = configs.smoke("llama3.2-3b")
+    smoke = configs.smoke(cfg.name)
     cpu_params = lm.make_lm(torch.Generator().manual_seed(SEED), smoke)
     t1 = time.time()
     ref = Engine(cpu_params, smoke, ecfg, device="cpu").run(
@@ -724,23 +749,284 @@ def phase_serve(dev):
                  for r in st.finished], st.summary())
 
     check(trace(stats) == trace(ref),
-          "EngineStats on the card differ from the CPU smoke run")
+          f"{tag} EngineStats on the card differ from the CPU smoke run")
     summ = {k: round(v, 6) for k, v in stats.summary().items()}
-    print(f"[serve] {cfg.name} full width, {cfg.n_layers} layers, Engine(kf, "
+    print(f"{tag} {cfg.name} full width, {cfg.n_layers} layers, Engine(kf, "
           f"8 slots, max_len 2048, budget 1024), 32 requests (mean prompt "
-          f"512, mean gen 16): {launches} B5 launches = {cfg.n_layers} x "
-          f"{wl.n_requests} prefills; all finished; logits finite; "
+          f"512, mean gen 16): {launches} {kname} launches = {cfg.n_layers} "
+          f"x {wl.n_requests} prefills; all finished; logits finite; "
           f"EngineStats equal to the CPU smoke run ({t_ref:.1f} s); init "
           f"{t_init:.1f} s; wall {wall:.2f} s for {prompt_toks} prompt and "
           f"{gen_toks} generated tokens ({(prompt_toks + gen_toks) / wall:.0f}"
           f" tokens/s over the run); peak device memory {peak_gb:.1f} GB; "
           f"{stats.iters} iterations, KF boosted {sum(stats.configs)}")
-    print(f"[serve] summary() on the virtual clock (not wall time): {summ}")
+    print(f"{tag} summary() on the virtual clock (not wall time): {summ}")
     print("\n".join(prof_lines))
     sys.stdout.flush()
-    del params, engine
+    del engine
     torch.cuda.empty_cache()
     return launches
+
+
+def phase_serve(dev):
+    """The serving main path on llama3.2-3b through B5."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+
+    cfg = configs.get("llama3.2-3b")
+    t0 = time.time()
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    launches = serve_main(dev, "[serve]", cfg, params, t_init, fa_ops,
+                          "flash_attn", "B5")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def scan_inputs(g, b, L, d, s):
+    """B6's inputs as the JAX kernel test draws them: a in [0.5, 0.999),
+    b ~ 0.1 N(0, 1), h0 ~ N(0, 1), float32 on ``g``'s device."""
+    import torch
+
+    dev = g.device
+    a = 0.5 + 0.499 * torch.rand((b, L, d, s), generator=g, device=dev)
+    bb = 0.1 * torch.randn((b, L, d, s), generator=g, device=dev)
+    return a, bb, torch.randn((b, d, s), generator=g, device=dev)
+
+
+def b6_bound(b, L, d, s):
+    """Least time of one B6 launch: a and b read and hs written once
+    (B*L*D*S floats each), h0 read and h_last written once; 2 flops per
+    element at the f32 rate."""
+    n = b * L * d * s
+    return bound_ms((3 * n + 2 * b * d * s) * 4, 2 * n, PEAK_F32_FLOP_S)
+
+
+def phase_b6(dev):
+    """B6 against its plain version (`scan_ref`), bitwise, at the JAX kernel
+    test's shapes and at the forward shape; timed at the forward shape."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.kernels.mamba_scan.ref import scan_ref
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    shapes = [(2, 64, 32, 8, 16, 16), (1, 128, 64, 16, 32, 32),
+              (2, 32, 16, 4, 32, 16), (1, 64, 128, 8, 64, 64),
+              (1, 2048, 8192, 16, 256, 256)]
+    err = 0.0
+    for b, L, d, s, chunk, bd in shapes:
+        a, bb, h0 = scan_inputs(g, b, L, d, s)
+        hs, hl = ms_ops.mamba_chunk_scan(a, bb, h0, chunk=chunk, block_d=bd)
+        hs_p, hl_p = scan_ref(a, bb, h0)
+        err = max(err, float((hs - hs_p).abs().max()),
+                  float((hl - hl_p).abs().max()))
+        check(torch.equal(hs, hs_p) and torch.equal(hl, hl_p),
+              f"B6 differs from its plain version at {(b, L, d, s)} (max "
+              f"abs err {err})")
+        del hs, hl, hs_p, hl_p
+    b, L, d, s = shapes[-1][:4]
+    ms = cuda_ms(lambda: ms_kernel.mamba_scan(a, bb, h0), 10)
+    plain = cuda_ms(lambda: scan_ref(a, bb, h0), 1, warmup=1)
+    bm, by = b6_bound(b, L, d, s)
+    gbs = (3 * b * L * d * s + 2 * b * d * s) * 4 / ms / 1e6
+    print(f"[B6] mamba_scan bitwise equal to its plain version at "
+          f"{len(shapes)} shapes (the JAX test's four and {(b, L, d, s)}); "
+          f"at (1, 2048, 8192, 16): kernel {ms:.4f} ms ({gbs:.0f} GB/s), "
+          f"plain {plain:.2f} ms, bound "
+          f"{bm:.4f} ms ({by})")
+    sys.stdout.flush()
+    del a, bb, h0
+    torch.cuda.empty_cache()
+    return dict(name="mamba_scan", route="cuda",
+                source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan/kernel.py:30",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bm, bound_by=by, library_ms=None)
+
+
+def b7_bound(b, L, d, s, elem, h0=True):
+    """Least time of one B7 launch: dt, xc, B, C, A (and h0) read once, y
+    and h_last written once; against ~6 f32 flops per (t, d, s) at the f32
+    rate and one exponential per (t, d, s) at the MUFU rate."""
+    n = b * L * d * s
+    nbytes = (b * L * d * (4 + elem + 4) + 2 * b * L * s * elem + d * s * 4
+              + (2 if h0 else 1) * b * d * s * 4)
+    t = {"bytes": nbytes / PEAK_BYTES_S * 1e3,
+         "operations": max(6 * n / PEAK_F32_FLOP_S, n / PEAK_EXP_S) * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
+def phase_b7(dev):
+    """B7 against its plain version within 1e-5 at the JAX kernel test's
+    shapes (f32) and the model's (bf16 xc/B/C, nonzero h0); timed."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import fused as ms_fused
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def inputs(b, L, d, s, dtype, model):
+        u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+            shape, generator=g, device=dev)
+        dt = u((b, L, d), 0.001, 0.1)
+        xc, bm, cm = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                      for shape in ((b, L, d), (b, L, s), (b, L, s)))
+        if model:   # falcon-mamba's A (S4D-real) and a nonzero state
+            a_mat = -torch.arange(1, s + 1, dtype=torch.float32,
+                                  device=dev).repeat(d, 1)
+            h0 = torch.randn((b, d, s), generator=g, device=dev)
+        else:       # the JAX test's A, from zero
+            a_mat = -torch.exp(0.3 * torch.randn((d, s), generator=g,
+                                                 device=dev))
+            h0 = None
+        return dt, xc, bm, cm, a_mat, h0
+
+    cases = [(2, 64, 32, 8, torch.float32, False),
+             (1, 128, 64, 16, torch.float32, False)] + [
+        (1, L, 8192, 16, torch.bfloat16, True) for L in (48, 517, 2048)]
+    err, timing, bitwise = 0.0, {}, 0
+    for b, L, d, s, dtype, model in cases:
+        dt, xc, bm, cm, a_mat, h0 = inputs(b, L, d, s, dtype, model)
+        y, hl = ms_fused.fused_mamba_scan(dt, xc, bm, cm, a_mat, h0=h0)
+        y_p, hl_p = ms_fused.fused_mamba_scan_plain(dt, xc, bm, cm, a_mat, h0)
+        bitwise += torch.equal(y, y_p) and torch.equal(hl, hl_p)
+        for got, want in ((y, y_p), (hl, hl_p)):
+            diff = (got - want).abs()
+            err = max(err, float(diff.max()))
+            check(bool(torch.isfinite(got).all()) and bool(
+                (diff <= 1e-5 + 1e-5 * want.abs()).all()),
+                f"B7 differs from its plain version at {(b, L, d, s)} "
+                f"{dtype} (max abs err {float(diff.max())})")
+        if L in (517, 2048):
+            ms = cuda_ms(lambda: ms_kernel.mamba_fused(dt, xc, bm, cm, a_mat,
+                                                       h0), 20)
+            plain = (cuda_ms(lambda: ms_fused.fused_mamba_scan_plain(
+                dt, xc, bm, cm, a_mat, h0), 1, warmup=0) if L == 517 else None)
+            timing[L] = (ms, plain, *b7_bound(b, L, d, s, 2))
+    print(f"[B7] mamba_fused within 1e-5 (abs + rel) of its plain version at "
+          f"{len(cases)} shapes (the JAX test's two in f32 from zero; (1, L, "
+          f"8192, 16) bf16 from a nonzero h0 at L = 48, 517, 2048), bitwise "
+          f"at {bitwise} of them: max abs err {err:.3g}")
+    for L, (ms, plain, bm, by) in timing.items():
+        print(f"[B7] (1, {L}, 8192, 16) bf16: kernel {ms:.4f} ms, bound "
+              f"{bm:.4f} ms ({by})"
+              + ("" if plain is None else f", plain {plain:.1f} ms"))
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    ms, plain, bm, by = timing[517]
+    return dict(name="mamba_fused", route="cuda",
+                source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan/fused.py:28",
+                launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bm, bound_by=by, library_ms=None)
+
+
+def phase_fwd_m(dev, params, cfg):
+    """falcon-mamba-7b at full width and depth through `lm.forward`, B = 1,
+    L = 2048: use_kernel=True through B6, use_kernel=False through B7, one
+    launch per layer each, logits agreeing.  Returns B6's launches."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import lm
+
+    g = torch.Generator().manual_seed(SEED + 12)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g).to(dev)
+    outs, counts = {}, {}
+    for use_kernel in (True, False):
+        ms_ops.reset_launches()
+        outs[use_kernel] = lm.forward(params, toks, cfg,
+                                      use_kernel=use_kernel).logits
+        counts[use_kernel] = dict(ms_ops.LAUNCHES)
+    check(counts[True] == {"mamba_scan": cfg.n_layers, "mamba_fused": 0}
+          and counts[False] == {"mamba_scan": 0, "mamba_fused": cfg.n_layers},
+          f"forward launched {counts}, expected {cfg.n_layers} of B6 with "
+          f"use_kernel and {cfg.n_layers} of B7 without")
+    for lg in outs.values():
+        check(lg.shape == (1, 2048, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()),
+              "forward logits misshapen or non-finite")
+    err = rel_l2(outs[True], outs[False])
+    check(err <= 1e-2, f"forward through B6 and through B7 differ: relative "
+                       f"L2 {err:.3e}")
+    del outs
+    walls = {uk: wall_ms(lambda: lm.forward(params, toks, cfg,
+                                            use_kernel=uk), 2)
+             for uk in (True, False)}
+    print(f"[fwd-m] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, vocab "
+          f"{cfg.vocab_size:,}), B=1, L=2048: forward(use_kernel=True) "
+          f"{counts[True]['mamba_scan']} B6 launches, wall "
+          f"{walls[True]:.1f} ms; forward(use_kernel=False) "
+          f"{counts[False]['mamba_fused']} B7 launches, wall "
+          f"{walls[False]:.1f} ms ({2048e3 / walls[False]:.0f} tokens/s); "
+          f"logits relative L2 {err:.3e} (bound 1e-2)")
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    return counts[True]["mamba_scan"]
+
+
+def phase_serve_mw(dev):
+    """falcon-mamba-7b at full width, depth cut to 2 layers: the card (B7)
+    against the CPU (plain) on one seeded parameter set."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get("falcon-mamba-7b"), n_layers=2)
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    cpu_params = _to_cpu(params)
+    g = torch.Generator().manual_seed(SEED + 13)
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
+    t0 = time.time()
+    ms_ops.reset_launches()
+    on_card = lm.forward(params, toks.to(dev), cfg, return_caches=True,
+                         cache_len=512)
+    check(ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * cfg.n_layers},
+          f"full-width forward + prefill launched {ms_ops.LAUNCHES}")
+    on_cpu = lm.forward(cpu_params, toks, cfg, return_caches=True,
+                        cache_len=512)
+    errs = {"logits prefill": rel_l2(on_card.logits, on_cpu.logits)}
+    st_card, st_cpu = on_card.caches, on_cpu.caches
+    for tag in ("prefill", "decode 0", "decode 1"):
+        if tag != "prefill":
+            t = int(tag[-1])
+            lg, st_card = lm.decode_step(params, steps[t].to(dev), st_card,
+                                         cfg)
+            lc, st_cpu = lm.decode_step(cpu_params, steps[t], st_cpu, cfg)
+            check(lg.shape == (1, 1, cfg.vocab_size)
+                  and bool(torch.isfinite(lg).all()),
+                  f"full-width logits misshapen or non-finite ({tag})")
+            errs[f"logits {tag}"] = rel_l2(lg, lc)
+        errs[f"ssm {tag}"] = rel_l2(st_card.caches[0].ssm,
+                                    st_cpu.caches[0].ssm)
+        errs[f"conv {tag}"] = rel_l2(st_card.caches[0].conv,
+                                     st_cpu.caches[0].conv)
+    worst = max(errs, key=errs.get)
+    print(f"[serve-mw] falcon-mamba-7b full width (d_model 4096, d_inner "
+          f"8192, state 16, vocab 65,024), 2 layers: forward + prefill of a "
+          f"300-token prompt and 2 decode steps, card (B7, bf16 cuBLAS) vs "
+          f"CPU (plain) relative L2 worst {errs[worst]:.3e} ({worst}; bound "
+          f"1e-2), all: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; {time.time() - t0:.1f} s")
+    sys.stdout.flush()
+    check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
+    del params, cpu_params, on_card, on_cpu, st_card, st_cpu
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -760,6 +1046,7 @@ def main() -> int:
         from repro_torch.kernels import _build
         from repro_torch.kernels.flash_attn import kernel as fa_kernel
         from repro_torch.kernels.kf_bank import kernel as kf_kernel
+        from repro_torch.kernels.mamba_scan import kernel as ms_kernel
         from repro_torch.kernels.noc_cycle import fused, kernel, ops
         from repro_torch.obs import TraceRecorder, summarize_trace
     except ImportError as e:
@@ -778,11 +1065,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False         # products compared in f32
     t0 = time.time()
     libs = [("noc_cycle", kernel.SOURCES), ("kf_bank", kf_kernel.SOURCES),
-            ("flash_attn", fa_kernel.SOURCES)]
+            ("flash_attn", fa_kernel.SOURCES),
+            ("mamba_scan", ms_kernel.SOURCES)]
     _build.build_all(libs)              # one nvcc per source, in parallel
-    kernel.library()
-    kf_kernel.library()
-    fa_kernel.library()
+    for mod in (kernel, kf_kernel, fa_kernel, ms_kernel):
+        mod.library()
     print(f"[1] kernel build + load: {time.time() - t0:.1f} s "
           f"({', '.join(src[0].name for _, src in libs)})")
     usage = {}
@@ -790,8 +1077,11 @@ def main() -> int:
         log = _build.build_log(lib, src)
         if log.exists():
             usage.update(ptxas_usage(log.read_text()))
-    want = {"B1", "B2", "B3", "B4"} | {f"B5 {t} D{d}" for t in ("bf16", "f32")
-                                      for d in fa_kernel.HEAD_DIMS}
+    want = ({"B1", "B2", "B3", "B4", "B6"}
+            | {f"B5 {t} D{d}" for t in ("bf16", "f32")
+               for d in fa_kernel.HEAD_DIMS}
+            | {f"B7 {t} S{n}" for t in ("bf16", "f32")
+               for n in ms_kernel.FUSED_STATES})
     check(set(usage) == want,
           f"ptxas report lacks a kernel: {sorted(want - set(usage))}")
     print(f"[1] ptxas -v per thread: {json.dumps(usage, sort_keys=True)}")
@@ -1065,6 +1355,26 @@ def main() -> int:
     phase_serve_w(dev)
     b5["launches"] = phase_serve(dev)
 
+    # ---- the mamba paths: forward through B6, serving through B7, on
+    # falcon-mamba-7b at full width and depth (llama's weights are freed)
+    import repro_torch.configs as configs
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import lm
+
+    b6 = phase_b6(dev)
+    b7 = phase_b7(dev)
+    cfg_m = configs.get("falcon-mamba-7b")
+    t0 = time.time()
+    params_m = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_m)
+    torch.cuda.synchronize()
+    t_init_m = time.time() - t0
+    b6["launches"] = phase_fwd_m(dev, params_m, cfg_m)
+    phase_serve_mw(dev)
+    b7["launches"] = serve_main(dev, "[serve-m]", cfg_m, params_m, t_init_m,
+                                ms_ops, "mamba_fused", "B7")
+    del params_m
+    torch.cuda.empty_cache()
+
     # ---- phase 6: the kernels line
     nb1, op1 = b1_bound(d, L)
     nb2, op2 = b2_bound(d, 500)
@@ -1091,7 +1401,7 @@ def main() -> int:
              launches=b3_launches, max_abs_err=b3_err, ms=b3_ms,
              plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),
-        b4, b5,
+        b4, b5, b6, b7,
     ]
     print(f"[6] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -22,6 +22,7 @@ from repro_torch.core.noc.traffic import RecordedTrace, WorkloadProfile
 from repro_torch.kernels.noc_cycle.fused import LaneState, ProbeLanes
 from repro_torch.models import lm
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba import Mamba1State
 from repro_torch.models.config import ModelConfig
 
 
@@ -117,35 +118,55 @@ def epoch_stream_provider(
     return streams
 
 
+# a mamba1 mixer's leaves kept in float32; the others are in the parameter
+# dtype (the reference's `make_mamba1`)
+MAMBA1_F32 = ("dt_proj", "dt_bias", "a_log", "d_skip")
+
+
 def lm_params(tree, cfg: ModelConfig, device="cpu") -> dict:
-    """A dense LM's parameter tree as the reference's `make_lm` builds it
-    (dicts of arrays, each pattern position's blocks stacked over n_super)
-    -> the port's tree (`lm.make_lm`'s layout: a list of per-layer dicts
-    per pattern position).  Leaf types are kept."""
+    """An LM's parameter tree as the reference's `make_lm` builds it (dicts
+    of arrays, each pattern position's blocks stacked over n_super) -> the
+    port's tree (`lm.make_lm`'s layout: a list of per-layer dicts per
+    pattern position).  Leaf types are kept, except that a mamba1 mixer's
+    leaves are cast as the port's `make_mamba1` makes them: `MAMBA1_F32` in
+    float32, the rest in the parameter dtype."""
     pattern, n_super = lm.layer_pattern(cfg)
+    pdt = lm.param_dtype(cfg)
 
     def conv(node, i=None):
         if isinstance(node, dict):
             return {k: conv(v, i) for k, v in node.items()}
         return tensor(node if i is None else np.asarray(node)[i], device)
 
+    def block(j, kind, i):
+        out = conv(tree["blocks"][j], i)
+        if kind == "mamba1":
+            out["mixer"] = {
+                k: v.to(torch.float32 if k in MAMBA1_F32 else pdt)
+                for k, v in out["mixer"].items()}
+        return out
+
     out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [[conv(tree["blocks"][j], i) for i in range(n_super)]
-                     for j in range(len(pattern))]
+    out["blocks"] = [[block(j, kind, i) for i in range(n_super)]
+                     for j, kind in enumerate(pattern)]
     return out
 
 
 def decode_state(obj, device="cpu") -> lm.DecodeState:
-    """A decode state (``caches`` of (k, v, length) leaves stacked over
-    n_super, ``shared_kv``, ``length``) as the port's `lm.DecodeState`:
-    bf16 K/V, int32 lengths."""
-    def kv(c):
+    """A decode state (``caches`` stacked over n_super: (k, v, length)
+    attention caches or (conv, ssm) Mamba1 states; ``shared_kv``;
+    ``length``) as the port's `lm.DecodeState`: bf16 K/V and conv rings,
+    f32 SSM states, int32 lengths."""
+    def cache(c):
+        if hasattr(c, "ssm"):
+            return Mamba1State(conv=tensor(c.conv, device, torch.bfloat16),
+                               ssm=tensor(c.ssm, device, torch.float32))
         return KVCache(k=tensor(c.k, device, torch.bfloat16),
                        v=tensor(c.v, device, torch.bfloat16),
                        length=tensor(c.length, device, torch.int32))
 
     shared = getattr(obj, "shared_kv", None)
     return lm.DecodeState(
-        caches=[kv(c) for c in obj.caches],
-        shared_kv=None if shared is None else kv(shared),
+        caches=[cache(c) for c in obj.caches],
+        shared_kv=None if shared is None else cache(shared),
         length=tensor(obj.length, device, torch.int32))

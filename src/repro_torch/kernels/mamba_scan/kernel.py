@@ -1,0 +1,114 @@
+"""ctypes launchers for the CUDA kernels in csrc/mamba_scan.cu: B6
+(`mamba_scan`, which replaces repro/kernels/mamba_scan/kernel.py::
+_scan_kernel) and B7 (`mamba_fused`, which replaces repro/kernels/
+mamba_scan/fused.py::_fused_kernel).  Each checks device, dtype, shape and
+contiguity, launches on PyTorch's current stream without synchronising,
+raises if the launch reports a CUDA error, and then counts the launch.
+The library is built at first call (`repro_torch.kernels._build`), never
+at import.
+
+B7 is instantiated for S = 8 and 16 states and for float32 and bfloat16
+xc / B / C; any other combination raises on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.mamba_scan.ops import LAUNCHES
+
+SOURCES = [Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"]
+FUSED_STATES = (8, 16)
+FUSED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (first call) and load the mamba_scan library."""
+    lib = _build.load_library("mamba_scan", SOURCES)
+    lib.mamba_scan_fwd.argtypes = [_P] * 3 + [_L, _I, _L] + [_P] * 3
+    lib.mamba_scan_fwd.restype = _I
+    lib.mamba_fused_fwd.argtypes = [_I, _I] + [_P] * 6 + [_I] * 3 + [_P] * 3
+    lib.mamba_fused_fwd.restype = _I
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtypes) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} is {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def mamba_scan(
+    a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B6 over a, b (B, L, D, S) and h0 (B, D, S), all float32 ->
+    (hs (B, L, D, S), h_last (B, D, S))."""
+    bsz, L, d, s = a.shape
+    f32 = (torch.float32,)
+    for name, t, shape in (("a", a, (bsz, L, d, s)), ("b", b, (bsz, L, d, s)),
+                           ("h0", h0, (bsz, d, s))):
+        _check(name, t, shape, f32)
+    hs, h_last = torch.empty_like(a), torch.empty_like(h0)
+    if h0.numel() == 0:
+        return hs, h_last
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = library().mamba_scan_fwd(a.data_ptr(), b.data_ptr(), h0.data_ptr(),
+                                  bsz, L, d * s, hs.data_ptr(),
+                                  h_last.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan launch failed: CUDA error {rc}")
+    LAUNCHES["mamba_scan"] += 1
+    return hs, h_last
+
+
+def mamba_fused(
+    dt: torch.Tensor, xc: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    a_mat: torch.Tensor, h0: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """B7 over dt (B, L, D) f32, xc (B, L, D), b, c (B, L, S) of one type
+    (f32 or bf16), a_mat (D, S) f32 and h0 (B, D, S) f32 or None (zero) ->
+    (y (B, L, D), h_last (B, D, S)), both float32."""
+    bsz, L, d = dt.shape
+    s = a_mat.shape[-1]
+    f32 = (torch.float32,)
+    act = tuple(FUSED_DTYPES)
+    checks = [("dt", dt, (bsz, L, d), f32), ("xc", xc, (bsz, L, d), act),
+              ("b", b, (bsz, L, s), (xc.dtype,)),
+              ("c", c, (bsz, L, s), (xc.dtype,)),
+              ("a_mat", a_mat, (d, s), f32)]
+    if h0 is not None:
+        checks.append(("h0", h0, (bsz, d, s), f32))
+    for name, t, shape, dtypes in checks:
+        _check(name, t, shape, dtypes)
+    if s not in FUSED_STATES:
+        raise ValueError(f"mamba_fused has no instantiation for S={s} "
+                         f"(instantiated: {FUSED_STATES})")
+    if bsz > 65535:
+        raise ValueError(f"mamba_fused takes at most 65535 sequences, got {bsz}")
+    y = torch.empty((bsz, L, d), dtype=torch.float32, device=dt.device)
+    if y.numel() == 0:
+        h_last = (torch.zeros((bsz, d, s), dtype=torch.float32,
+                              device=dt.device) if h0 is None else h0.clone())
+        return y, h_last
+    h_last = torch.empty((bsz, d, s), dtype=torch.float32, device=dt.device)
+    stream = torch.cuda.current_stream(dt.device).cuda_stream
+    rc = library().mamba_fused_fwd(
+        FUSED_DTYPES[xc.dtype], s, dt.data_ptr(), xc.data_ptr(), b.data_ptr(),
+        c.data_ptr(), a_mat.data_ptr(), None if h0 is None else h0.data_ptr(),
+        bsz, L, d, y.data_ptr(), h_last.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_fused launch failed: CUDA error {rc}")
+    LAUNCHES["mamba_fused"] += 1
+    return y, h_last

@@ -3,10 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --mode kf --requests 48 [--device cpu]
 
-Runs the reduced (smoke) config of a dense decoder arch with the bursty
-synthetic workload and prints the latency/throughput summary (virtual
-clock) for the chosen arbitration mode (rr | static | kf).  The model runs
-on the CUDA device unless ``--device`` names another.
+Runs the reduced (smoke) config of a dense decoder arch or of
+falcon-mamba-7b with the bursty synthetic workload and prints the
+latency/throughput summary (virtual clock) for the chosen arbitration mode
+(rr | static | kf).  The model runs on the CUDA device unless ``--device``
+names another.
 """
 from __future__ import annotations
 

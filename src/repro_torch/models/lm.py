@@ -1,29 +1,30 @@
-"""Decoder LM assembly, dense subset: parameters, prefill and decode.
+"""Decoder LM assembly: parameters, forward, prefill and decode.
 
 The reference repeats a short *pattern* of block kinds and scans it with
 `lax.scan` over parameters stacked on a leading `n_super` axis.  The port
 keeps the same parameter and cache trees, except that a pattern position's
 blocks are a Python list of per-layer dicts (``params["blocks"][j][i]`` is
 layer i of pattern position j) walked by a Python loop; caches keep the
-stacked layout, ``caches[j].k`` of shape (n_super, B, Smax, KV, D), and a
-layer works on its slice.
-
-This slice runs the dense kind ([attn + mlp], P = 1).  The other kinds
-raise NotImplementedError naming the ROADMAP item that brings them:
-`moe` (grok-1, llama4), `mamba1` / `mamba2` and the hybrid shared block
-(falcon-mamba, zamba2), encoder-decoder (seamless-m4t) and the modality
-frontends (internvl2).  `forward` and `lm_loss` belong to the training
+stacked layout, ``caches[j].k`` of shape (n_super, B, Smax, KV, D) or
+``caches[j].ssm`` of shape (n_super, B, di, ds), and a layer works on its
 slice.
+
+This slice runs the dense kind ([attn + mlp], P = 1) and the mamba1 kind
+([mamba1], P = 1: falcon-mamba).  The other kinds raise
+NotImplementedError naming the ROADMAP item that brings them: `moe`
+(grok-1, llama4), `mamba2` and the hybrid shared block (zamba2),
+encoder-decoder (seamless-m4t) and the modality frontends (internvl2).
+`lm_loss` belongs to the training slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch._util import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 
@@ -33,12 +34,12 @@ ACT_DTYPE = torch.bfloat16
 
 _LATER = {
     "moe": "ROADMAP queue A 'MoE (grok-1, llama4)'",
-    "mamba1": "ROADMAP queue A 'mamba family' (B6/B7)",
-    "mamba2": "ROADMAP queue A 'mamba family' (B6/B7)",
-    "hybrid": "ROADMAP queue A 'mamba family' (zamba2's shared block)",
+    "mamba2": mamba.MAMBA2_LATER,
+    "hybrid": mamba.MAMBA2_LATER,
     "encdec": "ROADMAP queue A 'encoder-decoder and frontends'",
     "frontend": "ROADMAP queue A 'encoder-decoder and frontends'",
 }
+_PORTED = ("dense", "mamba1")
 
 
 def layer_pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
@@ -62,7 +63,7 @@ def layer_pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
     return ("dense",), cfg.n_layers
 
 
-def _require_dense(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
+def _require_ported(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
     """The pattern, if this slice runs it; else NotImplementedError."""
     pattern, n_super = layer_pattern(cfg)
     why = None
@@ -73,7 +74,7 @@ def _require_dense(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
     elif cfg.is_hybrid:
         why = "hybrid"
     else:
-        why = next((k for k in pattern if k != "dense"), None)
+        why = next((k for k in pattern if k not in _PORTED), None)
     if why is not None:
         raise NotImplementedError(
             f"{cfg.name}: the {why} kind is not ported yet ({_LATER[why]})")
@@ -84,8 +85,12 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
 
-def _make_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def _make_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
+                dtype) -> dict:
     dev = gen.device
+    if kind == "mamba1":
+        return {"ln": layers.make_norm(cfg.d_model, cfg.norm, dev),
+                "mixer": mamba.make_mamba1(gen, cfg, dtype)}
     return {
         "ln1": layers.make_norm(cfg.d_model, cfg.norm, dev),
         "ln2": layers.make_norm(cfg.d_model, cfg.norm, dev),
@@ -98,19 +103,86 @@ def make_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters drawn from ``gen`` on its device (the reference
     draws from a JAX key, so the numbers differ; tests carry the
     reference's parameters across with `interop.lm_params`)."""
-    pattern, n_super = _require_dense(cfg)
+    pattern, n_super = _require_ported(cfg)
     dtype = param_dtype(cfg)
     params: dict[str, Any] = {
         "embed": layers.make_embedding(gen, cfg.vocab_size, cfg.d_model,
                                        dtype),
         "final_norm": layers.make_norm(cfg.d_model, cfg.norm, gen.device),
-        "blocks": [[_make_dense_block(gen, cfg, dtype)
-                    for _ in range(n_super)] for _ in pattern],
+        "blocks": [[_make_block(gen, kind, cfg, dtype)
+                    for _ in range(n_super)] for kind in pattern],
     }
     if not cfg.tie_embeddings:
         params["unembed"] = {"table": layers.truncated_normal(
             gen, (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5, dtype)}
     return params
+
+
+def _final_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
+    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
+    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    return layers.unembed(head, x)
+
+
+# --------------------------------------------------------------------------
+# Forward (inference)
+# --------------------------------------------------------------------------
+
+class MoEAux(NamedTuple):
+    """The reference's MoE auxiliary outputs (zero for the ported kinds)."""
+
+    load_balance_loss: Tensor
+    router_z_loss: Tensor
+    expert_load: Tensor
+
+
+class ForwardOut(NamedTuple):
+    logits: Tensor
+    aux: MoEAux
+    caches: Any  # a DecodeState when return_caches, else None
+
+
+def _apply_block(p, kind: str, x: Tensor, cfg: ModelConfig,
+                 positions: Tensor, *, use_kernel: bool) -> Tensor:
+    if kind == "mamba1":
+        h = layers.apply_norm(p["ln"], x, cfg.norm)
+        return x + mamba.apply_mamba1(p["mixer"], h, cfg,
+                                      use_kernel=use_kernel)
+    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    x = x + attention.self_attention(p["attn"], h, cfg, positions)
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    return x + layers.apply_mlp(p["mlp"], h, cfg.act)
+
+
+def forward(
+    params: dict, tokens: Tensor, cfg: ModelConfig, *,
+    use_kernel: bool = False, return_caches: bool = False,
+    cache_len: Optional[int] = None,
+) -> ForwardOut:
+    """tokens: (B, S) int -> logits (B, S, V) f32, zero MoE aux, and the
+    prefilled caches when ``return_caches`` (a re-run through
+    `prefill_caches`, as the reference does).
+
+    ``use_kernel`` picks the mamba1 scan (B6 when L % chunk == 0, else B7;
+    without it B7); dense attention always goes through the flash entry
+    point (B5 on the card).  The reference's ``remat`` is a training
+    policy and does not apply to this inference path."""
+    pattern, n_super = _require_ported(cfg)
+    b, s = tokens.shape
+    dev = tokens.device
+    x = layers.embed(params["embed"], tokens, ACT_DTYPE)
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    for i in range(n_super):
+        for j, kind in enumerate(pattern):
+            x = _apply_block(params["blocks"][j][i], kind, x, cfg, positions,
+                             use_kernel=use_kernel)
+    logits = _final_logits(params, x, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    aux = MoEAux(zero, zero, torch.zeros((1,), dtype=torch.float32,
+                                         device=dev))
+    caches = (prefill_caches(params, tokens, cfg, cache_len or s)
+              if return_caches else None)
+    return ForwardOut(logits=logits, aux=aux, caches=caches)
 
 
 # --------------------------------------------------------------------------
@@ -121,36 +193,40 @@ def make_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
 class DecodeState:
     """Stacked per-pattern-position caches + shared-block caches."""
 
-    caches: list[Any]             # caches[j]: KVCache, leaves (n_super, ...)
+    caches: list[Any]             # caches[j]: KVCache or Mamba1State,
+    #                               leaves (n_super, B, ...)
     shared_kv: Optional[KVCache]  # the hybrid shared block (not in this slice)
     length: Tensor                # (B,) tokens decoded so far
 
 
+def _new_cache(kind: str, n_super: int, batch: int, max_len: int,
+               cfg: ModelConfig, dev, length: Tensor):
+    """Zeroed stacked caches of one pattern position."""
+    if kind == "mamba1":
+        one = mamba.init_mamba1_state(batch, cfg, ACT_DTYPE, dev)
+        return mamba.Mamba1State(*(x.expand(n_super, *x.shape).clone()
+                                   for x in one))
+    shape = (n_super, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
+                   v=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
+                   length=length.expand(n_super, batch).clone())
+
+
 def init_decode_state(batch: int, max_len: int, cfg: ModelConfig,
                       device: str | torch.device | None = None) -> DecodeState:
-    pattern, n_super = _require_dense(cfg)
+    pattern, n_super = _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.sliding_window is not None:  # ring cache: O(window) not O(context)
         max_len = min(max_len, cfg.sliding_window)
-    shape = (n_super, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    caches = [KVCache(
-        k=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
-        v=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
-        length=torch.zeros((n_super, batch), dtype=torch.int32, device=dev),
-    ) for _ in pattern]
-    return DecodeState(caches=caches, shared_kv=None,
-                       length=torch.zeros((batch,), dtype=torch.int32,
-                                          device=dev))
+    length = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    caches = [_new_cache(kind, n_super, batch, max_len, cfg, dev, length)
+              for kind in pattern]
+    return DecodeState(caches=caches, shared_kv=None, length=length)
 
 
-def _layer_cache(cache: KVCache, i: int) -> KVCache:
-    return KVCache(k=cache.k[i], v=cache.v[i], length=cache.length[i])
-
-
-def _final_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
-    x = layers.apply_norm(params["final_norm"], x, cfg.norm)
-    head = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return layers.unembed(head, x)
+def _layer_cache(cache, i: int):
+    """Layer i's slice of a stacked cache (views of the stacked tensors)."""
+    return type(cache)(*(leaf[i] for leaf in cache))
 
 
 def decode_step(
@@ -158,24 +234,36 @@ def decode_step(
 ) -> tuple[Tensor, DecodeState]:
     """token: (B, 1) int -> (logits (B, 1, V) f32, new state).
 
-    The new token's K/V are written into ``state``'s cache tensors IN PLACE
-    (the reference returns updated copies); the returned DecodeState holds
-    the same cache tensors, the new per-layer lengths and length + 1."""
-    pattern, n_super = _require_dense(cfg)
+    Every slot advances, idle ones included, as in the reference.  The new
+    token's K/V, and each mamba layer's new conv ring and SSM state, are
+    written into ``state``'s cache tensors IN PLACE (the reference returns
+    updated copies); the returned DecodeState holds the same cache tensors,
+    the new per-layer lengths and length + 1."""
+    pattern, n_super = _require_ported(cfg)
     x = layers.embed(params["embed"], token, ACT_DTYPE)
     lengths = [[None] * n_super for _ in pattern]
     for i in range(n_super):
-        for j, _ in enumerate(pattern):
+        for j, kind in enumerate(pattern):
             p = params["blocks"][j][i]
+            cache = state.caches[j]
+            if kind == "mamba1":
+                h = layers.apply_norm(p["ln"], x, cfg.norm)
+                h, st = mamba.apply_mamba1_decode(p["mixer"], h, cfg,
+                                                  _layer_cache(cache, i))
+                cache.conv[i] = st.conv
+                cache.ssm[i] = st.ssm
+                x = x + h
+                continue
             h = layers.apply_norm(p["ln1"], x, cfg.norm)
             h, c = attention.self_attention_decode(
-                p["attn"], h, cfg, _layer_cache(state.caches[j], i))
+                p["attn"], h, cfg, _layer_cache(cache, i))
             lengths[j][i] = c.length
             x = x + h
             h = layers.apply_norm(p["ln2"], x, cfg.norm)
             x = x + layers.apply_mlp(p["mlp"], h, cfg.act)
-    caches = [KVCache(k=c.k, v=c.v, length=torch.stack(lengths[j]))
-              for j, c in enumerate(state.caches)]
+    caches = [c if kind == "mamba1" else
+              KVCache(k=c.k, v=c.v, length=torch.stack(lengths[j]))
+              for j, (kind, c) in enumerate(zip(pattern, state.caches))]
     return _final_logits(params, x, cfg), DecodeState(
         caches=caches, shared_kv=None, length=state.length + 1)
 
@@ -183,24 +271,29 @@ def decode_step(
 def prefill_caches(
     params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int,
 ) -> DecodeState:
-    """Run the full sequence once and return a DecodeState holding its K/V,
-    padded to ``max_len`` positions.  Attention goes through `attend`, so
-    through the flash kernel (B5) on the card: one launch per layer."""
-    pattern, n_super = _require_dense(cfg)
+    """Run the full sequence once and return a DecodeState holding its K/V
+    (padded to ``max_len`` positions) or its final conv and SSM states.
+    Attention goes through `attend`, so through the flash kernel (B5) on
+    the card; the mamba1 scan through `fused_chunked_scan_m1`, so through
+    the fused kernel (B7): one launch per layer."""
+    pattern, n_super = _require_ported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     x = layers.embed(params["embed"], tokens, ACT_DTYPE)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
-    shape = (n_super, b, max_len, cfg.n_kv_heads, cfg.head_dim)
-    caches = [KVCache(
-        k=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
-        v=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
-        length=lens.expand(n_super, b).clone(),
-    ) for _ in pattern]
+    caches = [_new_cache(kind, n_super, b, max_len, cfg, dev, lens)
+              for kind in pattern]
     for i in range(n_super):
-        for j, _ in enumerate(pattern):
+        for j, kind in enumerate(pattern):
             p = params["blocks"][j][i]
+            if kind == "mamba1":
+                h = layers.apply_norm(p["ln"], x, cfg.norm)
+                y, st = mamba._mamba1_scan(p["mixer"], h, cfg)
+                x = x + y
+                caches[j].conv[i] = st.conv
+                caches[j].ssm[i] = st.ssm
+                continue
             h = layers.apply_norm(p["ln1"], x, cfg.norm)
             q, k, v = attention.qkv_project(p["attn"], h, cfg, positions)
             o = attention.attend(q, k, v, causal=True,

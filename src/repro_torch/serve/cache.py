@@ -3,6 +3,9 @@
 `lm.DecodeState` stacks per-layer caches with a batch dimension = decode
 slots.  This module is the slot algebra the engine needs: write a single
 prefilled request's cache into slot `i`, clear a slot, and track occupancy.
+It works on every cache kind of the port (attention `KVCache`, Mamba1
+`Mamba1State` conv ring and SSM state) because it walks each cache's
+leaves, all stacked (n_super, B, ...).
 
 `insert_request` and `clear_slot` update ``state``'s tensors IN PLACE (the
 reference returns updated copies) and return a DecodeState over them.
@@ -10,14 +13,13 @@ reference returns updated copies) and return a DecodeState over them.
 from __future__ import annotations
 
 from repro_torch.models import lm
-from repro_torch.models.attention import KVCache
 
 
 def insert_request(
     state: lm.DecodeState, prefilled: lm.DecodeState, slot: int
 ) -> lm.DecodeState:
     """Copy request 0 of ``prefilled`` (a batch-1 state) into ``slot``."""
-    def ins(dst: KVCache, src: KVCache):
+    def ins(dst, src):
         for d, s in zip(dst, src):      # leaves (n_super, B, ...): slot axis 1
             d[:, slot] = s[:, 0]
 
@@ -30,8 +32,10 @@ def insert_request(
 
 
 def clear_slot(state: lm.DecodeState, slot: int) -> lm.DecodeState:
-    """Zero a slot's caches and its length.  As in the reference, the
-    hybrid shared block's cache (`shared_kv`) is left as it is."""
+    """Zero a slot's caches (every leaf with ndim >= 2: K/V, and the conv
+    ring and SSM state of a mamba layer) and its length.  As in the
+    reference, the hybrid shared block's cache (`shared_kv`) is left as it
+    is."""
     for cache in state.caches:
         for c in cache:
             if c.ndim >= 2:

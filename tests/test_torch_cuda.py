@@ -6,11 +6,15 @@ the paper shapes; run these on a card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.allocator import PolicyConfig
 from repro_torch.core.noc import sim, traffic
+from repro_torch.kernels.mamba_scan import fused as ms_fused
+from repro_torch.kernels.mamba_scan import ops as ms_ops
+from repro_torch.kernels.mamba_scan.ref import scan_ref
 from repro_torch.kernels.noc_cycle import fused, ops
 
 
@@ -165,3 +169,74 @@ def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, d, causal,
     tol = dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32 else \
         dict(atol=8e-3, rtol=2 ** -7)
     torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+def _scan_inputs(b, L, d, s):
+    """B6's inputs as the JAX kernel test draws them, on the card."""
+    rng = np.random.default_rng(2)
+    a = rng.uniform(0.5, 0.999, (b, L, d, s)).astype(np.float32)
+    bb = (rng.normal(size=(b, L, d, s)) * 0.1).astype(np.float32)
+    h0 = rng.normal(size=(b, d, s)).astype(np.float32)
+    return (torch.from_numpy(x).cuda() for x in (a, bb, h0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,d,s,chunk,bd", [
+    (2, 64, 32, 8, 16, 16), (1, 128, 64, 16, 32, 32), (2, 32, 16, 4, 32, 16),
+    (1, 64, 128, 8, 64, 64), (1, 2048, 512, 16, 256, 256)])
+def test_mamba_scan_kernel_matches_plain(b, L, d, s, chunk, bd):
+    """B6 bitwise its plain version (every operation rounded once, in the
+    same order)."""
+    _need_cuda()
+    a, bb, h0 = _scan_inputs(b, L, d, s)
+    ms_ops.reset_launches()
+    hs, hl = ms_ops.mamba_chunk_scan(a, bb, h0, chunk=chunk, block_d=bd)
+    assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 0}
+    hs_p, hl_p = scan_ref(a, bb, h0)
+    assert torch.equal(hs, hs_p) and torch.equal(hl, hl_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,S", [(2, 64, 32, 8), (1, 128, 64, 16),
+                                     (1, 517, 1000, 16), (3, 5, 40, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_kernel_matches_plain(B, L, D, S, dtype):
+    """B7 within atol/rtol 1e-5 of its plain version, from zero and from a
+    nonzero h0, at any L and D.  The two sum y over the states in the same
+    order and round every other operation once; expf (the kernel) and
+    torch.exp on the card are what could still part them."""
+    _need_cuda()
+    rng = np.random.default_rng(7)
+    dt, xc, b, c = (torch.from_numpy(x.astype(np.float32)).cuda() for x in (
+        rng.uniform(0.001, 0.1, (B, L, D)), rng.normal(size=(B, L, D)),
+        rng.normal(size=(B, L, S)), rng.normal(size=(B, L, S))))
+    a_mat = -torch.exp(0.3 * torch.from_numpy(
+        rng.normal(size=(D, S)).astype(np.float32))).cuda()
+    xc, b, c = (x.to(dtype) for x in (xc, b, c))
+    h0 = torch.from_numpy(rng.normal(size=(B, D, S)).astype(np.float32))
+    ms_ops.reset_launches()
+    for start in (None, h0.cuda()):
+        y, hl = ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=start)
+        y_p, hl_p = ms_fused.fused_mamba_scan_plain(dt, xc, b, c, a_mat,
+                                                    start)
+        torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(hl, hl_p, atol=1e-5, rtol=1e-5)
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2}
+
+
+@pytest.mark.cuda
+def test_mamba_kernels_launch_nothing_on_empty_inputs():
+    _need_cuda()
+    ms_ops.reset_launches()
+    a = torch.zeros((0, 8, 16, 4), device="cuda")
+    hs, _ = ms_ops.mamba_chunk_scan(a, a, torch.zeros((0, 16, 4),
+                                                      device="cuda"))
+    dt = torch.zeros((1, 0, 32), device="cuda")
+    e = torch.zeros((1, 0, 8), device="cuda")
+    h0 = torch.ones((1, 32, 8), device="cuda")
+    y, hl = ms_fused.fused_mamba_scan(dt, dt, e, e,
+                                      torch.zeros((32, 8), device="cuda"),
+                                      h0=h0)
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0}
+    assert hs.shape == a.shape and y.shape == (1, 0, 32)
+    assert torch.equal(hl, h0)

@@ -93,7 +93,8 @@ def test_port_imports_neither_jax_nor_reference():
     covered = {p.parent.relative_to(ROOT / "src" / "repro_torch").as_posix()
                for p in _port_files()[:-1]}
     assert {"configs", "dist", "launch", "models", "serve",
-            "kernels/kf_bank", "kernels/flash_attn"} <= covered
+            "kernels/kf_bank", "kernels/flash_attn",
+            "kernels/mamba_scan"} <= covered
 
 
 def test_simulate_defaults_to_cuda(monkeypatch):
