@@ -38,11 +38,13 @@ build/repro_torch/), then runs, each phase failing the script on error:
      its bytes bound; then the fleet path: FleetKF(65,536).epoch for 200
      epochs (exactly 200 launches), held against the same epochs through
      the plain version on the card;
-  [B5] the flash attention kernel (flash_attn) against its plain version in
-     bf16 and f32 at the llama3.2-3b shape (S = 48, 512, 2048, causal), the
+  [B5] the flash attention kernels (flash_attn: bf16 through the wgmma
+     kernel fed by TMA, f32 through the SIMT kernel) against their plain
+     version at the llama3.2-3b shape (S = 48, 512, 2048, causal), the
      h2o-danube-1.8b shape at S = 6144 with its 4096 window, and the grok-1
-     shape with its logit cap (and kv_len < Sk); timed at the llama shapes
-     beside the bound and torch's scaled_dot_product_attention;
+     shape with its logit cap (and kv_len < Sk); the bf16 kernel and torch's
+     scaled_dot_product_attention timed at each llama shape (device time
+     under torch.profiler, and CUDA events per call) beside the bound;
   [serve-w] llama3.2-3b at full width cut to 2 layers: prefill of a
      256-token prompt and 2 decode steps on the card (B5) against the same
      parameters on the CPU (plain), relative L2 of K/V and logits;
@@ -321,9 +323,9 @@ def ptxas_usage(log: str) -> dict:
               *((f"mamba_fused_kernelI{t}Li{n}E", f"B7 {tn} S{n}")
                 for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
                 for n in (8, 16)),
-              *((f"flash_fwd_kernelILi{d}E{t}", f"B5 {n} D{d}")
+              *((f"flash_fwd_{k}kernelILi{d}E", f"B5 {n} D{d}")
                 for d in (64, 80, 128)
-                for t, n in (("13__nv_bfloat16", "bf16"), ("f", "f32"))))
+                for k, n in (("sm90_", "bf16"), ("", "f32"))))
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -523,7 +525,7 @@ def phase_b4(dev):
 
 def phase_b5(dev):
     """B5 against its plain version at the models' shapes, and its time at
-    the llama3.2-3b shape beside the bound and torch's SDPA."""
+    the llama3.2-3b shapes beside the bound and torch's SDPA."""
     import torch
     import torch.nn.functional as F
 
@@ -557,41 +559,67 @@ def phase_b5(dev):
                   f"(max abs err {float(diff.max())})")
             errs[dtype] = max(errs[dtype], float(diff.max()))
             if arch == "llama3.2-3b" and dtype == torch.bfloat16:
+                # the kernel and SDPA each timed two ways: CUDA events over
+                # back-to-back calls (host work included: the wrapper,
+                # checks, three tensor-map encodes and the launch) and the
+                # device time of the kernels under torch.profiler
                 reps = {48: 200, 512: 50, 2048: 20}[s]
-                ms = cuda_ms(lambda: fa_kernel.flash_attn(q, k, v, **kw), reps)
+
+                def kern():
+                    return fa_kernel.flash_attn(q, k, v, **kw)
+
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+
+                ms = cuda_ms(kern, reps)
+                dev_ms = profile_device(kern, 20)[1]
+                lib = cuda_ms(sdpa, reps)
+                lib_dev = profile_device(sdpa, 20)[1]
                 plain = cuda_ms(lambda: fa_ops.flash_attention_plain(
                     q, k, v, **kw), 5)
                 (bm, by), pairs = flash_bound(1, h, kv, s, s, d, causal,
                                               window, kv_len, dtype)
-                dev_ms = profile_device(
-                    lambda: fa_kernel.flash_attn(q, k, v, **kw), 5)[1]
-                lib = None
-                if s == 2048:
-                    qt, kt, vt = (t.transpose(1, 2).contiguous()
-                                  for t in (q, k, v))
-                    lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-                timing.append((s, ms, plain, bm, by, lib,
-                               4 * d * h * pairs / ms / 1e9, dev_ms))
+                check(dev_ms > 0 and lib_dev > 0,
+                      "torch.profiler recorded no device time for B5 or SDPA")
+                flops = 4 * d * h * pairs
+                timing.append(dict(
+                    s=s, ms=ms, dev_ms=dev_ms, lib=lib, lib_dev=lib_dev,
+                    plain=plain, bm=bm, by=by, blocks=h * -(-s // 128),
+                    tflops=flops / ms / 1e9, dev_tflops=flops / dev_ms / 1e9,
+                    bound_tflops=flops / bm / 1e9))
         del base, q, k, v, out, want
         torch.cuda.empty_cache()
     print(f"[B5] flash_attn within tolerance of its plain version at "
-          f"{len(cases)} shapes x (bf16, f32): max abs err bf16 "
-          f"{errs[torch.bfloat16]:.3g} (atol 8e-3 + 2^-7 rel), f32 "
+          f"{len(cases)} shapes x (bf16: wgmma + TMA, f32: SIMT): max abs "
+          f"err bf16 {errs[torch.bfloat16]:.3g} (atol 8e-3 + 2^-7 rel), f32 "
           f"{errs[torch.float32]:.3g} (atol 2e-5 + 1e-5 rel)")
-    for s, ms, plain, bm, by, lib, tflops, dev_ms in timing:
-        print(f"[B5] llama3.2-3b bf16 B=1 H=24 KV=8 D=128 S={s} causal: "
-              f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s; device time "
-              f"{fmt_ms(dev_ms)}), plain "
-              f"{plain:.4f} ms, bound {bm:.5f} ms ({by})"
-              + ("" if lib is None else f", SDPA {lib:.4f} ms"))
+    for t in timing:
+        print(f"[B5] llama3.2-3b bf16 B=1 H=24 KV=8 D=128 S={t['s']} causal "
+              f"({t['blocks']} blocks of 384 threads on "
+              f"{torch.cuda.get_device_properties(0).multi_processor_count}"
+              f" SMs): kernel events {t['ms']:.4f} ms per call "
+              f"({t['tflops']:.1f} TFLOP/s), device {t['dev_ms']:.4f} ms "
+              f"({t['dev_tflops']:.1f} TFLOP/s); SDPA events {t['lib']:.4f} "
+              f"ms, device {t['lib_dev']:.4f} ms; kernel/SDPA events "
+              f"{t['ms'] / t['lib']:.2f}x, device "
+              f"{t['dev_ms'] / t['lib_dev']:.2f}x; bound {t['bm']:.5f} ms "
+              f"({t['by']}; {t['bound_tflops']:.1f} TFLOP/s at the bound); "
+              f"plain {t['plain']:.4f} ms")
     sys.stdout.flush()
-    s, ms, plain, bm, by, lib, _, _ = timing[-1]
+    t = timing[-1]
+    # ms and library_ms at S = 2048 are CUDA-event ms per call, as in every
+    # other row; the profiler's device time is in the [B5] lines above
     return dict(name="flash_attn", route="cuda",
-                source="src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+                source="src/repro_torch/kernels/flash_attn/csrc/"
+                       "flash_attn_sm90.cu",
                 replaces="src/repro/kernels/flash_attn/kernel.py:31",
-                launches=None, max_abs_err=errs[torch.bfloat16], ms=ms,
-                plain_ms=plain, bound_ms=bm, bound_by=by, library_ms=lib)
+                launches=None, max_abs_err=errs[torch.bfloat16],
+                ms=t["ms"], plain_ms=t["plain"], bound_ms=t["bm"],
+                bound_by=t["by"], library_ms=t["lib"])
 
 
 def _to_cpu(tree):

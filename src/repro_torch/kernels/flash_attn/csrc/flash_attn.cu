@@ -4,18 +4,17 @@
 //
 // Replaces src/repro/kernels/flash_attn/kernel.py::_flash_kernel.
 //
-// Bound on an H100: operations.  At the llama3.2-3b prefill shape (24 query
-// heads, D = 128, causal) the work is ~2 * 2 * S^2 / 2 * D flops per head
-// against ~4 * S * D bytes of q, k, v and o, hundreds of flops per byte: the
-// bf16 tensor-core rate (989 TFLOP/s) is the card's bound.  This first
-// version does its products on the f32 FMA units (67 TFLOP/s), so the f32
-// rate is what bounds it; wgmma and TMA are later work.  What the design
+// This file holds B5's float32 instantiation and the library's entry point,
+// which routes bfloat16 inputs to flash_attn_sm90.cu (wgmma fed by TMA, the
+// instantiation every model path calls).  In f32 TF32 wgmma would not keep
+// the 2e-5 agreement with the plain version, so the products stay on the
+// f32 FMA units (67 TFLOP/s), which bound this kernel.  What the design
 // does about the rest:
 //
 //  * One block of 128 threads per (query tile of 64 rows, query head,
-//    batch row).  The Q tile is staged once in shared memory as f32; K and
-//    then V tiles of 64 rows pass through one shared buffer.  Rows are
-//    padded to D + 1 floats so that the column walks hit distinct banks.
+//    batch row).  The Q tile is staged once in shared memory; K and then V
+//    tiles of 64 rows pass through one shared buffer.  Rows are padded to
+//    D + 1 floats so that the column walks hit distinct banks.
 //  * Each thread owns 4 query rows x 8 key columns of the score tile and
 //    4 rows x D/8 output columns of the accumulator, all in registers.
 //    The 8 threads that share a row group are adjacent lanes of one warp,
@@ -32,8 +31,7 @@
 //    valid key keeps l = 0 and is written as 0, and a skipped tile is exact.
 //  * Ragged Sq and Sk are masked in the kernel; nothing is padded.
 //
-// Instantiated for D in {64, 80, 128} and for float and bf16 inputs.
-#include <cuda_bf16.h>
+// Instantiated for D in {64, 80, 128}.
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,21 +40,6 @@ constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // key rows per tile
 constexpr int NT = 128;      // threads per block: 16 row groups x 8 lanes
 constexpr float NEG_INF = -1e30f;
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
-    __nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16(v);
-}
 
 struct Args {
   const void* q;
@@ -74,21 +57,21 @@ constexpr int smem_bytes() {
   return (BQ * (D + 1) + BK * (D + 1) + BQ * (BK + 1)) * (int)sizeof(float);
 }
 
-// Stage rows [s0, s0 + rows) of one head into dst (f32, row pitch D + 1);
-// rows at or past `lim` are zero.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// Stage rows [s0, s0 + rows) of one head into dst (row pitch D + 1); rows
+// at or past `lim` are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int s0,
                                           int rows, int lim) {
   constexpr int LD = D + 1;
   for (int i = threadIdx.x; i < rows * D; i += NT) {
     const int r = i / D, c = i - r * D;
     const int s = s0 + r;
-    dst[r * LD + c] = s < lim ? to_f<T>(src[s * row_stride + c]) : 0.0f;
+    dst[r * LD + c] = s < lim ? src[s * row_stride + c] : 0.0f;
   }
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   constexpr int LD = D + 1;
   constexpr int LP = BK + 1;
@@ -106,12 +89,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   const int b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
 
-  const T* qg = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  T* og = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kg =
+      static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vg =
+      static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  float* og = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
 
-  load_tile<D, T>(Qs, qg, a.q_ss, q0, BQ, a.Sq);
+  load_tile<D>(Qs, qg, a.q_ss, q0, BQ, a.Sq);
 
   float acc[4][CW];
   float m[4], l[4];
@@ -135,7 +120,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // Q staged; the previous tile's PV is done with KVs, Ps
-    load_tile<D, T>(KVs, kg, a.k_ss, k0, BK, kv_lim);
+    load_tile<D>(KVs, kg, a.k_ss, k0, BK, kv_lim);
     __syncthreads();
 
     float s[4][8];
@@ -195,7 +180,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     }
 
     __syncthreads();  // every thread is done with K; P is complete
-    load_tile<D, T>(KVs, vg, a.v_ss, k0, BK, kv_lim);
+    load_tile<D>(KVs, vg, a.v_ss, k0, BK, kv_lim);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
@@ -218,39 +203,39 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
     const float inv = l[i] == 0.0f ? 1.0f : l[i];  // fully masked rows -> 0
 #pragma unroll
     for (int cc = 0; cc < CW; ++cc)
-      og[qp * a.o_ss + tc + 8 * cc] = from_f<T>(acc[i][cc] / inv);
+      og[qp * a.o_ss + tc + 8 * cc] = acc[i][cc] / inv;
   }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const Args& a, int B, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes<D>());
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_kernel<D, T><<<grid, NT, smem_bytes<D>(), stream>>>(a);
+  flash_fwd_kernel<D><<<grid, NT, smem_bytes<D>(), stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_d(int d, const Args& a, int B, cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch<64, T>(a, B, stream);
-    case 80: return launch<80, T>(a, B, stream);
-    case 128: return launch<128, T>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
+// The bfloat16 instantiation, in flash_attn_sm90.cu.
+int flash_attn_fwd_sm90(
+    int d, const void* q, const void* k, const void* v, void* o,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long o_sb, long long o_ss, long long o_sh, int B,
+    int H, int KV, int Sq, int Sk, int kv_len, int causal, int window,
+    float cap, cudaStream_t stream);
+
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements (batch, seq, head
 // of q, k, v, o); D has a unit stride.  window <= 0: none; cap <= 0: none.
+// Returns 0, a CUDA error, or -1 for bf16 inputs that TMA cannot read.
 extern "C" int flash_attn_fwd(
     int dtype, int d, const void* q, const void* k, const void* v, void* o,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
@@ -261,12 +246,19 @@ extern "C" int flash_attn_fwd(
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk < 0 ||
       H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return flash_attn_fwd_sm90(d, q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss,
+                               k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, B, H,
+                               KV, Sq, Sk, kv_len, causal, window, cap,
+                               stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   const Args a{q,    k,    v,    o,    q_sb, q_ss, q_sh,   k_sb,
                k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,   o_sh,
                H,    KV,   Sq,   Sk,   kv_len, causal, window, cap};
-  switch (dtype) {
-    case 0: return launch_d<float>(d, a, B, stream);
-    case 1: return launch_d<__nv_bfloat16>(d, a, B, stream);
+  switch (d) {
+    case 64: return launch<64>(a, B, stream);
+    case 80: return launch<80>(a, B, stream);
+    case 128: return launch<128>(a, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,17 @@
-"""ctypes launcher for the CUDA kernel in csrc/flash_attn.cu (B5), which
-replaces repro/kernels/flash_attn/kernel.py::_flash_kernel.  It checks
-device, dtype, shape and strides, launches on PyTorch's current stream
-without synchronising, and raises if the launch reports a CUDA error.  The
-library is built at first call (`repro_torch.kernels._build`), never at
-import.
+"""ctypes launcher for the CUDA kernels of B5, which replace
+repro/kernels/flash_attn/kernel.py::_flash_kernel: bfloat16 inputs launch
+the wgmma kernel fed by TMA in csrc/flash_attn_sm90.cu, float32 inputs the
+SIMT kernel in csrc/flash_attn.cu (a static dispatch on the type, one
+library, one entry point).  It checks device, dtype, shape and strides,
+launches on PyTorch's current stream without synchronising, and raises if
+the launch reports a CUDA error.  The library is built at first call
+(`repro_torch.kernels._build`), never at import.
 
 Instantiated for head dims 64, 80 and 128 and for float32 and bfloat16
-inputs; any other combination raises on the card.
+inputs; any other combination raises on the card.  TMA reads bfloat16 q, k
+and v in place, so each needs a 16-byte-aligned base and strides on B, S
+and H that are positive multiples of 8 elements (16 bytes); the library
+checks this before it launches and returns TMA_MISALIGNED, which raises.
 """
 from __future__ import annotations
 
@@ -19,10 +24,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ops import LAUNCHES
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / "flash_attn.cu"]
+SOURCES = [Path(__file__).resolve().parent / "csrc" / name
+           for name in ("flash_attn.cu", "flash_attn_sm90.cu")]
 HEAD_DIMS = (64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_Q = 64        # query rows per block (the kernel's BQ)
+TMA_MISALIGNED = -1  # the library's code for bf16 inputs TMA cannot read
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
@@ -69,16 +75,34 @@ def flash_attn(
     if out.numel() == 0:
         return out
     kv_len = sk if kv_len is None else kv_len
+    strides = [_strides(t) for t in (q, k, v)]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
     rc = library().flash_attn_fwd(
         DTYPES[q.dtype], d,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *strides[0], *strides[1], *strides[2], *out.stride()[:3],
         b, h, kvh, sq, sk, max(0, min(kv_len, sk)), int(causal),
         0 if window is None else int(window),
         0.0 if logit_cap is None else float(logit_cap), stream,
     )
+    if rc == TMA_MISALIGNED:
+        raise ValueError(
+            "bf16 q, k or v is not TMA-aligned: each needs a base that is a "
+            "multiple of 16 bytes and strides on B, S and H that are positive "
+            "multiples of 8 elements (bases "
+            f"{[hex(t.data_ptr()) for t in (q, k, v)]}, strides "
+            f"{[t.stride() for t in (q, k, v)]})")
     if rc != 0:
         raise RuntimeError(f"flash_attn launch failed: CUDA error {rc}")
     LAUNCHES["flash_attn"] += 1
     return out
+
+
+def _strides(t: torch.Tensor) -> tuple[int, ...]:
+    """Strides of B, S and H.  A dim of size 1 is never stepped, so its
+    stride is replaced by the tensor's extent, a value TMA accepts."""
+    st, shape = t.stride(), t.shape
+    if 1 not in shape[:3]:
+        return st[:3]
+    extent = max(x * n for x, n in zip(st, shape))
+    return tuple(x if n > 1 else extent for x, n in zip(st[:3], shape))

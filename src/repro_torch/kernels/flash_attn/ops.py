@@ -6,11 +6,14 @@ as the reference's `flash_attn/ops.py` does: q (B, Sq, H, D), k and v
 (B, Sk, KV, D), GQA by query head h -> kv head h // (H / KV), causal and
 sliding-window masks, a tanh logit cap, and a `kv_len` bound on the valid
 keys.  Scores, softmax and the accumulator are f32; the output has q's
-type.  On CUDA tensors it launches the hand-written kernel in
-csrc/flash_attn.cu, which reads the model layout through its strides (no
-transpose, no padding to a block multiple); on CPU tensors it runs
-`flash_attention_plain`.  There is no fallback: a CUDA tensor launches the
-kernel or raises.  Inputs that are not tensors go to ``device``, which
+type.  On CUDA tensors it launches a hand-written kernel that reads the
+model layout through its strides (no transpose): for bfloat16, the wgmma
+kernel fed by TMA in csrc/flash_attn_sm90.cu, which pads D = 80 to 128 in
+shared memory and needs each of q, k and v to have a 16-byte-aligned base
+and strides on B, S and H that are multiples of 8 elements (else it
+raises); for float32, the SIMT kernel in csrc/flash_attn.cu.  On CPU
+tensors it runs `flash_attention_plain`.  There is no fallback: a CUDA
+tensor launches a kernel or raises.  Inputs that are not tensors go to ``device``, which
 defaults to the CUDA device.
 
 `LAUNCHES["flash_attn"]` counts kernel launches; the launcher in kernel.py

@@ -99,9 +99,17 @@ def make_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def embed(p, tokens: Tensor, dtype) -> Tensor:
-    """Rows of the table.  Token ids must lie in [0, vocab): torch indexing
-    raises on an out-of-range id where the reference's `jnp.take` clamps."""
-    return p["table"][tokens].to(dtype)
+    """Rows of the table, as the reference's `jnp.take(table, tokens,
+    axis=0)` gives them: an id in [0, vocab) takes its row, an id in
+    [-vocab, 0) wraps to row vocab + id, and any other id gives a row of
+    NaN (take's default "fill" mode).  No host sync: one gather at the
+    clamped ids and one `torch.where`."""
+    table = p["table"]
+    n = table.shape[0]
+    ids = torch.where(tokens < 0, tokens + n, tokens)
+    inside = (ids >= 0) & (ids < n)
+    rows = table[ids.clamp(0, n - 1)].to(dtype)
+    return torch.where(inside[..., None], rows, float("nan"))
 
 
 def unembed(p, x: Tensor) -> Tensor:

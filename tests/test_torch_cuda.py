@@ -146,14 +146,29 @@ def test_kf_bank_kernel_matches_plain(n, m):
     (1, 200, 200, 32, 8, 80, True, 64, None, None),
     (1, 130, 130, 48, 8, 128, True, None, 30.0, None),
     (2, 64, 100, 8, 2, 128, False, None, None, 77),
+    # bf16 runs the wgmma kernel on 128-row tiles: Sq off the tile, Sk != Sq
+    # with kv_len, D = 80 padded to 128 in shared memory and D = 64 in one
+    # box, a window spanning tiles, the logit cap, two batch rows, no key
+    (1, 300, 300, 24, 8, 128, True, None, None, None),
+    (1, 200, 333, 24, 8, 128, True, None, None, 250),
+    (1, 333, 200, 8, 8, 128, False, None, None, 150),
+    (1, 517, 517, 32, 8, 80, True, None, None, None),
+    (2, 300, 300, 8, 1, 64, True, None, None, None),
+    (1, 700, 700, 16, 8, 128, True, 200, None, None),
+    (1, 700, 700, 32, 8, 80, True, 300, None, None),
+    (2, 384, 384, 48, 8, 128, True, None, 30.0, None),
+    (2, 256, 256, 8, 2, 128, False, None, None, 0),
 ])
 def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, d, causal,
                                     window, cap, kv_len):
-    """B5 against `flash_attention_plain` on the card.  f32: atol 2e-5,
-    rtol 1e-5 (summation order, expf; TF32 is off, torch's default, so the
-    plain products are full f32); bf16: atol 8e-3 plus rtol 2^-7, one bf16
-    ulp of the value (both round the same f32 result to bf16, and a last-bit
-    difference can fall on either side of a rounding boundary)."""
+    """B5 against `flash_attention_plain` on the card.  f32 (the SIMT
+    kernel): atol 2e-5, rtol 1e-5 (summation order, expf; TF32 is off,
+    torch's default, so the plain products are full f32).  bf16 (the wgmma
+    kernel): atol 8e-3 plus rtol 2^-7, one bf16 ulp of the value; the
+    kernel feeds P to the PV product in bf16 where the plain version keeps
+    it in f32, an error of at most 2^-9 of each p * v term, and both round
+    the output to bf16, where a last-bit difference can fall on either side
+    of a rounding boundary."""
     _need_cuda()
     from repro_torch.kernels.flash_attn import kernel as fa_kernel
     from repro_torch.kernels.flash_attn import ops as fa_ops
@@ -169,6 +184,52 @@ def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, d, causal,
     tol = dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32 else \
         dict(atol=8e-3, rtol=2 ** -7)
     torch.testing.assert_close(out.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_fused_qkv_views():
+    """q, k and v as strided views of one fused (B, S, H + 2 KV, D) bf16
+    tensor: the kernel reads them in place through their strides."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    b, s, h, kv, d = 2, 260, 24, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(11)
+    qkv = torch.randn((b, s, h + 2 * kv, d), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    assert not q.is_contiguous() and k.stride(1) == (h + 2 * kv) * d
+    before = fa_ops.LAUNCHES["flash_attn"]
+    out = fa_kernel.flash_attn(q, k, v, causal=True, window=None,
+                               logit_cap=None, kv_len=None)
+    assert fa_ops.LAUNCHES["flash_attn"] == before + 1
+    want = fa_ops.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                        v.contiguous(), causal=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=8e-3,
+                               rtol=2 ** -7)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_misaligned_strides():
+    """TMA needs strides that are multiples of 16 bytes: a bf16 view whose
+    row stride is not raises before any launch; f32 (the SIMT kernel)
+    takes the same view."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    base = torch.randn((1, 64, 8, 68), device="cuda")
+    kw = dict(causal=True, window=None, logit_cap=None, kv_len=None)
+    q = base.to(torch.bfloat16)[..., :64]   # stride on H: 68 elements
+    k = torch.randn((1, 64, 2, 64), device="cuda").to(torch.bfloat16)
+    before = fa_ops.LAUNCHES["flash_attn"]
+    with pytest.raises(ValueError, match="not TMA-aligned"):
+        fa_kernel.flash_attn(q, k, k, **kw)
+    assert fa_ops.LAUNCHES["flash_attn"] == before
+    out = fa_kernel.flash_attn(base[..., :64], k.float(), k.float(), **kw)
+    want = fa_ops.flash_attention_plain(base[..., :64], k.float(), k.float())
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=1e-5)
 
 
 def _scan_inputs(b, L, d, s):
