@@ -316,8 +316,9 @@ def b3_bound(d, n_cycles):
 def ptxas_usage(log: str) -> dict:
     """Registers, stack and spill bytes per kernel from ptxas -v output."""
     labels = (("noc_arbitrate_kernel", "B1"),
-              ("noc_fused_cycles_kernelILi4ELi4ELb0E", "B2"),
-              ("noc_fused_cycles_kernelILi4ELi4ELb1E", "B3"),
+              ("noc_fused_cycles_kernelILi4ELi4ELb0ELb0E", "B2"),
+              ("noc_fused_cycles_kernelILi4ELi4ELb1ELb0E", "B3"),
+              ("noc_fused_cycles_kernelILi4ELi4ELb0ELb1E", "B2 clocked"),
               ("kf_bank_kernel", "B4"),
               ("mamba_scan_kernel", "B6"),
               *((f"mamba_fused_kernelI{t}Li{n}E", f"B7 {tn} S{n}")
@@ -1105,7 +1106,7 @@ def main() -> int:
         log = _build.build_log(lib, src)
         if log.exists():
             usage.update(ptxas_usage(log.read_text()))
-    want = ({"B1", "B2", "B3", "B4", "B6"}
+    want = ({"B1", "B2", "B3", "B2 clocked", "B4", "B6"}
             | {f"B5 {t} D{d}" for t in ("bf16", "f32")
                for d in fa_kernel.HEAD_DIMS}
             | {f"B7 {t} S{n}" for t in ("bf16", "f32")
@@ -1231,6 +1232,21 @@ def main() -> int:
           f"{' / '.join(f'{t:.4f}' for t in turns)}: B2 {b2_ms:.4f}, B3 "
           f"{b3_ms:.4f} ({b3_ms / b2_ms:.3f}x); plain B2 {b2_plain_ms:.1f} "
           f"ms, plain B3 {b3_plain_ms:.1f} ms per 500 cycles")
+    # where one simulated cycle goes: B2's clocked instantiation (thread
+    # 0's clock64() between barriers) on epoch 2's 500 cycles
+    clk_state = fused.LaneState(*(x.clone() for x in st0))
+    clocks = kernel.noc_fused_cycles_clocked(d, clk_state, xi2, xf2, *consts2)
+    check(max_diff(clk_state, ops.fused_cycle_step(
+        d, st0, xi2, xf2, *consts2)) == 0,
+        "B2's clocked instantiation disagrees with B2")
+    n_cyc = xi2.shape[0]
+    per = {k: v / n_cyc for k, v in clocks.items()
+           if k not in ("prologue", "epilogue")}
+    print(f"[3] B2 split of one simulated cycle (SM clocks, thread 0, mean "
+          f"of {n_cyc}): total {sum(per.values()):.0f}; "
+          + "; ".join(f"{k} {v:.0f}" for k, v in per.items())
+          + f"; per launch: prologue {clocks['prologue']}, epilogue "
+          f"{clocks['epilogue']}")
     sys.stdout.flush()
 
     # ---- phase 4: engine congruence at the full grid, 6 x 500 cycles, with

@@ -227,10 +227,17 @@ struct CycleArgs {
   const int *route, *exists;                     // (R, L) shared, (P, L)
   int n_cycles, S, R, Q, width, mc_period, mshr_limit, bcap, stamp_mask;
   int *p_occ, *p_arb, *p_mcq;  // B3's ProbeLanes: (P*V, L), (2, L), (2, 128)
+  long long* clocks;           // CLOCKS: (N_CLOCKS,) per-phase clock sums
 };
 
-template <int V, int B, bool PROBE>
+// The clocked development instantiation sums, over the launch's cycles,
+// thread 0's clock64() between the marks of one cycle: the loop top and
+// the exit of each block barrier.
+constexpr int N_CLOCKS = 8;
+
+template <int V, int B, bool PROBE, bool CLOCKS = false>
 __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
+  const long long clk_start = CLOCKS ? clock64() : 0;
   constexpr int PV = P * V;
   const int L = g.S * R_PAD;
   const int l = threadIdx.x;
@@ -339,7 +346,21 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
   }
   __syncthreads();
 
+  long long clk_sum[CLOCKS ? N_CLOCKS : 1] = {};
+  long long clk_last = CLOCKS ? clock64() : 0;
+  if constexpr (CLOCKS) clk_sum[6] = clk_last - clk_start;  // prologue
+  auto mark = [&](int k) {
+    if constexpr (CLOCKS) {
+      if (l == 0) {
+        const long long t = clock64();
+        clk_sum[k] += t - clk_last;
+        clk_last = t;
+      }
+    }
+  };
+
   for (int c = 0; c < g.n_cycles; ++c) {
+    mark(5);  // phase 6 of the cycle before, and the loop
     const int* xc = xi + c * XI_ROWS * L;
     const float* fc = xf + c * XF_ROWS * LANES_R;
     const int cycle = xc[XI_CYCLE * L + l];
@@ -374,6 +395,7 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
       s_scls[l] = mc_scls;
     }
     __syncthreads();  // barrier 1: acceptance + staging published
+    mark(0);
 
     // ---- phase 2 (all lanes): peek, route, arbitrate, dequeue
     const int accept = sub_req ? s_accept[r] : 1;
@@ -437,6 +459,7 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
     if (a.any_req[PORT_L] && !accept && e_cls == 1)
       atomicAdd(&s_cnt[C_GPU_STALL_DRAM], 1);
     __syncthreads();  // barrier 2: grants published, neighbour counts read
+    mark(1);
 
     // ---- phase 3 (all lanes): link pull from the unique upstream sender,
     // ejection bookkeeping and latency counters
@@ -476,6 +499,7 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
       }
     }
     __syncthreads();  // barrier 3: ejections published
+    mark(2);
 
     // ---- phase 4 (node lanes): MC enqueue (one thread per router, looping
     // over subnets in order: the exclusive prefix fixes the slot order),
@@ -519,6 +543,7 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
       if (rep_done && rep_cls == 0) atomicAdd(&s_cnt[C_CPU_DONE], 1);
     }
     __syncthreads();  // barrier 4: injection wants published
+    mark(3);
 
     // ---- phase 5 (all lanes): the merged inject at the Local port
     {
@@ -562,6 +587,7 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
       }
     }
     __syncthreads();  // barrier 5: inject outcomes + end-of-cycle counts
+    mark(4);
 
     // ---- phase 6 (node lanes): injection bookkeeping, node counters
     if (node_thread) {
@@ -609,6 +635,12 @@ __global__ void __launch_bounds__(MAX_L) noc_fused_cycles_kernel(CycleArgs g) {
       p_mcq[PB_MCQ_MAX * LANES_R + l] = acc_mcq_max;
     }
   }
+  if constexpr (CLOCKS) {
+    mark(5);
+    mark(7);  // the epilogue: state stores
+    if (l == 0)
+      for (int k = 0; k < N_CLOCKS; ++k) g.clocks[b * N_CLOCKS + k] = clk_sum[k];
+  }
   __syncthreads();
   if (l < N_COUNTERS) cnt[l] = s_cnt[l];
 }
@@ -627,14 +659,14 @@ void launch_arbitrate(const int* const* in, int depth, int L, int* const* out,
 // Launches B2 (PROBE = false) or B3 on `batch` simulations.  Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a (V, B) pair without
 // an instantiation or a lane axis wider than one block.
-template <bool PROBE>
+template <bool PROBE, bool CLOCKS = false>
 int launch_fused(const CycleArgs& args, int batch, int V, int B,
                  void* stream) {
   if (args.S * R_PAD > MAX_L || (args.S * R_PAD) % LANES_R != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   // Only the paper's (V, B) = (4, 4) is instantiated, as for B1.
   if (V != 4 || B != 4) return static_cast<int>(cudaErrorInvalidValue);
-  noc_fused_cycles_kernel<4, 4, PROBE>
+  noc_fused_cycles_kernel<4, 4, PROBE, CLOCKS>
       <<<batch, args.S * R_PAD, 0, static_cast<cudaStream_t>(stream)>>>(
           args);
   return static_cast<int>(cudaGetLastError());
@@ -680,7 +712,7 @@ int noc_fused_cycles(int batch, int n_cycles, int S, int R, int V, int B,
               node,     cnt,      xi,    xf,    gmask,  cmask,  prof,
               pol_sr,   pol_r,    ntype, route, exists, n_cycles, S,
               R,        Q,        width, mc_period, mshr_limit, bcap,
-              stamp_mask, nullptr, nullptr, nullptr};
+              stamp_mask, nullptr, nullptr, nullptr, nullptr};
   return launch_fused<false>(a, batch, V, B, stream);
 }
 
@@ -698,8 +730,27 @@ int noc_fused_cycles_probed(
               node,     cnt,      xi,    xf,    gmask,  cmask,  prof,
               pol_sr,   pol_r,    ntype, route, exists, n_cycles, S,
               R,        Q,        width, mc_period, mshr_limit, bcap,
-              stamp_mask, p_occ, p_arb, p_mcq};
+              stamp_mask, p_occ, p_arb, p_mcq, nullptr};
   return launch_fused<true>(a, batch, V, B, stream);
+}
+
+// B2's clocked development instantiation (nothing on a main path launches
+// it): B2's arguments plus `clocks` (N_CLOCKS int64 per simulation), which
+// it overwrites with thread 0's per-phase clock64() sums over the cycles.
+int noc_fused_cycles_clocked(
+    int batch, int n_cycles, int S, int R, int V, int B, int Q, int width,
+    int mc_period, int mshr_limit, int bcap, int stamp_mask, int* buf_meta,
+    int* buf_binj, int* head, int* count, int* rr, int* mcq, int* mc,
+    int* node, int* cnt, const int* xi, const float* xf, const int* gmask,
+    const int* cmask, const float* prof, const int* pol_sr,
+    const int* pol_r, const int* ntype, const int* route,
+    const int* exists, long long* clocks, void* stream) {
+  CycleArgs a{buf_meta, buf_binj, head,  count, rr,     mcq,    mc,
+              node,     cnt,      xi,    xf,    gmask,  cmask,  prof,
+              pol_sr,   pol_r,    ntype, route, exists, n_cycles, S,
+              R,        Q,        width, mc_period, mshr_limit, bcap,
+              stamp_mask, nullptr, nullptr, nullptr, clocks};
+  return launch_fused<false, true>(a, batch, V, B, stream);
 }
 
 }  // extern "C"

@@ -3,6 +3,9 @@
 `noc_arbitrate` (B1) replaces repro/kernels/noc_cycle/kernel.py::
 _noc_cycle_kernel, `noc_fused_cycles` (B2) replaces ::_fused_cycle_kernel
 and `noc_fused_cycles_probed` (B3) replaces ::_fused_cycle_probed_kernel.
+`noc_fused_cycles_clocked` launches B2's clocked development
+instantiation, which returns per-phase clock sums (nothing on a main path
+calls it).
 Each checks device, dtype, shape and contiguity, launch on PyTorch's current
 stream without synchronising, and raise if the launch reports a CUDA
 error.  The library is built at first call (`repro_torch.kernels._build`),
@@ -38,6 +41,8 @@ def library() -> ctypes.CDLL:
     lib.noc_fused_cycles.restype = _I
     lib.noc_fused_cycles_probed.argtypes = [_I] * 12 + [_P] * 22 + [_P]
     lib.noc_fused_cycles_probed.restype = _I
+    lib.noc_fused_cycles_clocked.argtypes = [_I] * 12 + [_P] * 20 + [_P]
+    lib.noc_fused_cycles_clocked.restype = _I
     return lib
 
 
@@ -163,3 +168,30 @@ def noc_fused_cycles_probed(
         *args, *(x.data_ptr() for x in probe), stream
     )
     _raise_on(rc, "noc_fused_cycles_probed")
+
+
+# the marks of the clocked instantiation, in the order of its clocks array
+CLOCK_PHASES = ("1 MC service", "2 peek/route/arbitrate", "3 link pull",
+                "4 MC enqueue/generation", "5 inject", "6 inject bookkeeping",
+                "prologue", "epilogue")
+
+
+def noc_fused_cycles_clocked(
+    d: fused.LaneDims,
+    state: fused.LaneState,
+    xi: torch.Tensor, xf: torch.Tensor,
+    gmask: torch.Tensor, cmask: torch.Tensor, prof: torch.Tensor,
+    pol_sr: torch.Tensor, pol_r: torch.Tensor, ntype: torch.Tensor,
+    route: torch.Tensor, exists: torch.Tensor,
+) -> dict[str, int]:
+    """B2's clocked instantiation: runs B2 on ``state`` IN PLACE and returns
+    thread 0's clock64() sums per phase (`CLOCK_PHASES`) over the launch, in
+    SM clocks.  Synchronises; not counted in ops.LAUNCHES."""
+    consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
+    args = _fused_args(d, state, xi, xf, consts, "noc_fused_cycles_clocked")
+    clocks = torch.zeros(len(CLOCK_PHASES), dtype=torch.int64,
+                         device=xi.device)
+    stream = torch.cuda.current_stream(xi.device).cuda_stream
+    rc = library().noc_fused_cycles_clocked(*args, clocks.data_ptr(), stream)
+    _raise_on(rc, "noc_fused_cycles_clocked")
+    return dict(zip(CLOCK_PHASES, clocks.tolist()))
