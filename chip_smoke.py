@@ -15,7 +15,10 @@ build/repro_torch/), then runs, each phase failing the script on error:
      many times, bitwise on every LaneState field, for 1 and 500 cycles,
      then B3 (noc_fused_cycles_probed) against the same with the flight-
      recorder carry, from a non-zero carry, bitwise on every LaneState and
-     ProbeLanes field; B2 and B3 are timed in turns (B2, B3, B3, B2);
+     ProbeLanes field; B2 and B3 are timed in turns (B2, B3, B3, B2); B2's
+     clocked instantiation (not counted in LAUNCHES) runs the same 500
+     cycles, bitwise equal to B2, and prints where one simulated cycle goes
+     (SM clocks per stage);
      phases 2 and 3 take their inputs from sim's own per-epoch builders,
      under a fault stream and a placement stream built here, so that every
      link, router, MC and node-class mask is live;
@@ -316,9 +319,9 @@ def b3_bound(d, n_cycles):
 def ptxas_usage(log: str) -> dict:
     """Registers, stack and spill bytes per kernel from ptxas -v output."""
     labels = (("noc_arbitrate_kernel", "B1"),
-              ("noc_fused_cycles_kernelILi4ELi4ELb0ELb0E", "B2"),
-              ("noc_fused_cycles_kernelILi4ELi4ELb1ELb0E", "B3"),
-              ("noc_fused_cycles_kernelILi4ELi4ELb0ELb1E", "B2 clocked"),
+              ("noc_fused_cycles_kernelILi4ELi4ELi4ELb0ELb0E", "B2"),
+              ("noc_fused_cycles_kernelILi4ELi4ELi4ELb1ELb0E", "B3"),
+              ("noc_fused_cycles_kernelILi4ELi4ELi4ELb0ELb1E", "B2 clocked"),
               ("kf_bank_kernel", "B4"),
               ("mamba_scan_kernel", "B6"),
               *((f"mamba_fused_kernelI{t}Li{n}E", f"B7 {tn} S{n}")
@@ -1233,20 +1236,19 @@ def main() -> int:
           f"{b3_ms:.4f} ({b3_ms / b2_ms:.3f}x); plain B2 {b2_plain_ms:.1f} "
           f"ms, plain B3 {b3_plain_ms:.1f} ms per 500 cycles")
     # where one simulated cycle goes: B2's clocked instantiation (thread
-    # 0's clock64() between barriers) on epoch 2's 500 cycles
+    # 0's clock64() at the stage marks) on epoch 2's 500 cycles
     clk_state = fused.LaneState(*(x.clone() for x in st0))
     clocks = kernel.noc_fused_cycles_clocked(d, clk_state, xi2, xf2, *consts2)
     check(max_diff(clk_state, ops.fused_cycle_step(
         d, st0, xi2, xf2, *consts2)) == 0,
         "B2's clocked instantiation disagrees with B2")
     n_cyc = xi2.shape[0]
-    per = {k: v / n_cyc for k, v in clocks.items()
-           if k not in ("prologue", "epilogue")}
+    per = {k: clocks[k] / n_cyc for k in kernel.CYCLE_STAGES}
+    once = {k: v for k, v in clocks.items() if k not in per}
     print(f"[3] B2 split of one simulated cycle (SM clocks, thread 0, mean "
           f"of {n_cyc}): total {sum(per.values()):.0f}; "
           + "; ".join(f"{k} {v:.0f}" for k, v in per.items())
-          + f"; per launch: prologue {clocks['prologue']}, epilogue "
-          f"{clocks['epilogue']}")
+          + "; per launch: " + "; ".join(f"{k} {v}" for k, v in once.items()))
     sys.stdout.flush()
 
     # ---- phase 4: engine congruence at the full grid, 6 x 500 cycles, with

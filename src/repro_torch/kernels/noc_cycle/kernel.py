@@ -4,7 +4,7 @@
 _noc_cycle_kernel, `noc_fused_cycles` (B2) replaces ::_fused_cycle_kernel
 and `noc_fused_cycles_probed` (B3) replaces ::_fused_cycle_probed_kernel.
 `noc_fused_cycles_clocked` launches B2's clocked development
-instantiation, which returns per-phase clock sums (nothing on a main path
+instantiation, which returns per-stage clock sums (nothing on a main path
 calls it).
 Each checks device, dtype, shape and contiguity, launch on PyTorch's current
 stream without synchronising, and raise if the launch reports a CUDA
@@ -170,10 +170,13 @@ def noc_fused_cycles_probed(
     _raise_on(rc, "noc_fused_cycles_probed")
 
 
-# the marks of the clocked instantiation, in the order of its clocks array
-CLOCK_PHASES = ("1 MC service", "2 peek/route/arbitrate", "3 link pull",
-                "4 MC enqueue/generation", "5 inject", "6 inject bookkeeping",
-                "prologue", "epilogue")
+# the stages of the clocked instantiation, in the order of its clocks
+# array: CYCLE_STAGES are summed over the launch's cycles (thread 0's
+# clock), the rest are once per launch (node lanes 64..127 on the clock of
+# their own warp, beside the cycle loop)
+CYCLE_STAGES = ("service + arbitrate", "barrier A", "pull + node + inject",
+                "barrier B")
+CLOCK_STAGES = CYCLE_STAGES + ("prologue", "node lanes 64..127", "epilogue")
 
 
 def noc_fused_cycles_clocked(
@@ -185,13 +188,14 @@ def noc_fused_cycles_clocked(
     route: torch.Tensor, exists: torch.Tensor,
 ) -> dict[str, int]:
     """B2's clocked instantiation: runs B2 on ``state`` IN PLACE and returns
-    thread 0's clock64() sums per phase (`CLOCK_PHASES`) over the launch, in
-    SM clocks.  Synchronises; not counted in ops.LAUNCHES."""
+    its clock64() sums per stage (`CLOCK_STAGES`) over the launch, in SM
+    clocks.  Synchronises (it reads the sums back); not counted in
+    ops.LAUNCHES."""
     consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
     args = _fused_args(d, state, xi, xf, consts, "noc_fused_cycles_clocked")
-    clocks = torch.zeros(len(CLOCK_PHASES), dtype=torch.int64,
+    clocks = torch.zeros(len(CLOCK_STAGES), dtype=torch.int64,
                          device=xi.device)
     stream = torch.cuda.current_stream(xi.device).cuda_stream
     rc = library().noc_fused_cycles_clocked(*args, clocks.data_ptr(), stream)
     _raise_on(rc, "noc_fused_cycles_clocked")
-    return dict(zip(CLOCK_PHASES, clocks.tolist()))
+    return dict(zip(CLOCK_STAGES, clocks.tolist()))

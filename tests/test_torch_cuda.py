@@ -69,6 +69,43 @@ def _small_cfg(mode, **kw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("mode", ["kf", "4subnet", "fair", "baseline"])
+def test_fused_kernel_matches_plain(mode, donate):
+    """B2 against `cycle_steps_lanes` from a filled state (60 cycles in),
+    after 1, 50 and 500 cycles, bitwise on every LaneState field.  With
+    ``donate`` the kernel updates the arrays it is handed; without, it
+    leaves them as they were."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    cfg = sim.NoCConfig(mode=mode, n_epochs=2, epoch_len=560,
+                        policy=PolicyConfig(warmup=200, hold=100, revert=300))
+    run = sim.run_inputs(cfg, "SHIFT_PATH_BFS", device=dev,
+                         rng=torch.Generator(device=dev).manual_seed(2))
+    tables = sim.lane_tables(run)
+    d = tables[0]
+    subs, mc, outst, backlog = sim.init_sim_state(run.stc, dev)
+    st = fused.pack_state(d, subs, mc, outst, backlog,
+                          traffic.init_phase().to(dev))
+    ep = sim.epoch_inputs(run, 0, torch.tensor(1, dtype=torch.int32), 0)
+    xi, xf, consts = sim.lane_inputs(run, tables, ep)
+    st = ops.fused_cycle_step(d, st, xi[:60], xf[:60], *consts)  # fill
+    assert int(st.count.sum()) > 0
+    kept = fused.LaneState(*(x.clone() for x in st))
+    for n in (1, 50, 500):
+        p = fused.cycle_steps_lanes(d, st, xi[60:60 + n], xf[60:60 + n],
+                                    *consts)
+        src = fused.LaneState(*(x.clone() for x in st)) if donate else st
+        k = ops.fused_cycle_step(d, src, xi[60:60 + n], xf[60:60 + n],
+                                 *consts, donate=donate)
+        for name, a, b, x in zip(fused.LaneState._fields, k, p, src):
+            assert torch.equal(a, b), (n, name)
+            assert (a.data_ptr() == x.data_ptr()) == donate, (n, name)
+        for name, a, b in zip(fused.LaneState._fields, st, kept):
+            assert torch.equal(a, b), (n, "input changed", name)
+
+
+@pytest.mark.cuda
 def test_probed_kernel_matches_plain():
     """B3 against `cycle_steps_lanes(..., probe=...)` from a non-zero
     carry, after 1 and 50 cycles, bitwise on every field."""
