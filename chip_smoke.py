@@ -7,7 +7,8 @@ Builds the hand-written CUDA kernels from src/repro_torch (nvcc, into
 build/repro_torch/), then runs, each phase failing the script on error:
 
   1. the card's name and power limit (nvidia-smi), the kernel build time
-     and ptxas's registers, stack and spill bytes per kernel;
+     and ptxas's registers, stack and spill bytes per kernel (no B7
+     instantiation may have a stack or spill);
   2. B1 (noc_arbitrate) against its plain torch version, bitwise, on lane
      states sampled from a lane-engine run on the card and on seeded random
      states, at the paper's 256 lanes;
@@ -65,7 +66,10 @@ build/repro_torch/), then runs, each phase failing the script on error:
   [B7] the fused scan kernel (mamba_fused) against its plain version within
      1e-5 (abs + rel), at the JAX test's two shapes in f32 and at
      (1, L, 8192, 16) with bf16 xc/B/C and a nonzero h0 for L = 48, 517,
-     2048, timed at 517 and 2048 beside its bound;
+     2048, with how many of the 5 are bitwise; its instantiation (states
+     per thread, steps in flight, threads per block, steps per tile);
+     timed at each model shape with CUDA events per call and with
+     torch.profiler's device time per launch, beside its bound;
   [fwd-m] falcon-mamba-7b at full width and depth (64 layers, random
      weights from the seed), B = 1, L = 2048: lm.forward with use_kernel
      (exactly 64 B6 launches) and without (exactly 64 B7 launches), logits
@@ -145,25 +149,30 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return statistics.median(reps)
 
 
-def profile_device(fn, n: int):
+def profile_device(fn, n: int, attempts: int = 3):
     """``fn`` run n times under torch.profiler, ending in a sync: the host
     wall ms per call under the profiler, the device's busy ms per call (the
     summed durations of the kernels, copies and sets it records on the
     card; 0 if it records none), the top device ops and the top host ops by
-    self time, each as (name, ms per call)."""
+    self time, each as (name, ms per call).  A session that records no
+    device activity at all is profiled again, up to ``attempts`` times
+    (the card's tracing has been seen to drop a whole session)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.time() - t0) * 1e3 / n
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3 / n
+        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+            break
     device, host = {}, {}
     for e in prof.events():
         us = e.time_range.elapsed_us()
@@ -324,9 +333,9 @@ def ptxas_usage(log: str) -> dict:
               ("noc_fused_cycles_kernelILi4ELi4ELi4ELb0ELb1E", "B2 clocked"),
               ("kf_bank_kernel", "B4"),
               ("mamba_scan_kernel", "B6"),
-              *((f"mamba_fused_kernelI{t}Li{n}E", f"B7 {tn} S{n}")
+              *((f"mamba_fused_kernelI{t}Li{n}ELb{w}E", f"B7 {tn} S{n}{wn}")
                 for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
-                for n in (8, 16)),
+                for n in (8, 16) for w, wn in ((1, ""), (0, " narrow"))),
               *((f"flash_fwd_{k}kernelILi{d}E", f"B5 {n} D{d}")
                 for d in (64, 80, 128)
                 for k, n in (("sm90_", "bf16"), ("", "f32"))))
@@ -903,6 +912,7 @@ def phase_b7(dev):
 
     from repro_torch.kernels.mamba_scan import fused as ms_fused
     from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.mamba_scan import sweep_b7
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
 
@@ -925,6 +935,13 @@ def phase_b7(dev):
     cases = [(2, 64, 32, 8, torch.float32, False),
              (1, 128, 64, 16, torch.float32, False)] + [
         (1, L, 8192, 16, torch.bfloat16, True) for L in (48, 517, 2048)]
+    inst = ms_kernel.fused_config()
+    k16, k8 = min(inst["K"], 16), min(inst["K"], 8)
+    channels = inst["threads"] * k16 // 16
+    print(f"[B7] instantiation: {k16} states per thread at S = 16 ({k8} at "
+          f"S = 8), {inst['U']} steps in flight, {inst['threads']} threads "
+          f"per block ({channels} channels at S = 16), {inst['tile']} steps "
+          f"per tile")
     err, timing, bitwise = 0.0, {}, 0
     for b, L, d, s, dtype, model in cases:
         dt, xc, bm, cm, a_mat, h0 = inputs(b, L, d, s, dtype, model)
@@ -938,23 +955,30 @@ def phase_b7(dev):
                 (diff <= 1e-5 + 1e-5 * want.abs()).all()),
                 f"B7 differs from its plain version at {(b, L, d, s)} "
                 f"{dtype} (max abs err {float(diff.max())})")
-        if L in (517, 2048):
-            ms = cuda_ms(lambda: ms_kernel.mamba_fused(dt, xc, bm, cm, a_mat,
-                                                       h0), 20)
+        if model:
+            # CUDA events over back-to-back calls (the wrapper's host work
+            # included) and the kernel's device time under torch.profiler
+            def kern():
+                return ms_kernel.mamba_fused(dt, xc, bm, cm, a_mat, h0)
+
+            ms = cuda_ms(kern, 20)
+            dev_ms, dev_n = sweep_b7.device_ms(kern, 20)
             plain = (cuda_ms(lambda: ms_fused.fused_mamba_scan_plain(
                 dt, xc, bm, cm, a_mat, h0), 1, warmup=0) if L == 517 else None)
-            timing[L] = (ms, plain, *b7_bound(b, L, d, s, 2))
+            timing[L] = (ms, dev_ms, dev_n, plain, *b7_bound(b, L, d, s, 2))
     print(f"[B7] mamba_fused within 1e-5 (abs + rel) of its plain version at "
           f"{len(cases)} shapes (the JAX test's two in f32 from zero; (1, L, "
           f"8192, 16) bf16 from a nonzero h0 at L = 48, 517, 2048), bitwise "
           f"at {bitwise} of them: max abs err {err:.3g}")
-    for L, (ms, plain, bm, by) in timing.items():
-        print(f"[B7] (1, {L}, 8192, 16) bf16: kernel {ms:.4f} ms, bound "
-              f"{bm:.4f} ms ({by})"
+    for L, (ms, dev_ms, dev_n, plain, bm, by) in timing.items():
+        print(f"[B7] (1, {L}, 8192, 16) bf16: kernel events {ms:.4f} ms per "
+              f"call, device {fmt_ms(dev_ms)} per launch (torch.profiler, "
+              f"mean of {dev_n} recorded of 20), bound {bm:.4f} ms ({by}; "
+              f"device/bound {dev_ms / bm:.2f}x)"
               + ("" if plain is None else f", plain {plain:.1f} ms"))
     sys.stdout.flush()
     torch.cuda.empty_cache()
-    ms, plain, bm, by = timing[517]
+    ms, _, _, plain, bm, by = timing[517]
     return dict(name="mamba_fused", route="cuda",
                 source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
                 replaces="src/repro/kernels/mamba_scan/fused.py:28",
@@ -1112,11 +1136,15 @@ def main() -> int:
     want = ({"B1", "B2", "B3", "B2 clocked", "B4", "B6"}
             | {f"B5 {t} D{d}" for t in ("bf16", "f32")
                for d in fa_kernel.HEAD_DIMS}
-            | {f"B7 {t} S{n}" for t in ("bf16", "f32")
-               for n in ms_kernel.FUSED_STATES})
+            | {f"B7 {t} S{n}{w}" for t in ("bf16", "f32")
+               for n in ms_kernel.FUSED_STATES for w in ("", " narrow")})
     check(set(usage) == want,
           f"ptxas report lacks a kernel: {sorted(want - set(usage))}")
     print(f"[1] ptxas -v per thread: {json.dumps(usage, sort_keys=True)}")
+    b7_spill = {k: v for k, v in usage.items() if k.startswith("B7")
+                and v["stack"] + v["spill_stores"] + v["spill_loads"]}
+    check(not b7_spill, f"a B7 instantiation has a stack or spills: "
+                        f"{b7_spill}")
     sys.stdout.flush()
 
     # The kernel checks of phases 2-3 and the live case of phase 4 share one

@@ -2,7 +2,9 @@
 
 Each library is compiled from the sources in the checkout into
 ``build/repro_torch/`` (listed in .gitignore) with a content hash of the
-sources and flags in its file name, so a stale library is never loaded:
+sources and flags in its file name, so a stale library is never loaded
+(extra flags, such as -D values of a kernel's instantiation, go after the
+common ones and into the hash):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>_<hash>.so <sources>
@@ -44,47 +46,51 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str, sources: list[Path]) -> Path:
+def library_path(name: str, sources: list[Path], flags=()) -> Path:
     h = hashlib.sha256()
     for src in sources:
         h.update(Path(src).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build_log(name: str, sources: list[Path]) -> Path:
+def build_log(name: str, sources: list[Path], flags=()) -> Path:
     """ptxas's resource report of the library's last build."""
-    return library_path(name, sources).with_suffix(".ptxas.txt")
+    return library_path(name, sources, flags).with_suffix(".ptxas.txt")
 
 
-def build_all(libs: list[tuple[str, list[Path]]]) -> list[Path]:
-    """Compile each (name, sources) library that does not exist yet, one
-    nvcc process per library, all started together; raise if any fails."""
+def build_all(libs: list[tuple]) -> list[Path]:
+    """Compile each (name, sources) or (name, sources, extra flags) library
+    that does not exist yet, one nvcc process per library, all started
+    together; raise if any fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = [(name, sources, tuple(rest[0]) if rest else ())
+            for name, sources, *rest in libs]
     jobs = []
-    for name, sources in libs:
-        out = library_path(name, sources)
+    for name, sources, flags in libs:
+        out = library_path(name, sources, flags)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources)]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", tmp,
+               *(str(s) for s in sources)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, sources, out, tmp, cmd, proc))
+        jobs.append((name, sources, flags, out, tmp, cmd, proc))
     failed = []
-    for name, sources, out, tmp, cmd, proc in jobs:
+    for name, sources, flags, out, tmp, cmd, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
             failed.append(f"nvcc failed building {name} ({proc.returncode}):"
                           f"\n{' '.join(cmd)}\n{log}")
             continue
-        build_log(name, sources).write_text(log)
+        build_log(name, sources, flags).write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))
-    return [library_path(name, sources) for name, sources in libs]
+    return [library_path(*lib) for lib in libs]
 
 
 def build(name: str, sources: list[Path]) -> Path:

@@ -18,8 +18,9 @@ CUDA tensor launches the kernel or raises.  The kernel takes any L (the
 TPU kernel needs L % chunk == 0) and an optional h0 (the TPU kernel starts
 from zero; the model's scan passes one); ``chunk`` and ``block_d`` are
 kept for the reference's signature and change nothing on the card, where
-one thread walks the whole sequence of one (batch, d, s) element.
-Launches count in `ops.LAUNCHES["mamba_fused"]`.
+a few lanes walk the whole sequence of one (batch, d) channel, several
+states each (csrc/mamba_scan.cu's head note).  Launches count in
+`ops.LAUNCHES["mamba_fused"]`.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ import torch
 
 
 def state_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (state) axis in the order of B7's shuffle tree:
-    pairwise halving, s + s + S/2 first, then the halves of that, ...
+    """Sum over the last (state) axis in the order of B7's reduction (adds
+    inside a thread, then xor shuffles): pairwise halving, s + s + S/2
+    first, then the halves of that, ...
     (zeros pad S to a power of two; adding +0 changes no value).  The
     port's C-projection sums in this order on every path, so y through B6
     and y through B7 are the same bits."""

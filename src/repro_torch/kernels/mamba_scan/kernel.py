@@ -8,7 +8,9 @@ The library is built at first call (`repro_torch.kernels._build`), never
 at import.
 
 B7 is instantiated for S = 8 and 16 states and for float32 and bfloat16
-xc / B / C; any other combination raises on the card.
+xc / B / C; any other combination raises on the card.  `fused_config`
+reports the library's B7 instantiation (states per thread, steps in
+flight, threads per block, steps per tile).
 """
 from __future__ import annotations
 
@@ -28,15 +30,30 @@ FUSED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """Build (first call) and load the mamba_scan library."""
-    lib = _build.load_library("mamba_scan", SOURCES)
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of a loaded mamba_scan library."""
     lib.mamba_scan_fwd.argtypes = [_P] * 3 + [_L, _I, _L] + [_P] * 3
     lib.mamba_scan_fwd.restype = _I
     lib.mamba_fused_fwd.argtypes = [_I, _I] + [_P] * 6 + [_I] * 3 + [_P] * 3
     lib.mamba_fused_fwd.restype = _I
+    lib.mamba_fused_config.argtypes = [_P]
+    lib.mamba_fused_config.restype = None
     return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """Build (first call) and load the mamba_scan library."""
+    return bind(_build.load_library("mamba_scan", SOURCES))
+
+
+def fused_config(lib: ctypes.CDLL | None = None) -> dict:
+    """B7's instantiation in ``lib`` (default: the library built from
+    SOURCES): K states per thread (min(K, S) at S states), U steps in
+    flight, threads per block, steps per tile."""
+    out = (ctypes.c_int * 4)()
+    (lib or library()).mamba_fused_config(out)
+    return dict(zip(("K", "U", "threads", "tile"), out))
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, dtypes) -> None:
@@ -103,12 +120,20 @@ def mamba_fused(
                               device=dt.device) if h0 is None else h0.clone())
         return y, h_last
     h_last = torch.empty((bsz, d, s), dtype=torch.float32, device=dt.device)
-    stream = torch.cuda.current_stream(dt.device).cuda_stream
-    rc = library().mamba_fused_fwd(
-        FUSED_DTYPES[xc.dtype], s, dt.data_ptr(), xc.data_ptr(), b.data_ptr(),
-        c.data_ptr(), a_mat.data_ptr(), None if h0 is None else h0.data_ptr(),
-        bsz, L, d, y.data_ptr(), h_last.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"mamba_fused launch failed: CUDA error {rc}")
+    launch_fused(library(), dt, xc, b, c, a_mat, h0, y, h_last)
     LAUNCHES["mamba_fused"] += 1
     return y, h_last
+
+
+def launch_fused(lib, dt, xc, b, c, a_mat, h0, y, h_last) -> None:
+    """Launch B7 of ``lib`` on tensors `mamba_fused` has checked, into y
+    and h_last; raise on a CUDA error.  Counts nothing."""
+    bsz, L, d = dt.shape
+    stream = torch.cuda.current_stream(dt.device).cuda_stream
+    rc = lib.mamba_fused_fwd(
+        FUSED_DTYPES[xc.dtype], a_mat.shape[-1], dt.data_ptr(), xc.data_ptr(),
+        b.data_ptr(), c.data_ptr(), a_mat.data_ptr(),
+        None if h0 is None else h0.data_ptr(), bsz, L, d, y.data_ptr(),
+        h_last.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mamba_fused launch failed: CUDA error {rc}")

@@ -294,16 +294,8 @@ def test_mamba_scan_kernel_matches_plain(b, L, d, s, chunk, bd):
     assert torch.equal(hs, hs_p) and torch.equal(hl, hl_p)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("B,L,D,S", [(2, 64, 32, 8), (1, 128, 64, 16),
-                                     (1, 517, 1000, 16), (3, 5, 40, 8)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mamba_fused_kernel_matches_plain(B, L, D, S, dtype):
-    """B7 within atol/rtol 1e-5 of its plain version, from zero and from a
-    nonzero h0, at any L and D.  The two sum y over the states in the same
-    order and round every other operation once; expf (the kernel) and
-    torch.exp on the card are what could still part them."""
-    _need_cuda()
+def _fused_inputs(B, L, D, S, dtype):
+    """B7's inputs as the JAX kernel test draws them, on the card."""
     rng = np.random.default_rng(7)
     dt, xc, b, c = (torch.from_numpy(x.astype(np.float32)).cuda() for x in (
         rng.uniform(0.001, 0.1, (B, L, D)), rng.normal(size=(B, L, D)),
@@ -312,14 +304,86 @@ def test_mamba_fused_kernel_matches_plain(B, L, D, S, dtype):
         rng.normal(size=(D, S)).astype(np.float32))).cuda()
     xc, b, c = (x.to(dtype) for x in (xc, b, c))
     h0 = torch.from_numpy(rng.normal(size=(B, D, S)).astype(np.float32))
+    return dt, xc, b, c, a_mat, h0.cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,D,S", [
+    (2, 64, 32, 8), (1, 128, 64, 16), (1, 517, 1000, 16), (3, 5, 40, 8),
+    # ragged against the ring stage (32 steps), U (4 steps) and the block's
+    # channels (64 at S = 16, 128 at S = 8)
+    (1, 1, 72, 16), (1, 65, 8200, 16), (2, 300, 4104, 8),
+    # D % 4 != 0: the narrow (one element) copies
+    (1, 37, 1001, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_kernel_matches_plain(B, L, D, S, dtype):
+    """B7 within atol/rtol 1e-5 of its plain version, from zero and from a
+    nonzero h0, at any L and D.  The two sum y over the states in the same
+    order and round every other operation once; expf (the kernel) and
+    torch.exp on the card are what could still part them."""
+    _need_cuda()
+    dt, xc, b, c, a_mat, h0 = _fused_inputs(B, L, D, S, dtype)
     ms_ops.reset_launches()
-    for start in (None, h0.cuda()):
+    for start in (None, h0):
         y, hl = ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=start)
         y_p, hl_p = ms_fused.fused_mamba_scan_plain(dt, xc, b, c, a_mat,
                                                     start)
         torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(hl, hl_p, atol=1e-5, rtol=1e-5)
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_narrow_copies_equal_wide(dtype):
+    """Rows that start off a 4-element boundary (a view one element into
+    its storage, D % 4 == 0) take the narrow copies: the same kernel, the
+    same bits as the aligned copy of the same inputs."""
+    _need_cuda()
+    B, L, D, S = 1, 70, 4104, 16
+    ins = _fused_inputs(B, L, D, S, dtype)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    dt, xc, b, c = (shifted(t) for t in ins[:4])
+    assert dt.is_contiguous() and dt.data_ptr() % 16 != 0
+    ms_ops.reset_launches()
+    y_w, hl_w = ms_fused.fused_mamba_scan(*ins[:5], h0=ins[5])
+    y_n, hl_n = ms_fused.fused_mamba_scan(dt, xc, b, c, ins[4], h0=ins[5])
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2}
+    assert torch.equal(y_w, y_n) and torch.equal(hl_w, hl_n)
+    y_p, hl_p = ms_fused.fused_mamba_scan_plain(*ins)
+    torch.testing.assert_close(y_n, y_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hl_n, hl_p, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_mamba_fused_counts_one_launch_per_call():
+    """LAUNCHES["mamba_fused"] adds one for each call that launches and
+    nothing for an empty one; empty inputs give zeros or a copy of h0."""
+    _need_cuda()
+    dt, xc, b, c, a_mat, h0 = _fused_inputs(2, 9, 40, 8, torch.bfloat16)
+    ms_ops.reset_launches()
+    for n in range(1, 4):
+        ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=h0 if n % 2 else
+                                  None)
+        assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": n}
+    for cut in (dict(L=0), dict(B=0)):
+        L, B = cut.get("L", 9), cut.get("B", 2)
+        e_dt, e_xc, e_b, e_c = (t[:B, :L].contiguous() for t in (dt, xc, b, c))
+        for start in (None, h0[:B]):
+            y, hl = ms_fused.fused_mamba_scan(e_dt, e_xc, e_b, e_c, a_mat,
+                                              h0=start)
+            assert y.shape == (B, L, 40) and y.dtype == torch.float32
+            want = torch.zeros((B, 40, 8), device="cuda") if start is None \
+                else start
+            assert torch.equal(hl, want)
+            assert want.numel() == 0 or hl.data_ptr() != want.data_ptr()
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 3}
 
 
 @pytest.mark.cuda
