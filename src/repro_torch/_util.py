@@ -14,3 +14,12 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``: what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a Stream object on every launch."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -12,8 +12,10 @@ Two deployments of the same predictor:
   FleetKF — a BANK of filters, one per (pod x traffic-class) link, whose
     state lives on the device and advances in lockstep through the kf_bank
     kernel (B4) each telemetry epoch; emits a per-link throttle(0) /
-    boost(1) signal like the paper's per-router VC reallocation.  The same
-    filter as the single-filter core.kalman step (tests/test_torch_kf_bank.py).
+    boost(1) signal like the paper's per-router VC reallocation.  On the
+    card an epoch is ONE launch of B4, which writes the signal too; the
+    bank's constants are checked once, when it is built.  The same filter
+    as the single-filter core.kalman step (tests/test_torch_kf_bank.py).
 """
 from __future__ import annotations
 
@@ -86,7 +88,8 @@ class FleetKF:
     One filter per (pod x traffic-class); `epoch` advances every filter one
     predict+correct cycle on the epoch's observation matrix and returns the
     binarized boost signals.  The state lives on ``device`` (the CUDA
-    device unless the caller passes another)."""
+    device unless the caller passes another).  Each epoch replaces ``x``
+    and ``p`` with fresh tensors, as the reference does."""
 
     def __init__(self, n: int, cfg: Optional[SchedulerConfig] = None,
                  h: tuple[float, ...] = (1.0, 1.0, 1.0),
@@ -100,10 +103,19 @@ class FleetKF:
         # matches core.kalman.init_state(p0=1.0), leaf-for-leaf on n=1
         self.x = torch.zeros((n,), **f32)
         self.p = torch.ones((n,), **f32)
+        self._bank = None
+        if self.device.type == "cuda":
+            from repro_torch.kernels.kf_bank import kernel as kf_kernel
+
+            self._bank = kf_kernel.Bank(n, self.h, self.r, a=1.0,
+                                        q=self.cfg.kf_q)
 
     def epoch(self, z) -> torch.Tensor:
         """z: (n, m) normalized observations -> (n,) int32 boost signals."""
         z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
-        self.x, self.p = kf_ops.kf_bank_step(
-            self.x, self.p, z, self.h, self.r, a=1.0, q=self.cfg.kf_q)
-        return kalman.binarize(self.x)
+        if self._bank is None:
+            self.x, self.p, signal = kf_ops.kf_bank_epoch_plain(
+                self.x, self.p, z, self.h, self.r, a=1.0, q=self.cfg.kf_q)
+        else:
+            self.x, self.p, signal = self._bank.epoch(self.x, self.p, z)
+        return signal

@@ -12,6 +12,11 @@ arrays, lists) go to ``device``, which defaults to the CUDA device.
 Any B is taken as it is: the kernel masks its ragged tail, so there is no
 padding to a block multiple.
 
+`kf_bank_epoch_plain` is one fleet epoch (`dist.kf_scheduler.FleetKF.epoch`):
+the step and then its boost signal x_post > 0.  It is the CPU route of
+that epoch; on the card the epoch is one launch of the same kernel, which
+writes the signal too (`kernel.Bank`).
+
 `LAUNCHES["kf_bank"]` counts kernel launches; the launcher in kernel.py adds
 one after each launch that succeeded and nowhere else (an empty bank
 launches nothing and counts nothing).
@@ -55,6 +60,16 @@ def kf_bank_step_plain(
     p_post = 1.0 / (1.0 / p_prior + info)
     x_post = p_post * (x_prior / p_prior + innov)
     return x_post, p_post
+
+
+def kf_bank_epoch_plain(
+    x: torch.Tensor, p: torch.Tensor, z: torch.Tensor, h: torch.Tensor,
+    r: torch.Tensor, *, a: float = 1.0, q: float = 1e-3,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`kf_bank_step_plain`, then the int32 boost signal x_post > 0
+    (`core.kalman.binarize` at its threshold 0), as the kernel writes it."""
+    x_post, p_post = kf_bank_step_plain(x, p, z, h, r, a=a, q=q)
+    return x_post, p_post, (x_post > 0).to(torch.int32)
 
 
 def kf_bank_step(

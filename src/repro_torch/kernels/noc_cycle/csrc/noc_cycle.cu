@@ -4,12 +4,20 @@
 //   One cycle of switch allocation per (subnet, router) lane: downstream VC
 //   pick under the GPU/CPU VC masks, per-output round robin or SA-preferred
 //   class, and the one-traversal-per-input filter.  One thread per lane,
-//   128 threads a block.  Bound on this card: it reads 80 int32 rows and
-//   writes 55 per lane (~540 B/lane, ~138 KB at L = 256) and does a few
-//   hundred integer ops per lane, so a launch is far below a microsecond of
-//   memory or ALU time; at L = 256 it fills two blocks of one SM and its
-//   time is launch latency.  It packs its rows into the bitmasks of
-//   lane_arbitrate below.
+//   64 threads a block.  Bound on this card: it reads ~80 small values and
+//   writes 55 per lane (a few KB for the paper's 144 dense lanes) and does a
+//   few hundred integer ops per lane, far below a microsecond of memory or
+//   ALU time; its time is one launch.  So the design is about the launch:
+//   the kernel reads its 11 operands and writes its 7 outputs where the
+//   caller holds them, through per-operand strides and element types in a
+//   by-value descriptor (ArbArgs).  The dense engine's tensors, (S, R, .)
+//   with bool, int8 and int32 elements and broadcast views (zero strides),
+//   are read in place; the (rows, L) lane rows of B2's layout are another
+//   stride pattern of the same kernel.  No copies, casts, pads or
+//   transposes run around it: one call is one launch.  Lanes go to threads
+//   in the caller's row-major lane order (a dense lane's PV values are
+//   contiguous, a warp's loads one contiguous span).  It packs its operands
+//   into the bitmasks of lane_arbitrate below.
 //
 // noc_fused_cycles  replaces repro/kernels/noc_cycle/kernel.py::_fused_cycle_kernel
 //   Whole NoC cycles on the int32 LaneState (layout in fused.py): MC service,
@@ -209,51 +217,146 @@ __device__ __forceinline__ void lane_arbitrate(
 }
 
 // ---------------------------------------------------------------------------
-// B1: arbitration only, one thread per lane, rows of L int32 lanes
+// B1: arbitration only, one thread per lane, every operand through strides
 // ---------------------------------------------------------------------------
+constexpr int ARB_LEAD = 4;     // lane dims (the caller's leading dims)
+constexpr int ARB_IN = 11, ARB_OUT = 7;
+constexpr int ARB_THREADS = 64;
+// element types of an operand (the wrapper's codes): 1-byte unsigned (bool,
+// uint8), int8, int16, int32, int64 (its low 32 bits, as .to(int32) keeps);
+// outputs are 1-byte bool or int32
+enum { T_U8, T_I8, T_I16, T_I32, T_I64, N_TYPES };
+// the operands, in fused.lane_arbitrate's order, then the outputs
+enum { I_VALID, I_CLS, I_OUT_PORT, I_RR, I_DOWN, I_EXISTS, I_GMASK, I_CMASK,
+       I_SA, I_ACCEPT, I_ACTIVE };
+enum { O_GRANT, O_WINNER, O_DOWN_VC, O_DEQ, O_NEW_RR, O_ANY_REQ, O_W_CLS };
+// what a packed descriptor holds (int64 words): the header, then 8 words an
+// operand (pointer, type, ARB_LEAD lane strides, the tail's two strides)
+enum { D_LANES, D_DEPTH, D_VCS, D_SIZE, D_HEADER = D_SIZE + ARB_LEAD };
+constexpr int D_OPERAND = 2 + ARB_LEAD + 2;
+
+// Element (lane, i, j) of an operand sits at
+//   ptr + sum_k lane_k * stride[k] + i * stride[ARB_LEAD] + j * stride[ARB_LEAD + 1]
+// elements: i is the tail's first index (the PV requester, the output port
+// or the VC), j its second (down_count's VC).  A broadcast dim has stride 0.
+struct Operand {
+  void* ptr;
+  long long stride[ARB_LEAD + 2];
+  int type;
+};
+
+struct ArbArgs {
+  Operand in[ARB_IN];
+  Operand out[ARB_OUT];
+  int size[ARB_LEAD];  // lane dims, row-major, padded with leading 1s
+  int lanes, depth;
+};
+
+// An operand's NI x NJ values of one lane, element (i, j) at base + i *
+// stride[ARB_LEAD] + j * stride[ARB_LEAD + 1], as int (an int64 keeps its
+// low 32 bits).  The element type is one branch per operand, outside the
+// loads, so that all of an operand's loads issue back to back and every
+// operand's are in flight before the arbitration uses any.
+template <class T, int NI, int NJ>
+__device__ __forceinline__ void load_as(const Operand& t, long long base,
+                                        int (&out)[NI * NJ]) {
+  const T* p = static_cast<const T*>(t.ptr) + base;
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      out[i * NJ + j] = static_cast<int>(
+          p[i * t.stride[ARB_LEAD] + j * t.stride[ARB_LEAD + 1]]);
+}
+
+template <int NI, int NJ = 1>
+__device__ __forceinline__ void load_operand(const Operand& t, long long base,
+                                             int (&out)[NI * NJ]) {
+  switch (t.type) {
+    case T_U8: load_as<unsigned char, NI, NJ>(t, base, out); break;
+    case T_I8: load_as<signed char, NI, NJ>(t, base, out); break;
+    case T_I16: load_as<short, NI, NJ>(t, base, out); break;
+    case T_I32: load_as<int, NI, NJ>(t, base, out); break;
+    default: load_as<long long, NI, NJ>(t, base, out); break;
+  }
+}
+
+// An output's N values of one lane (bool outputs are 0/1)
+template <int N>
+__device__ __forceinline__ void store_operand(const Operand& t,
+                                              long long base,
+                                              const int (&v)[N]) {
+  if (t.type == T_U8) {
+    unsigned char* p = static_cast<unsigned char*>(t.ptr) + base;
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      p[i * t.stride[ARB_LEAD]] = static_cast<unsigned char>(v[i]);
+  } else {
+    int* p = static_cast<int*>(t.ptr) + base;
+#pragma unroll
+    for (int i = 0; i < N; ++i) p[i * t.stride[ARB_LEAD]] = v[i];
+  }
+}
+
+// the operand's offset of a lane, from its index over the lane dims
+__device__ __forceinline__ long long lane_offset(const Operand& t,
+                                                 const int (&idx)[ARB_LEAD]) {
+  long long o = 0;
+#pragma unroll
+  for (int k = 0; k < ARB_LEAD; ++k) o += idx[k] * t.stride[k];
+  return o;
+}
+
 template <int V>
-__global__ void noc_arbitrate_kernel(
-    const int* __restrict__ valid, const int* __restrict__ cls,
-    const int* __restrict__ out_port, const int* __restrict__ rr,
-    const int* __restrict__ down, const int* __restrict__ exists,
-    const int* __restrict__ gmask, const int* __restrict__ cmask,
-    const int* __restrict__ sa, const int* __restrict__ accept,
-    const int* __restrict__ active, int depth, int L,
-    int* __restrict__ o_grant, int* __restrict__ o_winner,
-    int* __restrict__ o_down_vc, int* __restrict__ o_deq,
-    int* __restrict__ o_new_rr, int* __restrict__ o_any_req,
-    int* __restrict__ o_w_cls) {
+__global__ void __launch_bounds__(ARB_THREADS)
+noc_arbitrate_kernel(const __grid_constant__ ArbArgs g) {
   constexpr int PV = P * V;
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= L) return;
-  const int sa_l = sa[l];
-  int cl[PV];
+  const int l = blockIdx.x * ARB_THREADS + threadIdx.x;
+  if (l >= g.lanes) return;
+  int idx[ARB_LEAD];
+  int rem = l;
+#pragma unroll
+  for (int k = ARB_LEAD - 1; k >= 0; --k) {
+    idx[k] = rem % g.size[k];
+    rem /= g.size[k];
+  }
+  // every operand of the lane first, then the arbitration
+  int va[PV], cl[PV], op[PV], r[P], dn[P * V], exv[P], gmv[V], cmv[V],
+      sa[1], acc[1], act[1];
+  load_operand<PV>(g.in[I_VALID], lane_offset(g.in[I_VALID], idx), va);
+  load_operand<PV>(g.in[I_CLS], lane_offset(g.in[I_CLS], idx), cl);
+  load_operand<PV>(g.in[I_OUT_PORT], lane_offset(g.in[I_OUT_PORT], idx), op);
+  load_operand<P>(g.in[I_RR], lane_offset(g.in[I_RR], idx), r);
+  load_operand<P, V>(g.in[I_DOWN], lane_offset(g.in[I_DOWN], idx), dn);
+  load_operand<P>(g.in[I_EXISTS], lane_offset(g.in[I_EXISTS], idx), exv);
+  load_operand<V>(g.in[I_GMASK], lane_offset(g.in[I_GMASK], idx), gmv);
+  load_operand<V>(g.in[I_CMASK], lane_offset(g.in[I_CMASK], idx), cmv);
+  load_operand<1>(g.in[I_SA], lane_offset(g.in[I_SA], idx), sa);
+  load_operand<1>(g.in[I_ACCEPT], lane_offset(g.in[I_ACCEPT], idx), acc);
+  load_operand<1>(g.in[I_ACTIVE], lane_offset(g.in[I_ACTIVE], idx), act);
+
   unsigned planes[2] = {0, 0}, req[P], space[P] = {}, pref = 0, ex = 0,
            gm = 0, cm = 0;
 #pragma unroll
   for (int i = 0; i < PV; ++i) {
-    cl[i] = cls[i * L + l];
-    const int op = out_port[i * L + l];
-    const int va = valid[i * L + l] != 0;
-    add_code(planes, i, va && op >= 0 && op < P ? op : 7u);
-    pref |= static_cast<unsigned>(cl[i] == sa_l) << i;
+    add_code(planes, i, va[i] != 0 && op[i] >= 0 && op[i] < P ? op[i] : 7u);
+    pref |= static_cast<unsigned>(cl[i] == sa[0]) << i;
   }
-  if (sa_l < 0) pref = (1u << PV) - 1;
+  if (sa[0] < 0) pref = (1u << PV) - 1;
   requests(planes, req);
-  int r[P], rot[P];
+  int rot[P];
 #pragma unroll
   for (int o = 0; o < P; ++o) {
-    r[o] = rr[o * L + l];
     rot[o] = floor_mod(r[o], PV);
-    ex |= static_cast<unsigned>(exists[o * L + l] != 0) << o;
+    ex |= static_cast<unsigned>(exv[o] != 0) << o;
 #pragma unroll
     for (int v = 0; v < V; ++v)
-      space[o] |= static_cast<unsigned>(down[(o * V + v) * L + l] < depth) << v;
+      space[o] |= static_cast<unsigned>(dn[o * V + v] < g.depth) << v;
   }
 #pragma unroll
   for (int v = 0; v < V; ++v) {
-    gm |= static_cast<unsigned>(gmask[v * L + l] != 0) << v;
-    cm |= static_cast<unsigned>(cmask[v * L + l] != 0) << v;
+    gm |= static_cast<unsigned>(gmv[v] != 0) << v;
+    cm |= static_cast<unsigned>(cmv[v] != 0) << v;
   }
   auto cls_of = [&](int, int w) {
     int c = cl[0];
@@ -262,19 +365,25 @@ __global__ void noc_arbitrate_kernel(
     return c;
   };
   Arb<V> a;
-  lane_arbitrate<V>(req, pref, r, rot, space, ex, gm, cm, accept[l] != 0,
-                    active[l] != 0, cls_of, a);
+  lane_arbitrate<V>(req, pref, r, rot, space, ex, gm, cm, acc[0] != 0,
+                    act[0] != 0, cls_of, a);
+  int grant[P], any[P], deq[PV];
 #pragma unroll
   for (int o = 0; o < P; ++o) {
-    o_grant[o * L + l] = (a.grant >> o) & 1;
-    o_winner[o * L + l] = a.winner[o];
-    o_down_vc[o * L + l] = a.down_vc[o];
-    o_new_rr[o * L + l] = a.new_rr[o];
-    o_any_req[o * L + l] = (a.any >> o) & 1;
-    o_w_cls[o * L + l] = a.w_cls[o];
+    grant[o] = (a.grant >> o) & 1;
+    any[o] = (a.any >> o) & 1;
   }
 #pragma unroll
-  for (int i = 0; i < PV; ++i) o_deq[i * L + l] = (a.deq >> i) & 1;
+  for (int i = 0; i < PV; ++i) deq[i] = (a.deq >> i) & 1;
+  const Operand* out = g.out;
+  store_operand<P>(out[O_GRANT], lane_offset(out[O_GRANT], idx), grant);
+  store_operand<P>(out[O_WINNER], lane_offset(out[O_WINNER], idx), a.winner);
+  store_operand<P>(out[O_DOWN_VC], lane_offset(out[O_DOWN_VC], idx),
+                   a.down_vc);
+  store_operand<PV>(out[O_DEQ], lane_offset(out[O_DEQ], idx), deq);
+  store_operand<P>(out[O_NEW_RR], lane_offset(out[O_NEW_RR], idx), a.new_rr);
+  store_operand<P>(out[O_ANY_REQ], lane_offset(out[O_ANY_REQ], idx), any);
+  store_operand<P>(out[O_W_CLS], lane_offset(out[O_W_CLS], idx), a.w_cls);
 }
 
 // ---------------------------------------------------------------------------
@@ -1049,17 +1158,6 @@ __global__ void __launch_bounds__(S * R_PAD + LANES_R - R_PAD, 1)
                               static_cast<unsigned>(s_cnt[t]));
 }
 
-template <int V>
-void launch_arbitrate(const int* const* in, int depth, int L, int* const* out,
-                      cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (L + threads - 1) / threads;
-  noc_arbitrate_kernel<V><<<blocks, threads, 0, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      in[10], depth, L, out[0], out[1], out[2], out[3], out[4], out[5],
-      out[6]);
-}
-
 template <int S, bool PROBE, bool CLOCKS>
 int launch_lanes(const CycleArgs& args, int batch, void* stream) {
   const Smem lay(4, 4, S * R_PAD, args.R, args.Q);
@@ -1097,25 +1195,37 @@ int launch_fused(const CycleArgs& args, int batch, int V, int B,
 
 extern "C" {
 
-// Inputs (11 pointers, rows x L int32 in fused.lane_arbitrate's order:
-// valid, cls, out_port, rr, down, exists, gmask, cmask, sa, accept,
-// active) and outputs (7 pointers: grant, winner, down_vc, deq, new_rr,
-// any_req, w_cls).  Returns cudaGetLastError(), or cudaErrorInvalidValue
-// for a VC count without an instantiation.
-int noc_arbitrate(const int* valid, const int* cls, const int* out_port,
-                  const int* rr, const int* down, const int* exists,
-                  const int* gmask, const int* cmask, const int* sa,
-                  const int* accept, const int* active, int depth, int n_vcs,
-                  int L, int* grant, int* winner, int* down_vc, int* deq,
-                  int* new_rr, int* any_req, int* w_cls, void* stream) {
-  const int* in[11] = {valid, cls, out_port, rr, down, exists,
-                       gmask, cmask, sa, accept, active};
-  int* out[7] = {grant, winner, down_vc, deq, new_rr, any_req, w_cls};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// B1 on a packed descriptor (ArbArgs' layout above: D_HEADER header words,
+// then D_OPERAND words for each of the 11 operands in fused.lane_arbitrate's
+// order and the 7 outputs grant, winner, down_vc, deq, new_rr, any_req,
+// w_cls).  Returns cudaGetLastError(), or cudaErrorInvalidValue for a VC
+// count without an instantiation, no lanes, a lane dim below 1 or an
+// element type the kernel does not read (write).
+int noc_arbitrate(const long long* desc, void* stream) {
   // Only the paper's V=4 is instantiated: a further instantiation is added
   // together with an on-card check of it.
-  if (n_vcs != 4) return static_cast<int>(cudaErrorInvalidValue);
-  launch_arbitrate<4>(in, depth, L, out, st);
+  if (desc[D_VCS] != 4 || desc[D_LANES] < 1 || desc[D_LANES] > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  ArbArgs g;
+  g.lanes = static_cast<int>(desc[D_LANES]);
+  g.depth = static_cast<int>(desc[D_DEPTH]);
+  for (int k = 0; k < ARB_LEAD; ++k) {
+    if (desc[D_SIZE + k] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    g.size[k] = static_cast<int>(desc[D_SIZE + k]);
+  }
+  for (int t = 0; t < ARB_IN + ARB_OUT; ++t) {
+    const long long* d = desc + D_HEADER + t * D_OPERAND;
+    Operand& op = t < ARB_IN ? g.in[t] : g.out[t - ARB_IN];
+    op.ptr = reinterpret_cast<void*>(d[0]);
+    op.type = static_cast<int>(d[1]);
+    for (int s = 0; s < ARB_LEAD + 2; ++s) op.stride[s] = d[2 + s];
+    const bool ok = t < ARB_IN ? op.type >= 0 && op.type < N_TYPES
+                               : op.type == T_U8 || op.type == T_I32;
+    if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = (g.lanes + ARB_THREADS - 1) / ARB_THREADS;
+  noc_arbitrate_kernel<4><<<blocks, ARB_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,8 +6,10 @@ and `noc_fused_cycles_probed` (B3) replaces ::_fused_cycle_probed_kernel.
 `noc_fused_cycles_clocked` launches B2's clocked development
 instantiation, which returns per-stage clock sums (nothing on a main path
 calls it).
-Each checks device, dtype, shape and contiguity, launch on PyTorch's current
-stream without synchronising, and raise if the launch reports a CUDA
+B2/B3 check device, dtype, shape and contiguity; B1 takes its operands
+through strides (`arb_desc`, fed by ops.py) and checks device, element
+type and the number of lane dims.  Each launches on PyTorch's current
+stream without synchronising and raises if the launch reports a CUDA
 error.  The library is built at first call (`repro_torch.kernels._build`),
 never at import.
 """
@@ -15,12 +17,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 from pathlib import Path
 
 import torch
 
+from repro_torch._util import raw_stream
 from repro_torch.kernels import _build
 from repro_torch.kernels.noc_cycle import fused
+from repro_torch.kernels.noc_cycle.ops import LAUNCHES
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "noc_cycle.cu"]
 # the instantiated shapes: the paper's V=4 VCs of depth B=4 (the plain
@@ -35,7 +40,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def library() -> ctypes.CDLL:
     """Build (first call) and load the noc_cycle library."""
     lib = _build.load_library("noc_cycle", SOURCES)
-    lib.noc_arbitrate.argtypes = [_P] * 11 + [_I] * 3 + [_P] * 7 + [_P]
+    lib.noc_arbitrate.argtypes = [ctypes.c_char_p, _P]
     lib.noc_arbitrate.restype = _I
     lib.noc_fused_cycles.argtypes = [_I] * 12 + [_P] * 19 + [_P]
     lib.noc_fused_cycles.restype = _I
@@ -62,34 +67,66 @@ def _raise_on(rc: int, what: str):
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")
 
 
-def noc_arbitrate(
-    valid, cls, out_port, rr, down, exists, gmask, cmask, sa, accept,
-    active, *, depth: int,
-) -> tuple[torch.Tensor, ...]:
-    """B1 over (rows, L) int32 lane arrays (0/1 for the boolean rows).
-    Returns (grant, winner, down_vc, deq, new_rr, any_req, w_cls)."""
-    pv, L = valid.shape
-    o = rr.shape[0]
-    v = gmask.shape[0]
-    if v not in ARB_VCS or pv != o * v:
-        raise ValueError(f"noc_arbitrate has no instantiation for V={v}, "
-                         f"PV={pv}, O={o}")
-    ins = [valid, cls, out_port, rr, down, exists, gmask, cmask, sa, accept,
-           active]
-    rows = [pv, pv, pv, o, o * v, o, v, v, 1, 1, 1]
-    names = ["valid", "cls", "out_port", "rr", "down", "exists", "gmask",
-             "cmask", "sa", "accept", "active"]
-    for n, x, r in zip(names, ins, rows):
-        _check(n, x, (r, L))
-    outs = [torch.empty((r, L), dtype=torch.int32, device=valid.device)
-            for r in (o, o, o, pv, o, o, o)]
-    stream = torch.cuda.current_stream(valid.device).cuda_stream
-    rc = library().noc_arbitrate(
-        *(x.data_ptr() for x in ins), depth, v, L,
-        *(x.data_ptr() for x in outs), stream,
-    )
+# B1's operand descriptor (noc_cycle.cu's ArbArgs, packed as int64 words):
+# element-type codes, the lane dims it takes, and the packed layout
+ARB_TYPES = {torch.bool: 0, torch.uint8: 0, torch.int8: 1, torch.int16: 2,
+             torch.int32: 3, torch.int64: 4}
+ARB_OUT_CODES = (0, 3)          # outputs: bool (or uint8), int32
+ARB_IN, ARB_OUT, ARB_LEAD = 11, 7, 4
+D_HEADER = 3 + ARB_LEAD         # lanes, depth, V, the lane dims
+D_OPERAND = 2 + ARB_LEAD + 2    # pointer, type, lane strides, tail strides
+
+
+def arb_desc(lead, operands, *, depth: int, n_vcs: int) -> list[int]:
+    """B1's descriptor as the int64 words the kernel reads (ArbArgs).
+
+    ``lead`` is the lane dims (row-major; lanes = their product);
+    ``operands`` the 11 inputs in fused.lane_arbitrate's order and then the
+    7 outputs (grant, winner, down_vc, deq, new_rr, any_req, w_cls), each a
+    (tensor, strides) pair whose strides, in elements, run over ``lead``
+    and then the tail's two dims: element (lane, i, j) is at data_ptr + the
+    dot product of (lane index, i, j) with the strides, where i is the
+    requester (P*V), output port or VC and j is down_count's VC.  A
+    broadcast dim has stride 0.  The words are: lanes, depth, V, the lane
+    dims padded with leading 1s to ARB_LEAD; then per operand its pointer,
+    type code, ARB_LEAD lane strides (leading 0s) and two tail strides.
+    All operands must lie on one device (any device: the CPU tests read
+    the words too)."""
+    if n_vcs not in ARB_VCS:
+        raise ValueError(f"noc_arbitrate has no instantiation for V={n_vcs}")
+    n_lead = len(lead)
+    if n_lead > ARB_LEAD:
+        raise ValueError(f"noc_arbitrate takes at most {ARB_LEAD} lane dims, "
+                         f"got {tuple(lead)}")
+    lanes = 1
+    for n in lead:
+        lanes *= n
+    pad = (0,) * (ARB_LEAD - n_lead)
+    words = [lanes, depth, n_vcs, *((1,) * (ARB_LEAD - n_lead)), *lead]
+    dev = operands[0][0].get_device()
+    for k, (t, strides) in enumerate(operands):
+        code = ARB_TYPES.get(t.dtype)
+        if (code is None or t.get_device() != dev
+                or (k >= ARB_IN and code not in ARB_OUT_CODES)):
+            raise ValueError(
+                f"noc_arbitrate operand {k} is {t.dtype} on {t.device}; it "
+                f"takes bool or integer tensors on one device (outputs bool "
+                f"or int32)")
+        words += (t.data_ptr(), code, *pad, *strides)
+    return words
+
+
+def noc_arbitrate(words: list[int], device: torch.device) -> None:
+    """B1: one launch on the descriptor ``words`` (`arb_desc`) of operands
+    on the CUDA ``device``, writing the outputs in place.  The outputs must
+    not overlap the operands."""
+    if device.type != "cuda":
+        raise ValueError(f"noc_arbitrate operands must be CUDA tensors, got "
+                         f"{device}")
+    rc = library().noc_arbitrate(struct.pack(f"{len(words)}q", *words),
+                                 raw_stream(device))
     _raise_on(rc, "noc_arbitrate")
-    return tuple(outs)
+    LAUNCHES["noc_arbitrate"] += 1
 
 
 def _fused_args(

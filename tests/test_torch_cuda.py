@@ -23,26 +23,213 @@ def _need_cuda():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
 
 
-@pytest.mark.cuda
-def test_arbitration_kernel_matches_plain():
-    _need_cuda()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    L, PV, V = 256, 20, 4
-
+def _lane_rows(g, L=256, PV=20, V=4):
+    """Random (rows, L) int32 lane rows in fused.lane_arbitrate's order."""
     def ri(lo, hi, rows):
         return torch.randint(lo, hi, (rows, L), generator=g, device="cuda",
                              dtype=torch.int32)
 
+    return (ri(0, 2, PV), ri(0, 2, PV), ri(0, 5, PV), ri(0, PV, 5),
+            ri(0, 5, PV), ri(0, 2, 5), ri(0, 2, V), ri(0, 2, V),
+            ri(-1, 2, 1), ri(0, 2, 1), ri(0, 2, 1))
+
+
+@pytest.mark.cuda
+def test_arbitration_kernel_matches_plain():
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(4):
-        ins = (ri(0, 2, PV), ri(0, 2, PV), ri(0, 5, PV), ri(0, PV, 5),
-               ri(0, 5, PV), ri(0, 2, 5), ri(0, 2, V), ri(0, 2, V),
-               ri(-1, 2, 1), ri(0, 2, 1), ri(0, 2, 1))
+        ins = _lane_rows(g)
         k = ops.arbitrate_rows(*ins, depth=4)
         v, c, o, rr, dn, ex, gm, cm, sa, acc, act = ins
         p = fused.lane_arbitrate(v != 0, c, o, rr, dn, ex != 0, gm != 0,
                                  cm != 0, sa, acc != 0, act != 0, depth=4)
         for name, a, b in zip(fused.LaneArb._fields, k, p):
             assert torch.equal(a.to(torch.int32), b.to(torch.int32)), name
+
+
+def _dense_operands(seed, dev="cuda"):
+    """The 11 operands `router.router_cycle` hands its arbitration function
+    for one cycle of a random dense state on the card: bool and int32
+    tensors, broadcast views among them."""
+    from repro_torch.core.noc import router as rt
+    from repro_torch.core.noc.topology import make_topology
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S, R, P, V, B = 4, 36, 5, 4, 4
+
+    def ri(hi, shape, dtype=torch.int32):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    shape = (S, R, P, V)
+    meta = ri(R, shape + (B,)) + (ri(R, shape + (B,)) << 6) \
+        + (ri(2, shape + (B,)) << 12)
+    state = rt.SubnetState(
+        buf_meta=meta.to(torch.int16), buf_binj=ri(5000, shape + (B,)),
+        head=ri(B, shape, torch.int8), count=ri(B + 1, shape, torch.int8),
+        rr_ptr=ri(P * V, (S, R, P), torch.int8))
+    seen = []
+
+    def record(*args, depth):
+        seen.append((args, depth))
+        return rt.arbitrate(*args, depth=depth)
+
+    rt.router_cycle(
+        state, *rt.device_tables(make_topology(), dev)[:3],
+        ri(2, (S, V)) != 0, ri(2, (S, V)) != 0,
+        torch.tensor(seed % 3 - 1, dtype=torch.int32, device=dev),
+        ri(5, (S, R)) != 0, torch.tensor([True, True, False, True],
+                                         device=dev),
+        arbitrate_fn=record, link_ok=ri(10, (R, P)) != 0,
+        router_ok=ri(10, (R,)) != 0)
+    (args, depth), = seen
+    return args, depth
+
+
+def _launches(fn, n):
+    """``n`` calls of ``fn`` under torch.profiler: the kernel launches the
+    host made (its launch calls on the CPU side) and the names of the
+    device kernels recorded (the card's tracing can drop device records; a
+    session that records fewer kernels than launches is run again, up to
+    three times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        launches = sum(1 for e in prof.events()
+                       if e.device_type == DeviceType.CPU
+                       and "LaunchKernel" in e.name)
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if len(names) >= launches:
+            break
+    return launches, names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_arbitrate_lanes_kernel_matches_plain_on_dense_operands(seed):
+    """B1's dense entry on router_cycle's own operands (expanded views,
+    bool and int32), and on the same values as int8 / uint8 / int64 and
+    non-contiguous views, against `router.arbitrate` on the card, bitwise,
+    in its shapes and dtypes; one launch a call."""
+    _need_cuda()
+    from repro_torch.core.noc import router as rt
+
+    args, depth = _dense_operands(seed)
+    va, cl, op, rr, dn, ex, gm, cm, sa, acc, act = args
+    S, R = va.shape[:2]
+    want = rt.arbitrate(*args, depth=depth)
+    variants = [args, (
+        va.to(torch.uint8), cl.to(torch.int8), op.to(torch.int64),
+        rr.to(torch.int8), dn.to(torch.int8).transpose(0, 1).contiguous()
+        .transpose(0, 1), ex.to(torch.int8), gm.expand(S, R, 4), cm,
+        sa[0, 0], acc.to(torch.uint8), act)]
+    for k, ins in enumerate(variants):
+        ops.reset_launches()
+        got = ops.arbitrate_lanes(*ins, depth=depth)
+        assert ops.LAUNCHES["noc_arbitrate"] == 1
+        for name, a, b in zip(want._fields, got, want):
+            assert a.dtype == b.dtype and a.shape == b.shape, (k, name)
+            assert torch.equal(a, b), (k, name)
+
+
+@pytest.mark.cuda
+def test_arbitrate_entry_points_are_one_kernel_each():
+    """`arbitrate_lanes` on the dense operands and `arbitrate_rows` on lane
+    rows each run exactly one device kernel a call, B1's, and count one
+    launch a call."""
+    _need_cuda()
+    args, depth = _dense_operands(3)
+    rows = _lane_rows(torch.Generator(device="cuda").manual_seed(3))
+    for fn in (lambda: ops.arbitrate_lanes(*args, depth=depth),
+               lambda: ops.arbitrate_rows(*rows, depth=4)):
+        ops.reset_launches()
+        for _ in range(3):
+            fn()
+        assert ops.LAUNCHES["noc_arbitrate"] == 3
+        launches, names = _launches(fn, 5)
+        assert launches == 5 and names, (launches, names)
+        assert all("noc_arbitrate_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_arbitration_refuses_uninstantiated_vcs():
+    """V = 2 has no B1 instantiation: the wrappers raise on the card and
+    launch nothing (no fallback to the plain version)."""
+    _need_cuda()
+    args, depth = _dense_operands(4)
+    two = list(args)
+    two[0], two[1], two[2] = (x.reshape(*x.shape[:-1], 5, 4)[..., :2]
+                              .reshape(*x.shape[:-1], 10) for x in args[:3])
+    two[4], two[6], two[7] = args[4][..., :2], args[6][..., :2], \
+        args[7][..., :2]
+    rows = list(_lane_rows(torch.Generator(device="cuda").manual_seed(4)))
+    rows[0], rows[1], rows[2] = (x[:10] for x in rows[:3])
+    rows[4], rows[6], rows[7] = rows[4][:10], rows[6][:2], rows[7][:2]
+    ops.reset_launches()
+    with pytest.raises(ValueError, match="V=2"):
+        ops.arbitrate_lanes(*two, depth=depth)
+    with pytest.raises(ValueError, match="V=2"):
+        ops.arbitrate_rows(*rows, depth=4)
+    assert ops.LAUNCHES["noc_arbitrate"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m", [(7, 3), (1000, 5), (65_536, 3)])
+def test_fleet_epoch_is_one_launch_equal_to_plain(n, m):
+    """FleetKF.epoch on the card (B4 with the signal fused in) against
+    `kf_bank_epoch_plain` on the card over 5 epochs, bitwise in x, p and
+    the signals; one launch and one device kernel an epoch; the previous
+    x and p are left as they were."""
+    _need_cuda()
+    from repro_torch.dist.kf_scheduler import FleetKF, SchedulerConfig
+    from repro_torch.kernels.kf_bank import ops as kf_ops
+
+    g = torch.Generator(device="cuda").manual_seed(n + m)
+    cfg = SchedulerConfig(kf_q=3e-3, kf_r=2e-1)
+    fleet = FleetKF(n, cfg, h=tuple(0.5 + 0.25 * k for k in range(m)))
+    x, p = fleet.x, fleet.p
+    kf_ops.reset_launches()
+    for t in range(5):
+        z = 0.7 * torch.randn((n, m), generator=g, device="cuda")
+        x0, p0 = fleet.x.clone(), fleet.p.clone()
+        held = fleet.x
+        sig = fleet.epoch(z)
+        assert kf_ops.LAUNCHES["kf_bank"] == t + 1
+        assert torch.equal(held, x0) and fleet.x.data_ptr() != x0.data_ptr()
+        x, p, want = kf_ops.kf_bank_epoch_plain(x, p, z, fleet.h, fleet.r,
+                                                a=1.0, q=cfg.kf_q)
+        assert sig.dtype == torch.int32 and torch.equal(sig, want), t
+        assert torch.equal(fleet.x, x) and torch.equal(fleet.p, p), t
+        assert not torch.equal(fleet.p, p0), t
+    z = torch.randn((n, m), generator=g, device="cuda")
+    launches, names = _launches(lambda: fleet.epoch(z), 4)
+    assert launches == 4 and names, (launches, names)
+    assert all("kf_bank_kernel" in k for k in names), names
+
+
+@pytest.mark.cuda
+def test_fleet_epoch_refuses_a_misshapen_observation():
+    _need_cuda()
+    from repro_torch.dist.kf_scheduler import FleetKF
+    from repro_torch.kernels.kf_bank import ops as kf_ops
+
+    fleet = FleetKF(64)
+    kf_ops.reset_launches()
+    for z in (torch.zeros((64, 4), device="cuda"),
+              torch.zeros((3, 64), device="cuda").T):
+        with pytest.raises(ValueError, match="z must be"):
+            fleet.epoch(z)
+    assert kf_ops.LAUNCHES["kf_bank"] == 0
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from repro.dist import kf_scheduler as jks
 from repro.dist import telemetry as jtel
 from repro.kernels.kf_bank import ops as jops
 from repro.kernels.kf_bank import ref as jref
+from repro_torch.core import kalman as tkalman
 from repro_torch.dist import kf_scheduler as tks
 from repro_torch.dist import telemetry as ttel
 from repro_torch.kernels.kf_bank import ops as tops
@@ -96,6 +97,51 @@ def test_fleet_kf_matches_jax(n):
         np.testing.assert_allclose(tf.p.numpy(), np.asarray(jf.p), **BANK)
         flips += int((ts.numpy() != (tf.x.numpy() > 0)).sum())
     assert flips == 0
+
+
+@pytest.mark.parametrize("n", [7, 1000, 1025])
+@pytest.mark.parametrize("m", [3, 5])
+def test_fleet_kf_epochs_match_jax(n, m):
+    """FleetKF on the CPU (the card epoch's plain route,
+    `kf_bank_epoch_plain`) against the JAX FleetKF over 6 epochs.
+
+    Tolerances: the signals and p bitwise; x within atol 1e-6 / rtol 1e-6
+    (BANK): XLA:CPU contracts the innovation sum into fused multiply-adds,
+    about an ulp of its largest term (ROADMAP C).  p is bitwise because
+    FleetKF's h is all ones and a = 1: every product in p's update is exact,
+    so a contraction cannot move it."""
+    cfg_j = jks.SchedulerConfig(kf_q=3e-3, kf_r=2e-1)
+    cfg_t = tks.SchedulerConfig(kf_q=3e-3, kf_r=2e-1)
+    h = (1.0,) * m
+    jf = jks.FleetKF(n, cfg_j, h=h)
+    tf = tks.FleetKF(n, cfg_t, h=h, device="cpu")
+    zs = np.random.default_rng(n + m).normal(0, 0.7, (6, n, m))
+    zs = zs.astype(np.float32)
+    boosted = 0
+    for t in range(6):
+        js = np.asarray(jf.epoch(jnp.asarray(zs[t])))
+        ts = tf.epoch(torch.from_numpy(zs[t]))
+        assert ts.dtype == torch.int32 and ts.shape == (n,)
+        np.testing.assert_array_equal(ts.numpy(), js, err_msg=f"epoch {t}")
+        np.testing.assert_array_equal(tf.p.numpy(), np.asarray(jf.p),
+                                      err_msg=f"p at epoch {t}")
+        np.testing.assert_allclose(tf.x.numpy(), np.asarray(jf.x), **BANK)
+        boosted += int(ts.sum())
+    assert 0 < boosted < 6 * n
+
+
+def test_epoch_plain_is_step_then_signal():
+    """`kf_bank_epoch_plain` = `kf_bank_step_plain`, then x_post > 0 as
+    int32 (`kalman.binarize` at threshold 0), and it leaves its inputs
+    alone."""
+    ins = [torch.from_numpy(x) for x in _bank_inputs(257, 3, seed=5)]
+    keep = [t.clone() for t in ins]
+    x, p, sig = tops.kf_bank_epoch_plain(*ins, a=0.9, q=1e-2)
+    sx, sp = tops.kf_bank_step_plain(*ins, a=0.9, q=1e-2)
+    assert torch.equal(x, sx) and torch.equal(p, sp)
+    assert sig.dtype == torch.int32
+    assert torch.equal(sig, tkalman.binarize(sx))
+    assert all(torch.equal(a, b) for a, b in zip(ins, keep))
 
 
 def _telemetries():
