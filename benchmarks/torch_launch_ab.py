@@ -27,6 +27,13 @@ What it measures, through the public entry points that both trees have:
             500 cycles for the four cases of chip_smoke.py's phase 4, and
             a digest of each run's counters (equal between trees that
             agree)
+            (--epochs 0 skips it)
+  paper     the wall of one paper-grid simulate (kf, SHIFT_PATH_BFS, 120 x
+            500 cycles, fused engine; median of 3) on a seeded
+            torch.Generator's streams (counters equal between trees that
+            agree) and on the tree's default streams, and one such run
+            under torch.profiler: kernels launched, device records, their
+            device ms and B2's
 """
 from __future__ import annotations
 
@@ -144,7 +151,7 @@ def measure(src: str, epochs: int, tag: str) -> dict:
              ("4subnet", sim.NoCConfig(mode="4subnet", **short), "STO"),
              ("fair", sim.NoCConfig(mode="fair", **short), "STO"))
     engine = {}
-    for label, c, wl in cases:
+    for label, c, wl in cases if epochs > 0 else ():
         ops.reset_launches()
         torch.cuda.synchronize()
         t0 = time.time()
@@ -157,6 +164,34 @@ def measure(src: str, epochs: int, tag: str) -> dict:
             launches=ops.LAUNCHES["noc_arbitrate"],
             digest=[int(x.to(torch.int64).sum()) for x in res.counters])
     out["engine"] = engine
+
+    # one paper-grid run (kf on SHIFT_PATH_BFS, 120 x 500 cycles) through
+    # the fused engine: with a seeded torch.Generator (the same streams in
+    # both trees) and with the tree's default streams
+    paper = {}
+    for label, rng in (("generator", True), ("default", False)):
+        def run_once():
+            return sim.simulate(
+                sim.NoCConfig(mode="kf"), "SHIFT_PATH_BFS", device=dev,
+                rng=torch.Generator(device=dev).manual_seed(cs.SEED)
+                if rng else None)
+
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res = run_once()
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+        # one run under torch.profiler: the device's busy ms, B2's share
+        launches, recs = cs.device_launches(run_once, 1)
+        paper[label] = dict(
+            wall_s=statistics.median(walls), walls_s=walls,
+            digest=[int(x.to(torch.int64).sum()) for x in res.counters],
+            launches=launches, records=len(recs),
+            dev_ms=sum(ms for _, ms in recs),
+            b2_dev_ms=sum(ms for k, ms in recs if "noc_fused" in k))
+    out["paper"] = paper
     return out
 
 
@@ -175,6 +210,12 @@ def summarize(rows: list[dict]) -> dict:
         for label in mine[0]["engine"]:
             med[f"engine {label} s"] = statistics.median(
                 r["engine"][label]["wall_s"] for r in mine)
+        for label in mine[0]["paper"]:
+            for f, unit in (("wall_s", "s"), ("dev_ms", "device ms"),
+                            ("b2_dev_ms", "B2 device ms"),
+                            ("launches", "launches")):
+                med[f"paper {label} {unit}"] = statistics.median(
+                    r["paper"][label][f] for r in mine)
         table[tag] = med
     return table
 
@@ -210,8 +251,8 @@ def main() -> int:
     for key in table["this"]:
         print(f"{key:40s} other {table['other'][key]:10.4f}  this "
               f"{table['this'][key]:10.4f}")
-    digests = {r["tag"]: {k: v["digest"] for k, v in r["engine"].items()}
-               for r in rows}
+    digests = {r["tag"]: ({k: v["digest"] for k, v in r["engine"].items()},
+                          r["paper"]["generator"]["digest"]) for r in rows}
     same = digests["this"] == digests["other"]
     print("device records complete in every profiled session: "
           + str(all(r[k]["complete"] for r in rows for k in

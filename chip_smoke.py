@@ -43,7 +43,20 @@ build/repro_torch/), then runs, each phase failing the script on error:
      and 120-epoch fault and placement streams through B3 (120 launches, no
      B2), its SimResult bitwise the untraced run's, and the recorder:
      TraceRecorder(observe=True).record_to an npz, RecordedTrace.load, and
-     the replay through simulate bitwise the untraced run;
+     the replay through simulate bitwise the untraced run; every run
+     draws the JAX package's threefry streams from its seed;
+  [sweep] the paper sweep on B2 at batch > 1: simulate_batch of {baseline,
+     fair, kf, 4subnet} x seeds {0, 1} at the full grid (exactly 120 B2
+     launches for the 8 rows), each row bitwise its standalone simulate;
+     the 60-row predictor ablation (benchmarks/torch_fig_ablation.py: 4
+     scenarios x 5 predictors x 3 seeds, 120 epochs) in one sweep under
+     threefry's original scheme, its 20 gpu_ipc cells within 2e-6 of the
+     JAX package's committed noc_ablation row in BENCH_noc.json (read-only)
+     and its gate (KF >= every naive predictor on SHIFT_PATH_BFS); the
+     gate scenario under the default scheme, its kf cell within 2e-6 of
+     the reference's 0.735548; the ablation's wall and aggregate simulated
+     cycles/s, B2's ms per launch at batch 60 beside batch 1, and the time
+     to draw one paper run's streams;
   [B4] the KF bank kernel (kf_bank) against its plain version, bitwise,
      at n = 7 ... 1,048,576 filters and M = 3, 5 observations, in its step
      form and its epoch form (the boost signal fused in, against
@@ -565,6 +578,216 @@ def rel_l2(a, b) -> float:
     a, b = a.to(torch.float64).cpu(), b.to(torch.float64).cpu()
     return float(torch.linalg.vector_norm(a - b)
                  / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+# the JAX package's committed predictor-ablation row (read-only) and the
+# kf cell of its gate scenario under jax 0.9.0's default threefry setting
+# (the JAX package's sweep on the CPU reads it); both within ABL_TOL
+ABLATION_BENCH = "noc_ablation"
+ABL_KF_PARTITIONABLE = 0.735548
+ABL_TOL = 2e-6
+
+
+def phase_sweep(dev) -> dict:
+    """[sweep] the paper sweep through simulate_batch / sweep on B2: (a) 8
+    rows {baseline, fair, kf, 4subnet} x seeds {0, 1} at the full grid in
+    one simulate_batch, exactly 120 B2 launches, each row bitwise its
+    standalone simulate; (b) the 60-row predictor ablation (4 scenarios x 5
+    predictors x 3 seeds, 120 epochs) in one sweep with threefry's original
+    scheme, its 20 gpu_ipc cells against BENCH_noc.json's committed row and
+    its gate; (c) the gate scenario under the default (partitionable)
+    scheme, its kf cell against the reference's reading; (d) B2 per launch
+    at batch 60 beside batch 1 (turns 1, 60, 60, 1) and the time to draw
+    one paper run's streams.  Returns B2's launches on these paths and the
+    timings."""
+    import torch
+
+    from benchmarks import torch_fig_ablation as abl
+    from repro_torch._util import tree_map
+    from repro_torch.core import threefry
+    from repro_torch.core.noc import sim
+    from repro_torch.kernels.noc_cycle import fused, kernel, ops
+
+    out = {}
+    # (a) batch == standalone, bitwise, one launch an epoch for 8 rows
+    rows = [(m, s) for m in ("baseline", "fair", "kf", "4subnet")
+            for s in (0, 1)]
+    cfgs = [sim.NoCConfig(mode=m, seed=s) for m, s in rows]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    batch = sim.simulate_batch(cfgs, "SHIFT_PATH_BFS")
+    torch.cuda.synchronize()
+    wall_a = time.time() - t0
+    n_a = ops.LAUNCHES["noc_fused_cycles"]
+    check(n_a == cfgs[0].n_epochs and ops.LAUNCHES["noc_arbitrate"] == 0
+          and ops.LAUNCHES["noc_fused_cycles_probed"] == 0,
+          f"simulate_batch of 8 rows launched {ops.LAUNCHES}, expected "
+          f"{cfgs[0].n_epochs} of B2")
+    t0 = time.time()
+    for b, cfg in enumerate(cfgs):
+        alone = sim.simulate(cfg, "SHIFT_PATH_BFS")
+        diff = results_equal(tree_map(lambda x: x[b], batch), alone)
+        check(diff is None, f"simulate_batch row {rows[b]} differs from its "
+                            f"standalone simulate at {diff}")
+    wall_alone = time.time() - t0
+    print(f"[sweep] (a) simulate_batch of {len(cfgs)} rows {rows} on "
+          f"SHIFT_PATH_BFS, 120x500: {n_a} B2 launches, wall {wall_a:.2f} s; "
+          f"every row bitwise its standalone simulate in every SimResult "
+          f"field (8 standalone runs {wall_alone:.2f} s)")
+    sys.stdout.flush()
+
+    # (b) the ablation grid, original scheme, against the committed row
+    with open(os.path.join(HERE, "BENCH_noc.json")) as f:
+        bench = [r for r in json.load(f) if r.get("bench") == ABLATION_BENCH]
+    check(len(bench) == 1, f"BENCH_noc.json holds {len(bench)} "
+                           f"{ABLATION_BENCH} rows, expected 1")
+    want = bench[0]["gpu_ipc"]
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with threefry.threefry_partitionable(False):
+        res = abl.run()
+    torch.cuda.synchronize()
+    wall_b = time.time() - t0
+    n_b = ops.LAUNCHES["noc_fused_cycles"]
+    check(n_b == 120 and res["rows"] == 60,
+          f"the ablation sweep launched B2 {n_b} times for {res['rows']} rows,"
+          f" expected 120 for 60")
+    worst = 0.0
+    for sc, cells in want.items():
+        for p, v in cells.items():
+            got = res["table"][sc][p]["gpu_ipc"]
+            worst = max(worst, abs(got - v))
+            check(abs(got - v) <= ABL_TOL,
+                  f"ablation {sc}/{p}: gpu_ipc {got:.7f}, BENCH_noc.json "
+                  f"{v} (|diff| {abs(got - v):.2e} > {ABL_TOL})")
+    verdict = abl.kf_verdict(res["table"])
+    check(verdict["kf_beats_all"], f"ablation gate failed: {verdict}")
+    cycles_b = res["rows"] * 120 * 500
+    print(f"[sweep] (b) ablation {res['rows']} rows (4 scenarios x 5 "
+          f"predictors x 3 seeds) x 120x500 in one sweep, threefry original "
+          f"scheme: {n_b} B2 launches, wall {wall_b:.3f} s, "
+          f"{cycles_b / wall_b:.0f} simulated cycles/s in aggregate; 20 of "
+          f"20 gpu_ipc cells within {ABL_TOL} of BENCH_noc.json (max |diff| "
+          f"{worst:.2e}); gate holds: {verdict}")
+    sys.stdout.flush()
+
+    # (c) the gate scenario under the default scheme
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res_c = abl.run(scenarios=(abl.GATE_SCENARIO,))
+    torch.cuda.synchronize()
+    wall_c = time.time() - t0
+    n_c = ops.LAUNCHES["noc_fused_cycles"]
+    check(n_c == 120, f"the gate-scenario sweep launched B2 {n_c} times")
+    kf_c = res_c["table"][abl.GATE_SCENARIO]["kf"]["gpu_ipc"]
+    check(abs(kf_c - ABL_KF_PARTITIONABLE) <= ABL_TOL,
+          f"{abl.GATE_SCENARIO}/kf under the partitionable scheme: gpu_ipc "
+          f"{kf_c:.7f}, expected {ABL_KF_PARTITIONABLE} +- {ABL_TOL}")
+    print(f"[sweep] (c) {abl.GATE_SCENARIO}/kf under the default "
+          f"(partitionable) scheme: gpu_ipc {kf_c:.7f} (reference "
+          f"{ABL_KF_PARTITIONABLE}); {res_c['rows']} rows, {n_c} B2 "
+          f"launches, wall {wall_c:.3f} s")
+
+    # (d) B2 at batch 60 beside batch 1, on the ablation's epoch-0 inputs
+    # run 500 cycles in from zero state (turns 1, 60, 60, 1)
+    specs = [(sc, p, s) for sc in abl.SCENARIO_SET for p in abl.PREDICTORS
+             for s in abl.SEEDS]
+    run = sim.batch_inputs(
+        [sim.NoCConfig(mode="kf", seed=s, predictor=p, kf_q=abl.KF_Q_ABLATION)
+         for _, p, s in specs], [sc for sc, _, _ in specs], device=dev)
+    tables = sim.lane_tables(run)
+    d = tables[0]
+    ep = sim.epoch_inputs(run, 0, torch.zeros(len(specs), dtype=torch.int32),
+                          0)
+    xi, xf, consts = sim.lane_inputs(run, tables, ep)
+    subs, mc, outst, backlog = sim.init_sim_state(run.stc, dev,
+                                                  n_rows=len(specs))
+    st60 = fused.pack_state(d, subs, mc, outst, backlog,
+                            torch.zeros(len(specs), dtype=torch.int32,
+                                        device=dev))
+    kernel.noc_fused_cycles(d, st60, xi, xf, *consts)      # fill
+    x1, f1, c1 = sim.lane_row(xi, xf, consts, 0)
+    st1 = type(st60)(*(x[0].clone() for x in st60))
+
+    def t1():
+        return cuda_ms(lambda: kernel.noc_fused_cycles(d, st1, x1, f1, *c1),
+                       10)
+
+    def t60():
+        return cuda_ms(lambda: kernel.noc_fused_cycles(d, st60, xi, xf,
+                                                       *consts), 10)
+
+    turns = [t1(), t60(), t60(), t1()]
+    out["b2_ms_b1"] = (turns[0] + turns[3]) / 2
+    out["b2_ms_b60"] = (turns[1] + turns[2]) / 2
+    # where a 60-row epoch goes: each step of sim's epoch loop timed alone
+    # on these inputs (host wall per call, ending in a sync)
+    from repro_torch.core import kalman, predictor
+    from repro_torch.core.allocator import (apply_policy_gated,
+                                            degrade_policy, init_policy_state)
+    from repro_torch.core.noc import router as rt
+
+    n60 = len(specs)
+    dense = fused.unpack_state(d, st60, sim.MCState)
+    ar = torch.arange(run.topo.n_routers, dtype=torch.int32, device=dev)
+    want = torch.ones((n60, d.S, d.R), dtype=torch.bool, device=dev)
+    pred0 = tree_map(lambda x: x.expand(n60, *x.shape).clone(),
+                     predictor.init_state())
+    pol0 = tree_map(lambda x: x.expand(n60).clone(), init_policy_state())
+    kfp = kalman.paper_params(q=abl.KF_Q_ABLATION, r=run.stc.kf_r)
+    z60 = torch.linspace(-1, 1, n60 * 3).reshape(n60, 3)
+
+    def boundary():
+        st60.cnt[:, 0, :fused.N_COUNTERS].cpu()
+        ps, sig, _ = predictor.step_probed(run.mp.predictor, kfp, pred0, z60)
+        pol = apply_policy_gated(run.stc.policy, run.mp, pol0, sig,
+                                 torch.tensor(0, dtype=torch.int32))
+        return degrade_policy(pol, ps.healthy)
+
+    split = {
+        "epoch_inputs": wall_ms(lambda: sim.epoch_inputs(
+            run, 0, torch.zeros(n60, dtype=torch.int32), 0), 20),
+        "prologue inject": wall_ms(lambda: rt.inject_all(
+            dense[0], want, dense[1].stage_dst[:, None, :], ar,
+            dense[1].stage_cls[:, None, :], ep.cycles[0], ep.gpu_masks,
+            ep.cpu_masks), 20),
+        "lane_inputs": wall_ms(lambda: sim.lane_inputs(run, tables, ep), 20),
+        "pack_state": wall_ms(lambda: fused.pack_state(d, *dense), 20),
+        "B2": out["b2_ms_b60"],
+        "unpack_state": wall_ms(
+            lambda: fused.unpack_state(d, st60, sim.MCState), 20),
+        "counters to host + KF + policy": wall_ms(boundary, 20),
+    }
+    out["split_ms"] = split
+    print(f"[sweep] (d) a 60-row epoch, each step alone (host wall ms per "
+          f"call): " + "; ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; sum {sum(split.values()):.3f} against the sweep's "
+          f"{wall_b * 1e3 / 120:.3f} per epoch")
+    # the streams of one paper run (one seed, 120 epochs): one vectorized
+    # draw on the card, and of the ablation's 3 seeds
+    draws = {}
+    for seeds in ((0,), abl.SEEDS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        streams = sim.threefry_epoch_streams(seeds, 120, 500, 36, 8, dev)
+        streams(0)
+        torch.cuda.synchronize()
+        draws[len(seeds)] = time.time() - t0
+    out["draw_s"] = draws[1]
+    print(f"[sweep] (d) B2 ms per 500-cycle launch in turns batch 1/60/60/1 "
+          f"{' / '.join(f'{t:.4f}' for t in turns)}: batch 1 "
+          f"{out['b2_ms_b1']:.4f}, batch 60 {out['b2_ms_b60']:.4f} "
+          f"({out['b2_ms_b60'] / out['b2_ms_b1']:.3f}x for 60x the rows); "
+          f"threefry stream draw of one paper run (120x500 cycles, 1 seed) "
+          f"{draws[1] * 1e3:.1f} ms, of the ablation's 3 seeds "
+          f"{draws[3] * 1e3:.1f} ms; ablation sweep wall {wall_b:.3f} s "
+          f"({cycles_b / wall_b:.0f} simulated cycles/s)")
+    sys.stdout.flush()
+    out.update(launches=n_a + n_b + n_c, wall_b=wall_b)
+    return out
 
 
 def phase_b4(dev):
@@ -1320,7 +1543,7 @@ def main() -> int:
     samples, epoch_starts = [], []
     for e in range(3):
         ep = sim.epoch_inputs(run, e, boosted, e * run.stc.epoch_len)
-        xi, xf, consts = sim.lane_inputs(run, tables, ep)
+        xi, xf, consts = sim.lane_row(*sim.lane_inputs(run, tables, ep), 0)
         epoch_starts.append((st, xi, xf, consts))
         done = 0
         for upto in (1, 40, 250, 499, 500):
@@ -1652,6 +1875,9 @@ def main() -> int:
           f"untraced run")
     sys.stdout.flush()
 
+    # ---- the paper sweep: simulate_batch / sweep through B2 at batch > 1
+    swp = phase_sweep(dev)
+
     # ---- the fleet path (B4) and the serving path (B5)
     b4 = phase_b4(dev)
     b5 = phase_b5(dev)
@@ -1693,7 +1919,8 @@ def main() -> int:
         dict(name="noc_fused_cycles", route="cuda",
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
              replaces="src/repro/kernels/noc_cycle/kernel.py:114",
-             launches=b2_launches, max_abs_err=b2_err, ms=b2_ms,
+             launches=b2_launches + swp["launches"], max_abs_err=b2_err,
+             ms=b2_ms,
              plain_ms=b2_plain_ms, bound_ms=bm2, bound_by=by2,
              library_ms=None),
         dict(name="noc_fused_cycles_probed", route="cuda",

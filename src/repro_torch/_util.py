@@ -23,3 +23,20 @@ def raw_stream(device: torch.device) -> int:
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the tensor leaves of NamedTuples (nested), with the
+    matching leaves of ``rest``; other leaves pass through ``fn`` too."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(
+            tree_map(fn, *leaves) for leaves in zip(tree, *rest)
+        ))
+    return fn(tree, *rest)
+
+
+def stack_trees(trees):
+    """Stack same-structured NamedTuples of tensors along a new leading
+    axis."""
+    return tree_map(lambda *xs: torch.stack([torch.as_tensor(x) for x in xs]),
+                    *trees)

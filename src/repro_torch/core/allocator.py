@@ -160,8 +160,9 @@ def mode_policy(
 
 
 def class_vc_masks(policy: ModePolicy, config: Tensor) -> tuple[Tensor, Tensor]:
-    """(V,) GPU/CPU VC masks for the applied configuration."""
-    boosted = (config > 0) & policy.bw_enable
+    """(V,) GPU/CPU VC masks for the applied configuration; (B, V) for a
+    (B,) config under a ModePolicy with (B, ...) leaves."""
+    boosted = ((config > 0) & policy.bw_enable)[..., None]
     gpu = torch.where(boosted, policy.gpu_mask1, policy.gpu_mask0)
     cpu = torch.where(boosted, policy.cpu_mask1, policy.cpu_mask0)
     return gpu, cpu
@@ -170,8 +171,9 @@ def class_vc_masks(policy: ModePolicy, config: Tensor) -> tuple[Tensor, Tensor]:
 def placement_class(
     policy: ModePolicy, config: Tensor, cls0: Tensor, cls1: Tensor
 ) -> Tensor:
-    """(R,) node-class plan for the applied configuration."""
-    boosted = (config > 0) & policy.place_enable
+    """(R,) node-class plan for the applied configuration ((B, R) for a
+    batch, as in `class_vc_masks`)."""
+    boosted = ((config > 0) & policy.place_enable)[..., None]
     return torch.where(boosted, cls1, cls0)
 
 
@@ -201,10 +203,11 @@ def degrade_policy(state: PolicyState, healthy: Tensor) -> PolicyState:
 
 
 def epoch_sa_prefs(policy: ModePolicy, config: Tensor, cycles: Tensor) -> Tensor:
-    """(len(cycles),) int32 SA preference per cycle, -1 for round-robin."""
-    pattern = sa_priority_pattern(config, cycles)
+    """(len(cycles),) int32 SA preference per cycle, -1 for round-robin
+    ((B, len(cycles)) for a batch, as in `class_vc_masks`)."""
+    pattern = sa_priority_pattern(config[..., None], cycles)
     return torch.where(
-        policy.sa_enable & policy.bw_enable, pattern, _i32(-1)
+        (policy.sa_enable & policy.bw_enable)[..., None], pattern, _i32(-1)
     ).to(_I32)
 
 

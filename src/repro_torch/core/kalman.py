@@ -153,28 +153,48 @@ def binarize(x_post: Tensor, threshold: float | Tensor = 0.0) -> Tensor:
     return (x_post > threshold).to(torch.int32)
 
 
+def _mm(a: Tensor, b: Tensor) -> Tensor:
+    """a (..., i, k) @ b (..., k, j) with each k-sum taken in index order,
+    one multiply and one add at a time: the same bits at every batch size
+    (a batched matmul may pick its order by the batch)."""
+    acc = a[..., :, 0, None] * b[..., None, 0, :]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., :, k, None] * b[..., None, k, :]
+    return acc
+
+
+def _mv(a: Tensor, v: Tensor) -> Tensor:
+    return _mm(a, v[..., None])[..., 0]
+
+
+def _innovation_cov(params: KalmanParams, p_prior: Tensor) -> Tensor:
+    h = params.h
+    return _mm(_mm(h, p_prior), h.T) + params.r
+
+
 def batched_step(
     params: KalmanParams, states: KalmanState, z: Tensor,
     u: Tensor | None = None,
 ):
     """`step` over a bank of independent filters sharing ``params``: states
     x (B, n), p (B, n, n), observations z (B, m), controls u (B, u) or None.
-    The batch dimension is written out (the JAX package vmaps `step`); the
-    coast is decided per filter.  Returns (posterior, prior, innovation),
-    each with the leading B."""
+    The batch dimension is written out (the JAX package vmaps `step`) and
+    every product sums in index order (`_mm`), so a filter's bits do not
+    depend on the bank's size; the coast is decided per filter.  Returns
+    (posterior, prior, innovation), each with the leading B."""
     x, p = states
     a, h = params.a, params.h
-    x_prior = x @ a.T
+    x_prior = _mv(a, x)
     if u is not None:
-        x_prior = x_prior + u @ params.b.T
-    p_prior = a @ p @ a.T + params.q
-    s = h @ p_prior @ h.T + params.r                        # (B, m, m)
-    k = _solve(s, h @ p_prior.transpose(-1, -2)).transpose(-1, -2)
-    innovation = z - x_prior @ h.T                          # (B, m)
-    x_post = x_prior + (k @ innovation[..., None])[..., 0]
+        x_prior = x_prior + _mv(params.b, u)
+    p_prior = _mm(_mm(a, p), a.T) + params.q
+    s = _innovation_cov(params, p_prior)                    # (B, m, m)
+    k = _solve(s, _mm(h, p_prior.transpose(-1, -2))).transpose(-1, -2)
+    innovation = z - _mv(h, x_prior)                        # (B, m)
+    x_post = x_prior + _mv(k, innovation)
     n = params.state_dim
     eye = torch.eye(n, dtype=p_prior.dtype, device=p_prior.device)
-    p_post = (eye - k @ h) @ p_prior
+    p_post = _mm(eye - _mm(k, h), p_prior)
     p_post = 0.5 * (p_post + p_post.transpose(-1, -2))
     broke = ~(torch.isfinite(x_post).all(-1)
               & torch.isfinite(p_post).all((-2, -1))
@@ -184,3 +204,25 @@ def batched_step(
     p_post = torch.where(coast[:, None, None], p_prior, p_post)
     return (KalmanState(x=x_post, p=p_post), KalmanState(x=x_prior, p=p_prior),
             innovation)
+
+
+def batched_gain(params: KalmanParams, prior: KalmanState) -> Tensor:
+    """`kalman_gain` over a bank: (B, n, m), in `batched_step`'s order."""
+    s = _innovation_cov(params, prior.p)
+    return _solve(s, _mm(params.h, prior.p.transpose(-1, -2))).transpose(-1, -2)
+
+
+def batched_nis(params: KalmanParams, prior: KalmanState, z: Tensor) -> Tensor:
+    """`innovation_nis` over a bank: (B,), sums in index order."""
+    s = _innovation_cov(params, prior.p)
+    nu = z - _mv(params.h, prior.x)
+    sol = _solve(s, nu[..., None])[..., 0]
+    return _mm(nu[..., None, :], sol[..., None])[..., 0, 0]
+
+
+def batched_trace(p: Tensor) -> Tensor:
+    """tr(P) over a bank (B, n, n) -> (B,), summed in index order."""
+    acc = p[..., 0, 0]
+    for i in range(1, p.shape[-1]):
+        acc = acc + p[..., i, i]
+    return acc

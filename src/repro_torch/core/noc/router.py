@@ -271,27 +271,29 @@ def router_cycle(
 
 def inject_all(
     state: SubnetState,
-    want: Tensor,                            # (S, R) bool
-    dest: Tensor, src: Tensor, cls: Tensor,  # (S, R) int32 packet fields
-    binj: Tensor,                            # (S, R) int32 injection stamp
-    gpu_vc_mask: Tensor, cpu_vc_mask: Tensor,  # (S, V) bool
+    want: Tensor,                            # (..., S, R) bool
+    dest: Tensor, src: Tensor, cls: Tensor,  # (..., S, R) int32 packet fields
+    binj: Tensor,                            # (..., S, R) int32 stamp
+    gpu_vc_mask: Tensor, cpu_vc_mask: Tensor,  # (..., S, V) bool
 ) -> tuple[SubnetState, Tensor]:
-    """Inject at the Local input port of every (subnet, router) at once.
+    """Inject at the Local input port of every (subnet, router) at once,
+    over any leading batch dims of the state.
 
-    Returns (state, accepted (S, R) bool): the first free VC the class may
-    use takes the packet at its tail slot.
+    Returns (state, accepted (..., S, R) bool): the first free VC the class
+    may use takes the packet at its tail slot.
     """
-    S, R, P, V, B = state.buf_meta.shape
+    B = state.buf_meta.shape[-1]
+    V = state.count.shape[-1]
     dev = state.buf_meta.device
-    local_count = state.count[:, :, PORT_L]                       # (S, R, V)
-    allowed = torch.where(cls[..., None] == 1, gpu_vc_mask[:, None, :],
-                          cpu_vc_mask[:, None, :])
+    local_count = state.count[..., PORT_L, :]                     # (.., S, R, V)
+    allowed = torch.where(cls[..., None] == 1, gpu_vc_mask[..., None, :],
+                          cpu_vc_mask[..., None, :])
     has_space = (local_count < B) & allowed
     vc, any_space = _first_true(has_space)
     ok = want & any_space
 
-    head_l = state.head[:, :, PORT_L]
-    tail = ((head_l + local_count) % B).to(_I32)                  # (S, R, V)
+    head_l = state.head[..., PORT_L, :]
+    tail = ((head_l + local_count) % B).to(_I32)                  # (.., S, R, V)
     vmask = ok[..., None] & (vc[..., None] == torch.arange(V, device=dev))
     bmask = vmask[..., None] & (tail[..., None] == torch.arange(B, device=dev))
     meta = pack_meta(dest, src, cls)
@@ -299,13 +301,13 @@ def inject_all(
     def wr(buf, val):
         val = val.to(buf.dtype)
         out = buf.clone()
-        out[:, :, PORT_L] = torch.where(
-            bmask, val[..., None, None], buf[:, :, PORT_L]
+        out[..., PORT_L, :, :] = torch.where(
+            bmask, val[..., None, None], buf[..., PORT_L, :, :]
         )
         return out
 
     count = state.count.clone()
-    count[:, :, PORT_L] = local_count + vmask.to(local_count.dtype)
+    count[..., PORT_L, :] = local_count + vmask.to(local_count.dtype)
     state = state._replace(
         buf_meta=wr(state.buf_meta, meta),
         buf_binj=wr(state.buf_binj, binj),

@@ -40,8 +40,8 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from repro_torch._util import resolve_device
-from repro_torch.core import kalman, predictor
+from repro_torch._util import resolve_device, stack_trees, tree_map
+from repro_torch.core import kalman, predictor, threefry
 from repro_torch.core.allocator import (
     ModePolicy,
     PolicyConfig,
@@ -70,11 +70,13 @@ from repro_torch.core.noc.placement import (
 )
 from repro_torch.core.noc.topology import Topology, make_topology
 from repro_torch.core.noc.traffic import (
+    TrafficSource,
     TrafficSourceLike,
     WorkloadProfile,
     init_phase,
     injection_rates,
     resolve_source,
+    stack_profiles,
     step_phase_u,
 )
 from repro_torch.obs.probes import SimTrace
@@ -86,7 +88,8 @@ BCAP = 64   # per-node source-queue capacity
 S_MAX = 4   # padded subnet-axis length shared by every mode
 ENGINES = ("fused", "ref", "arb")
 
-# epoch-stream provider: epoch -> (u_phase (L,), u_gen (L, R), d_idx (L, R))
+# epoch-stream provider: epoch -> (u_phase (L,), u_gen (L, R), d_idx (L, R)),
+# or (B, L), (B, L, R), (B, L, R) for a batch of B runs
 EpochStreams = Callable[[int], tuple[Tensor, Tensor, Tensor]]
 
 
@@ -239,13 +242,16 @@ def stamp_mask(stc: SimStatic) -> int:
     return 0xFFFF if stc.epoch_len * stc.n_epochs <= 2**16 else 0
 
 
-def init_sim_state(stc: SimStatic, device: torch.device | str = "cpu"):
-    """Zero carry: (subnets, MC state, outstanding, backlog)."""
+def init_sim_state(stc: SimStatic, device: torch.device | str = "cpu",
+                   n_rows: int | None = None):
+    """Zero carry: (subnets, MC state, outstanding, backlog); with
+    ``n_rows`` every leaf has that leading batch dim."""
     R = make_topology(stc.width, stc.height, stc.n_mc).n_routers
     S, V, B, P = stc.n_subnets, stc.n_vcs, stc.buf_depth, rt.N_PORTS
+    lead = () if n_rows is None else (n_rows,)
 
     def z(shape, dtype=_I32):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros((*lead, *shape), dtype=dtype, device=device)
 
     subnets0 = rt.SubnetState(
         buf_meta=z((S, R, P, V, B), torch.int16),
@@ -266,8 +272,9 @@ def torch_epoch_streams(
     gen: torch.Generator, epoch_len: int, n_routers: int, n_mc: int,
     device: torch.device,
 ) -> EpochStreams:
-    """Per-epoch streams drawn from ``gen`` on ``device``, in epoch order:
-    u_phase ~ U[0,1) (L,), u_gen ~ U[0,1) (L, R), d_idx ~ U{0..n_mc-1}."""
+    """Per-epoch streams of one run drawn from ``gen`` on ``device``, in
+    epoch order: u_phase ~ U[0,1) (L,), u_gen ~ U[0,1) (L, R), d_idx ~
+    U{0..n_mc-1} (L, R)."""
 
     def draw(epoch: int):
         u_phase = torch.rand((epoch_len,), generator=gen, device=device)
@@ -280,18 +287,158 @@ def torch_epoch_streams(
     return draw
 
 
+# the int64 temporaries of one chunk of threefry draws stay under this
+STREAM_BYTES = 1 << 30
+
+
+def threefry_epoch_streams(
+    seeds: Sequence[int], n_epochs: int, epoch_len: int, n_routers: int,
+    n_mc: int, device: torch.device | str = "cpu",
+) -> EpochStreams:
+    """The reference simulator's random streams for a batch of seeds, bit
+    for bit, from JAX's threefry (`repro_torch.core.threefry`) under the
+    partitionable setting in force when this is called.
+
+    As the reference draws them: the epoch keys are split(PRNGKey(seed),
+    n_epochs); an epoch's key splits into epoch_len cycle keys, each split
+    in three: u_phase = uniform(k0, ()), u_gen = uniform(k1, (R,)), d_idx =
+    randint(k2, (R,), 0, n_mc).  Returns epoch -> (u_phase (B, L), u_gen
+    (B, L, R) float32, d_idx (B, L, R) int32) on ``device``.  Rows with one
+    seed share one draw.  Epochs are drawn vectorized, in chunks whose
+    int64 temporaries stay under STREAM_BYTES: a paper run of one seed is
+    one chunk, drawn at its first epoch."""
+    flag = threefry.partitionable()
+    uniq, inv = torch.unique(torch.as_tensor(list(seeds), dtype=torch.int64),
+                             return_inverse=True)
+    inv = inv.to(device)
+    keys = threefry.split(threefry.prng_key(uniq, device), n_epochs)
+    # ~12 int64 words alive per drawn element at the widest step
+    per_epoch = len(uniq) * epoch_len * n_routers * 8 * 12
+    chunk = max(1, min(n_epochs, STREAM_BYTES // per_epoch))
+    drawn: dict[int, tuple] = {}
+
+    def draw(lo: int):
+        with threefry.threefry_partitionable(flag):
+            k3 = threefry.split(
+                threefry.split(keys[:, lo:lo + chunk], epoch_len), 3)
+            return (threefry.uniform(k3[..., 0, :]),
+                    threefry.uniform(k3[..., 1, :], (n_routers,)),
+                    threefry.randint(k3[..., 2, :], (n_routers,), 0, n_mc))
+
+    def streams(epoch: int):
+        lo = epoch - epoch % chunk
+        if lo not in drawn:
+            drawn.clear()
+            drawn[lo] = draw(lo)
+        return tuple(x[:, epoch - lo][inv] for x in drawn[lo])
+
+    return streams
+
+
+def _batched_streams(streams: EpochStreams) -> EpochStreams:
+    """A provider that gives one run's (L,) / (L, R) streams, given the
+    leading batch dim of one."""
+    def draw(epoch: int):
+        u_phase, u_gen, d_idx = streams(epoch)
+        if u_phase.ndim == 1:
+            return u_phase[None], u_gen[None], d_idx[None]
+        return u_phase, u_gen, d_idx
+
+    return draw
+
+
 class RunInputs(NamedTuple):
-    """One run's resolved inputs.  Demand rows and fault masks live on the
+    """A batch of B runs' resolved inputs, every row on one `SimStatic`.
+    Each leaf has the leading B.  Demand rows and fault masks live on the
     run's device; telemetry faults and placement plans on the CPU."""
 
     stc: SimStatic
-    mp: ModePolicy
+    mp: ModePolicy                # (B, ...) leaves
     topo: Topology
-    profile: WorkloadProfile      # (E,) float32 leaves
+    profile: WorkloadProfile      # (B, E) float32 leaves
     faults: FaultStream
     placement: PlacementStream
-    streams: EpochStreams
+    streams: EpochStreams         # epoch -> (B, L), (B, L, R), (B, L, R)
     device: torch.device
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.mp.four_subnet.shape[0])
+
+
+def _per_row(cfgs: list, sources, seeds) -> tuple[list, list]:
+    """Per-row sources (one source broadcasts) and seeds (default: each
+    config's own), checked against the number of configs."""
+    n = len(cfgs)
+    # a WorkloadProfile is itself a tuple: one source is told by its type
+    if isinstance(sources, (str, TrafficSource)):
+        sources = [sources] * n
+    sources = list(sources)
+    seeds = [c.seed for c in cfgs] if seeds is None else [int(x) for x in seeds]
+    if len(sources) != n or len(seeds) != n:
+        raise ValueError(f"{len(sources)} sources and {len(seeds)} seeds for "
+                         f"{n} configs")
+    return sources, seeds
+
+
+def batch_inputs(
+    cfgs: Sequence[NoCConfig],
+    sources: TrafficSourceLike | Sequence,
+    *,
+    seeds: Sequence[int] | None = None,
+    device: str | torch.device | None = None,
+    rng: torch.Generator | EpochStreams | None = None,
+    engine: str | None = None,
+) -> RunInputs:
+    """Resolve B configurations (one `static_spec()`), their sources (one
+    for all rows, or one per row) and seeds (default: each config's own)
+    into one `RunInputs`.  ``rng`` None draws the reference's threefry
+    streams; a `torch.Generator` drives a batch of one; a provider gives
+    (B, ...) streams, or one run's (L,) / (L, R) streams for a batch of
+    one."""
+    cfgs = list(cfgs)
+    if not cfgs:
+        raise ValueError("a batch needs at least one config")
+    stc = cfgs[0].static_spec()
+    for c in cfgs[1:]:
+        if c.static_spec() != stc:
+            raise ValueError(
+                "all configs in a batch must share the same structural "
+                f"config; got {c.static_spec()} != {stc}; group with sweep()")
+    if engine is not None:
+        stc = dataclasses.replace(stc, engine=engine)
+    if stc.engine not in ENGINES:
+        raise ValueError(f"unknown cycle engine {stc.engine!r}; expected one "
+                         f"of {ENGINES}")
+    sources, seeds = _per_row(cfgs, sources, seeds)
+    dev = resolve_device(device)
+    topo = make_topology(stc.width, stc.height, stc.n_mc)
+    if rng is None:
+        streams = threefry_epoch_streams(
+            seeds, stc.n_epochs, stc.epoch_len, topo.n_routers,
+            len(topo.mc_ids), dev)
+    elif isinstance(rng, torch.Generator):
+        if len(cfgs) != 1:
+            raise ValueError("a torch.Generator drives a batch of one run")
+        streams = _batched_streams(torch_epoch_streams(
+            rng, stc.epoch_len, topo.n_routers, len(topo.mc_ids), dev))
+    else:
+        streams = _batched_streams(rng)
+    profile = stack_profiles(resolve_source(x, stc.n_epochs) for x in sources)
+    faults = stack_trees([
+        resolve_faults(c.faults, stc.n_epochs, n_routers=topo.n_routers)
+        for c in cfgs])
+    return RunInputs(
+        stc=stc, mp=stack_trees([c.mode_policy() for c in cfgs]), topo=topo,
+        profile=WorkloadProfile(*(x.to(dev) for x in profile)),
+        faults=faults._replace(
+            link_ok=faults.link_ok.to(dev), router_ok=faults.router_ok.to(dev),
+            mc_ok=faults.mc_ok.to(dev),
+        ),
+        placement=stack_trees([
+            resolve_placement(c.placement, stc.n_epochs, topo) for c in cfgs]),
+        streams=streams, device=dev,
+    )
 
 
 def run_inputs(
@@ -302,70 +449,59 @@ def run_inputs(
     rng: torch.Generator | EpochStreams | None = None,
     engine: str | None = None,
 ) -> RunInputs:
-    """Resolve `simulate`'s arguments (see there) into a `RunInputs`."""
-    dev = resolve_device(device)
-    stc = cfg.static_spec()
-    if engine is not None:
-        stc = dataclasses.replace(stc, engine=engine)
-    if stc.engine not in ENGINES:
-        raise ValueError(f"unknown cycle engine {stc.engine!r}; expected one "
-                         f"of {ENGINES}")
-    topo = make_topology(stc.width, stc.height, stc.n_mc)
-    if rng is None:
-        rng = torch.Generator(device=dev).manual_seed(cfg.seed)
-    if isinstance(rng, torch.Generator):
-        streams = torch_epoch_streams(
-            rng, stc.epoch_len, topo.n_routers, len(topo.mc_ids), dev
-        )
-    else:
-        streams = rng
-    mp = cfg.mode_policy()
-    profile = resolve_source(source, stc.n_epochs)
-    faults = resolve_faults(cfg.faults, stc.n_epochs, n_routers=topo.n_routers)
-    return RunInputs(
-        stc=stc, mp=mp, topo=topo,
-        profile=WorkloadProfile(*(x.to(dev) for x in profile)),
-        faults=faults._replace(
-            link_ok=faults.link_ok.to(dev), router_ok=faults.router_ok.to(dev),
-            mc_ok=faults.mc_ok.to(dev),
-        ),
-        placement=resolve_placement(cfg.placement, stc.n_epochs, topo),
-        streams=streams, device=dev,
-    )
+    """Resolve `simulate`'s arguments (see there): a batch of one."""
+    return batch_inputs([cfg], source, device=device, rng=rng, engine=engine)
 
 
 class EpochInputs(NamedTuple):
-    """Per-epoch data-plane inputs, shared by every cycle engine."""
+    """Per-epoch data-plane inputs of a batch, shared by every cycle
+    engine.  Each leaf has the batch's leading B but ``cycles`` and
+    ``rep_gate``, which every row shares."""
 
-    gpu_masks: Tensor   # (S, V) bool
+    gpu_masks: Tensor   # (B, S, V) bool
     cpu_masks: Tensor
-    place_cls: Tensor   # (R,) int32 node-class plan of the applied config
-    ntype_e: Tensor     # (R,) int32 virtual node type (MC tiles 2)
-    node_cls: Tensor    # (R,) int32
-    req_sub: Tensor     # (R,) int32
-    prof: WorkloadProfile  # () float32 leaves
-    link_ok: Tensor     # (R, P) bool
-    router_ok: Tensor   # (R,) bool
-    mc_ok: Tensor       # (R,) bool
+    place_cls: Tensor   # (B, R) int32 node-class plan of the applied config
+    ntype_e: Tensor     # (B, R) int32 virtual node type (MC tiles 2)
+    node_cls: Tensor    # (B, R) int32
+    req_sub: Tensor     # (B, R) int32
+    prof: WorkloadProfile  # (B,) float32 leaves
+    link_ok: Tensor     # (B, R, P) bool
+    router_ok: Tensor   # (B, R) bool
+    mc_ok: Tensor       # (B, R) bool
     cycles: Tensor      # (L,) int32
-    u_phase: Tensor     # (L,) float32
-    u_gen: Tensor       # (L, R) float32
-    dests: Tensor       # (L, R) int32
-    sa_all: Tensor      # (L,) int32
-    active_all: Tensor  # (L, S) bool
+    u_phase: Tensor     # (B, L) float32
+    u_gen: Tensor       # (B, L, R) float32
+    dests: Tensor       # (B, L, R) int32
+    sa_all: Tensor      # (B, L) int32
+    active_all: Tensor  # (B, L, S) bool
     rep_gate: Tensor    # (L,) bool
+    gpu_quota: Tensor   # (B,) int32 on the CPU: VCs the GPU class may use
+
+
+_SHARED = ("cycles", "rep_gate")
+
+
+def _epoch_row(ep: EpochInputs, b: int) -> EpochInputs:
+    """Row ``b`` of a batch's `EpochInputs`: one run's, no leading dim."""
+    return EpochInputs(*(
+        x if f in _SHARED else tree_map(lambda t: t[b], x)
+        for f, x in zip(EpochInputs._fields, ep)
+    ))
 
 
 def epoch_inputs(
     run: RunInputs, e: int, config: Tensor, cycle0: int
 ) -> EpochInputs:
-    """Epoch ``e``'s inputs under the applied ``config`` with its cycles
-    starting at ``cycle0``; draws the epoch's random streams."""
+    """Epoch ``e``'s inputs under the applied ``config`` ((B,) int32 on the
+    CPU, or one value for every row) with its cycles starting at
+    ``cycle0``; draws the epoch's random streams."""
     stc, mp, topo, dev = run.stc, run.mp, run.topo, run.device
     S, V, ep_len = stc.n_subnets, stc.n_vcs, stc.epoch_len
-    g_vec, c_vec = class_vc_masks(mp, config)
-    cls_e = placement_class(mp, config, run.placement.cls0[e],
-                            run.placement.cls1[e])
+    n = run.n_rows
+    config = torch.as_tensor(config, dtype=_I32).expand(n)
+    g_vec, c_vec = class_vc_masks(mp, config)                   # (B, V)
+    cls_e = placement_class(mp, config, run.placement.cls0[:, e],
+                            run.placement.cls1[:, e])            # (B, R)
     is_mc = torch.as_tensor(topo.node_type) == 2
     ntype_e = torch.where(is_mc, 2, cls_e).to(_I32).to(dev)
     node_cls = (ntype_e == 1).to(_I32)
@@ -379,18 +515,20 @@ def epoch_inputs(
     cycles = cycles_cpu.to(dev)
     alternating = (cycles[:, None] % 2) == (sub_ids[None, :] % 2)
     return EpochInputs(
-        gpu_masks=g_vec.to(dev).expand(S, V),
-        cpu_masks=c_vec.to(dev).expand(S, V),
+        gpu_masks=g_vec.to(dev)[:, None, :].expand(n, S, V),
+        cpu_masks=c_vec.to(dev)[:, None, :].expand(n, S, V),
         place_cls=cls_e.to(_I32), ntype_e=ntype_e, node_cls=node_cls,
-        req_sub=torch.where(fs, 2 * node_cls, 0).to(_I32),
-        prof=WorkloadProfile(*(leaf[e] for leaf in run.profile)),
-        link_ok=run.faults.link_ok[e], router_ok=run.faults.router_ok[e],
-        mc_ok=run.faults.mc_ok[e], cycles=cycles,
+        req_sub=torch.where(fs[:, None], 2 * node_cls, 0).to(_I32),
+        prof=WorkloadProfile(*(leaf[:, e] for leaf in run.profile)),
+        link_ok=run.faults.link_ok[:, e], router_ok=run.faults.router_ok[:, e],
+        mc_ok=run.faults.mc_ok[:, e], cycles=cycles,
         u_phase=u_phase.to(dev), u_gen=u_gen.to(dev),
         dests=mc_ids[d_idx.to(dev).long()].to(_I32),
         sa_all=epoch_sa_prefs(mp, config, cycles_cpu).to(dev),
-        active_all=sub_enabled[None, :] & torch.where(fs, alternating, True),
+        active_all=sub_enabled[:, None, :]
+        & torch.where(fs[:, None, None], alternating, True),
         rep_gate=torch.arange(ep_len, device=dev) < ep_len - 1,
+        gpu_quota=g_vec.to(_I32).sum(-1).to(_I32),
     )
 
 
@@ -411,10 +549,12 @@ def lane_tables(run: RunInputs):
 
 
 def lane_inputs(run: RunInputs, tables, ep: EpochInputs):
-    """One epoch's inputs to `ops.fused_cycle_step` in the lane layout:
-    per-cycle ``xi``/``xf`` and the epoch-constant rows (gmask, cmask,
-    prof, pol_sr, pol_r, ntype, route, exists), link faults folded into
-    ``exists`` and router/MC faults into ``xi``."""
+    """One epoch's inputs to `ops.fused_cycle_step` for the whole batch in
+    the lane layout: per-cycle ``xi`` (B, L, XI_ROWS, S*64) / ``xf`` (B, L,
+    XF_ROWS, 128) and the epoch-constant rows (gmask, cmask, prof, pol_sr,
+    pol_r, ntype, route, exists), each with the leading B but ``route``,
+    which every row shares; link faults folded into ``exists`` and
+    router/MC faults into ``xi``."""
     from repro_torch.kernels.noc_cycle import fused as lanes
 
     d, route_rows, exists_rows = tables
@@ -423,47 +563,71 @@ def lane_inputs(run: RunInputs, tables, ep: EpochInputs):
     sub_enabled = mp.sub_enabled.to(dev)
     sub_is_req = mp.sub_is_req.to(dev)
     sub_ids = torch.arange(d.S, dtype=_I32, device=dev)
-    gm_rows, cm_rows = lanes.mask_rows(d, ep.gpu_masks[0], ep.cpu_masks[0])
-    req_match = (sub_ids[:, None] == ep.req_sub[None, :]) & sub_enabled[:, None]
+    gm_rows, cm_rows = lanes.mask_rows(d, ep.gpu_masks[:, 0],
+                                       ep.cpu_masks[:, 0])
+    req_match = ((sub_ids[:, None] == ep.req_sub[:, None, :])
+                 & sub_enabled[:, :, None])
     pol_sr, pol_r = lanes.policy_rows(
         d, sub_enabled, sub_is_req, sub_enabled & ~sub_is_req, req_match, fs,
-        sub_is_req.to(_I32).sum().to(_I32),
+        sub_is_req.to(_I32).sum(-1).to(_I32),
     )
     xi, xf = lanes.cycle_xs(
         d, ep.cycles, ep.u_phase, ep.u_gen, ep.dests, ep.sa_all,
         ep.active_all, ep.rep_gate, router_ok=ep.router_ok, mc_ok=ep.mc_ok,
     )
     link_rows = torch.nn.functional.pad(
-        ep.link_ok.to(_I32).T, (0, lanes.R_PAD - d.R)
-    ).repeat(1, d.S)
+        ep.link_ok.to(_I32).transpose(-1, -2), (0, lanes.R_PAD - d.R)
+    ).repeat(1, 1, d.S)
     consts = (gm_rows, cm_rows, lanes.prof_rows(ep.prof), pol_sr, pol_r,
               lanes.placement_rows(d, ep.ntype_e), route_rows,
               exists_rows * link_rows)
     return xi, xf, consts
 
 
+def lane_row(xi: Tensor, xf: Tensor, consts, b: int):
+    """Row ``b`` of a batch's `lane_inputs`: one simulation's kernel
+    inputs ((L, XI_ROWS, S*64), ...), ``route`` as it is."""
+    return xi[b], xf[b], tuple(c if c.ndim == 2 else c[b] for c in consts)
+
+
+class _RowPolicy(NamedTuple):
+    """One row's subnet structure on the run's device (the dense cycle)."""
+
+    fs: Tensor           # () bool
+    sub_enabled: Tensor  # (S,) bool
+    sub_is_req: Tensor   # (S,) bool
+    sub_is_rep: Tensor   # (S,) bool
+    n_req_subs: Tensor   # () int32
+
+
 def _simulate_impl(run: RunInputs, probe: bool = False):
-    """The epoch loop; with ``probe`` it also returns the `SimTrace`."""
+    """The epoch loop over a batch of B rows; returns a `SimResult` whose
+    leaves have the leading B, and with ``probe`` (B = 1) also the
+    `SimTrace`.  On the "fused" engine an epoch is one kernel launch for
+    the whole batch and the epoch boundary one pass over all rows (one
+    device->host copy of the counters); the dense engines walk the rows."""
     stc, mp, topo, dev = run.stc, run.mp, run.topo, run.device
+    n = run.n_rows
+    if probe and n != 1:
+        raise ValueError("the flight recorder takes a batch of one run")
     route_t, nb_t, opp_t, _, _ = rt.device_tables(topo, dev)
     R, S, Q = topo.n_routers, stc.n_subnets, stc.mc_queue_cap
     ep_len = stc.epoch_len
     smask = stamp_mask(stc)
 
-    is_mc = (torch.as_tensor(topo.node_type) == 2).to(dev)
+    is_mc_cpu = torch.as_tensor(topo.node_type) == 2
+    is_mc = is_mc_cpu.to(dev)
     ar = torch.arange(R, dtype=_I32, device=dev)
     fs = mp.four_subnet.to(dev)
     sub_enabled = mp.sub_enabled.to(dev)
     sub_is_req = mp.sub_is_req.to(dev)
-    sub_is_rep = sub_enabled & ~sub_is_req
-    n_req_subs = sub_is_req.to(_I32).sum().to(_I32)
     sub_ids = torch.arange(S, dtype=_I32, device=dev)
-    is_req_row = sub_is_req[:, None]
 
-    subs, mc, outst, backlog = init_sim_state(stc, dev)
-    phase = init_phase().to(dev)
-    policy = init_policy_state()
-    pred_state = predictor.init_state()
+    subs, mc, outst, backlog = init_sim_state(stc, dev, n_rows=n)
+    phase = init_phase().to(dev).expand(n).clone()
+    policy = tree_map(lambda x: x.expand(n).clone(), init_policy_state())
+    pred_state = tree_map(lambda x: x.expand(n, *x.shape).clone(),
+                          predictor.init_state())
     kf_params = kalman.paper_params(q=stc.kf_q, r=stc.kf_r)
     z_scales = torch.tensor(stc.z_scales, dtype=torch.float32)
 
@@ -473,24 +637,33 @@ def _simulate_impl(run: RunInputs, probe: bool = False):
 
         tables = lane_tables(run)
         d = tables[0]
+    else:
+        rows_pol = [_RowPolicy(
+            fs=fs[b], sub_enabled=sub_enabled[b], sub_is_req=sub_is_req[b],
+            sub_is_rep=sub_enabled[b] & ~sub_is_req[b],
+            n_req_subs=sub_is_req[b].to(_I32).sum().to(_I32),
+        ) for b in range(n)]
     arb_fn = rt.arbitrate
     if stc.engine == "arb":
         from repro_torch.kernels.noc_cycle.ops import arbitrate_lanes as arb_fn
 
-    def make_want_rep(mc):
-        rep_target = torch.where(fs, 2 * mc.stage_cls + 1, 1)
+    def want_rep(mc, fs, sub_enabled):
+        """(..., S, R): the staged MC replies' inject requests, on the
+        reply subnet of their class."""
+        rep_target = torch.where(fs[..., None], 2 * mc.stage_cls + 1, 1)
         return (
-            (sub_ids[:, None] == rep_target[None, :])
-            & (mc.stage_valid & is_mc)[None, :]
-            & sub_enabled[:, None]
+            (sub_ids[:, None] == rep_target[..., None, :])
+            & (mc.stage_valid & is_mc)[..., None, :]
+            & sub_enabled[..., :, None]
         )
 
-    def dense_cycle(ep: EpochInputs, i: int, carry):
+    def dense_cycle(ep: EpochInputs, pol: _RowPolicy, i: int, carry):
         subs, mc, phase, outstanding, bl_count, cnt = carry[:6]
         cycle = ep.cycles[i]
+        is_req_row = pol.sub_is_req[:, None]
 
         # MC acceptance (queue depth BEFORE this cycle's service)
-        can_accept = torch.where(is_mc, mc.count <= Q - n_req_subs, True)
+        can_accept = torch.where(is_mc, mc.count <= Q - pol.n_req_subs, True)
         accept_s = torch.where(is_req_row, can_accept[None, :], True)
 
         # 1. MC service (a stalled MC freezes timer and staging)
@@ -535,7 +708,7 @@ def _simulate_impl(run: RunInputs, probe: bool = False):
             count=mc.count + arr_i.sum(0).to(_I32),
         )
         # reply ejections at source nodes -> completed transactions
-        rep_ej = ev.eject_valid & sub_is_rep[:, None] & (~is_mc)[None, :]
+        rep_ej = ev.eject_valid & pol.sub_is_rep[:, None] & (~is_mc)[None, :]
         rep_done = rep_ej.any(0)
         outstanding = outstanding - rep_done.to(_I32)
         rep_cls = torch.where(rep_ej, ev.eject_cls, 0).sum(0)
@@ -558,11 +731,11 @@ def _simulate_impl(run: RunInputs, probe: bool = False):
         # 5. ONE merged inject: sources (request rows) + staged replies
         want_src = (
             (sub_ids[:, None] == ep.req_sub[None, :])
-            & can_inj[None, :] & sub_enabled[:, None]
+            & can_inj[None, :] & pol.sub_enabled[:, None]
         )
-        want_rep = make_want_rep(mc) & ep.rep_gate[i]
+        want = want_rep(mc, pol.fs, pol.sub_enabled) & ep.rep_gate[i]
         subs, ok = rt.inject_all(
-            subs, want_src | want_rep,
+            subs, want_src | want,
             torch.where(is_req_row, ep.dests[i][None, :], mc.stage_dst[None, :]),
             ar.expand(S, R),
             torch.where(is_req_row, ep.node_cls[None, :], mc.stage_cls[None, :]),
@@ -620,10 +793,11 @@ def _simulate_impl(run: RunInputs, probe: bool = False):
         # THIS epoch's masks (the in-cycle inject is gated off on the last
         # cycle of an epoch by rep_gate)
         subs, ok0 = rt.inject_all(
-            subs, make_want_rep(mc), mc.stage_dst, ar, mc.stage_cls,
-            ep.cycles[0], ep.gpu_masks, ep.cpu_masks,
+            subs, want_rep(mc, fs, sub_enabled), mc.stage_dst[:, None, :], ar,
+            mc.stage_cls[:, None, :], ep.cycles[0], ep.gpu_masks,
+            ep.cpu_masks,
         )
-        mc = mc._replace(stage_valid=mc.stage_valid & ~ok0.any(0))
+        mc = mc._replace(stage_valid=mc.stage_valid & ~ok0.any(-2))
 
         # ---- the epoch's cycles
         if stc.engine == "fused":
@@ -632,50 +806,54 @@ def _simulate_impl(run: RunInputs, probe: bool = False):
             if probe:
                 ls, pb = lane_ops.fused_cycle_step(
                     d, ls0, xi, xf, *consts,
-                    probe=lanes.zero_probe(d, dev), donate=True,
+                    probe=lanes.zero_probe(d, dev, (n,)), donate=True,
                 )
                 prb = _ProbeAcc(*lanes.unpack_probe(d, pb))
             else:
                 ls = lane_ops.fused_cycle_step(d, ls0, xi, xf, *consts,
                                                donate=True)
             subs, mc, outst, backlog, phase = lanes.unpack_state(d, ls, MCState)
-            cnt = ls.cnt[0, :lanes.N_COUNTERS]
+            cnt = ls.cnt[:, 0, :lanes.N_COUNTERS]
         else:
-            carry = (subs, mc, phase, outst, backlog,
-                     torch.zeros(15, dtype=_I32, device=dev))
+            carries = []
+            for b in range(n):
+                carry = tuple(tree_map(lambda x: x[b], part) for part in
+                              (subs, mc, phase, outst, backlog))
+                carry += (torch.zeros(15, dtype=_I32, device=dev),)
+                if probe:
+                    carry += (_zero_probe_acc(S, R, stc.n_vcs, dev),)
+                ep_b = _epoch_row(ep, b)
+                for i in range(ep_len):
+                    carry = dense_cycle(ep_b, rows_pol[b], i, carry)
+                carries.append(carry)
+            subs, mc, phase, outst, backlog, cnt = (
+                stack_trees(x) for x in list(zip(*carries))[:6])
             if probe:
-                carry += (_zero_probe_acc(S, R, stc.n_vcs, dev),)
-            for i in range(ep_len):
-                carry = dense_cycle(ep, i, carry)
-            subs, mc, phase, outst, backlog, cnt = carry[:6]
-            if probe:
-                prb = carry[6]
+                prb = stack_trees([c[6] for c in carries])
         cycle0 += ep_len
-        cnt = EpochCounters(*cnt.cpu().unbind())
+        # one device->host copy of the batch's counters an epoch
+        cnt = EpochCounters(*cnt.cpu().unbind(-1))
 
-        # ---- epoch boundary on the host: KF + predictor bank + policy
+        # ---- epoch boundary on the host, all rows at once: KF +
+        # predictor bank + policy
         raw = torch.stack([
             cnt.gpu_stall_dram.float(), cnt.gpu_push.float(),
             cnt.gpu_stall_icnt.float(),
-        ])
+        ], dim=-1)
         z = kalman.normalize_observations(
             raw, torch.zeros(3, dtype=torch.float32), z_scales
         )
-        tm = int(run.faults.telem_mode[e])
-        if tm == TELEM_DROP:
-            z = torch.full_like(z, -1.0)
-        elif tm == TELEM_SPIKE:
-            z = z + run.faults.telem_mag[e]
-        elif tm == TELEM_NAN:
-            z = torch.full_like(z, float("nan"))
+        tm = run.faults.telem_mode[:, e, None]
+        z = torch.where(tm == TELEM_DROP, -1.0, z)
+        z = torch.where(tm == TELEM_SPIKE, z + run.faults.telem_mag[:, e, None],
+                        z)
+        z = torch.where(tm == TELEM_NAN, float("nan"), z)
+        pred_state, signal, kfi = predictor.step_probed(
+            mp.predictor, kf_params, pred_state, z
+        )
         if probe:
-            pred_state, signal, kfi = predictor.step_probed(
-                mp.predictor, kf_params, pred_state, z
-            )
-            probes.append((prb, kfi, z, ep.place_cls))
-        else:
-            pred_state, signal = predictor.step(mp.predictor, kf_params,
-                                                pred_state, z)
+            probes.append(tuple(tree_map(lambda x: x[0], part)
+                                for part in (prb, kfi, z, ep.place_cls)))
         cyc = torch.tensor(cycle0, dtype=_I32)
         policy = apply_policy_gated(stc.policy, mp, policy, signal, cyc)
         policy = degrade_policy(policy, pred_state.healthy)
@@ -684,24 +862,26 @@ def _simulate_impl(run: RunInputs, probe: bool = False):
                                         cnt.gpu_gen.float())
         cpu_lat = cnt.cpu_lat_sum / torch.clamp(cnt.cpu_lat_cnt, min=1)
         avg_lat = cnt.lat_sum / torch.clamp(cnt.lat_cnt, min=1)
-        n_gpu = int((ep.ntype_e == 1).sum())
+        n_gpu = ((ep.place_cls == 1) & ~is_mc_cpu).sum(-1)
         inj_rate = cnt.gpu_push.float() / (ep_len * n_gpu)
-        quota = ep.gpu_masks[0].to(_I32).sum().to(_I32).cpu()
         outs.append((
             gpu_ipc, metrics.cpu_ipc_proxy(cpu_lat), avg_lat, signal,
-            policy.config, cnt, inj_rate, quota,
+            policy.config, cnt, inj_rate, ep.gpu_quota,
         ))
+
+    def over_epochs(xs):
+        return torch.stack(xs, dim=-1)
 
     gpu_ipc, cpu_ipc, avg_lat, sig, conf, cnts, inj, quota = zip(*outs)
     result = SimResult(
-        gpu_ipc=torch.stack(gpu_ipc).float(),
-        cpu_ipc=torch.stack(cpu_ipc).float(),
-        avg_latency=torch.stack(avg_lat).float(),
-        kf_signal=torch.stack(sig),
-        applied_config=torch.stack(conf),
-        counters=EpochCounters(*(torch.stack(x) for x in zip(*cnts))),
-        gpu_inj_rate=torch.stack(inj).float(),
-        gpu_vc_quota=torch.stack(quota),
+        gpu_ipc=over_epochs(gpu_ipc).float(),
+        cpu_ipc=over_epochs(cpu_ipc).float(),
+        avg_latency=over_epochs(avg_lat).float(),
+        kf_signal=over_epochs(sig),
+        applied_config=over_epochs(conf),
+        counters=EpochCounters(*(over_epochs(x) for x in zip(*cnts))),
+        gpu_inj_rate=over_epochs(inj).float(),
+        gpu_vc_quota=over_epochs(quota),
     )
     if not probe:
         return result
@@ -709,7 +889,8 @@ def _simulate_impl(run: RunInputs, probe: bool = False):
 
 
 def _trace(run: RunInputs, probes) -> SimTrace:
-    """Stack the per-epoch probe records into a `SimTrace` on the CPU."""
+    """Stack the per-epoch probe records of a batch of one into a
+    `SimTrace` on the CPU."""
     prbs, kfis, zs, place = zip(*probes)
 
     def stack(xs):
@@ -718,7 +899,7 @@ def _trace(run: RunInputs, probes) -> SimTrace:
     acc = _ProbeAcc(*(stack(x) for x in zip(*prbs)))
     kfi = predictor.KFInternals(*(stack(x) for x in zip(*kfis)))
     # suppressed fabric elements per epoch + the telemetry-corruption flag
-    f = run.faults
+    f = tree_map(lambda x: x[0], run.faults)
     faults_active = (
         (~f.link_ok).sum((1, 2)).cpu() + (~f.router_ok).sum(1).cpu()
         + (~f.mc_ok).sum(1).cpu() + (f.telem_mode.cpu() != 0)
@@ -734,6 +915,10 @@ def _trace(run: RunInputs, probes) -> SimTrace:
     )
 
 
+def _first_row(result: SimResult) -> SimResult:
+    return tree_map(lambda x: x[0], result)
+
+
 def simulate(
     cfg: NoCConfig,
     source: TrafficSourceLike,
@@ -742,17 +927,19 @@ def simulate(
     rng: torch.Generator | EpochStreams | None = None,
     engine: str | None = None,
 ) -> SimResult:
-    """Run one configuration.
+    """Run one configuration: a batch of one through the batch's epoch
+    loop, so its bits are those of its row in any batch.
 
     ``device=None`` runs on the CUDA device and raises if there is none;
-    pass ``device="cpu"`` for the plain-torch path.  ``rng`` is a
-    `torch.Generator` on the run's device, an epoch-stream provider
-    (``epoch -> (u_phase, u_gen, d_idx)``), or None for a generator seeded
-    with ``cfg.seed``.  ``engine`` overrides ``cfg.engine``.  The result
-    lives on the CPU.
+    pass ``device="cpu"`` for the plain-torch path.  ``rng`` None draws the
+    reference's streams from ``cfg.seed`` with JAX's threefry (under the
+    `threefry.threefry_partitionable` setting in force, True by default as
+    in jax 0.9.0); it may also be a `torch.Generator` on the run's device
+    or an epoch-stream provider (``epoch -> (u_phase, u_gen, d_idx)``).
+    ``engine`` overrides ``cfg.engine``.  The result lives on the CPU.
     """
-    return _simulate_impl(run_inputs(cfg, source, device=device, rng=rng,
-                                     engine=engine))
+    return _first_row(_simulate_impl(run_inputs(
+        cfg, source, device=device, rng=rng, engine=engine)))
 
 
 def simulate_with_trace(
@@ -768,10 +955,141 @@ def simulate_with_trace(
     the same arguments; the SimTrace is bitwise equal across the three
     engines.  On the CUDA device the "fused" engine launches the probed
     cycle kernel (B3) once per epoch."""
-    return _simulate_impl(
+    result, trace = _simulate_impl(
         run_inputs(cfg, source, device=device, rng=rng, engine=engine),
         probe=True,
     )
+    return _first_row(result), trace
+
+
+def _stack_results(parts: Sequence[SimResult]) -> SimResult:
+    return tree_map(lambda *xs: torch.cat(xs), *parts)
+
+
+def simulate_batch(
+    cfgs: Sequence[NoCConfig],
+    sources: TrafficSourceLike | Sequence,
+    seeds: Sequence[int] | None = None,
+    batch_tile: int | None = None,
+    *,
+    device: str | torch.device | None = None,
+    engine: str | None = None,
+) -> SimResult:
+    """Evaluate many configurations in lockstep; each row's bits are its
+    standalone `simulate`'s.
+
+    cfgs       — length-B configs sharing one `static_spec()` (mode,
+                 ratio, predictor, guard, control, faults, placement and
+                 seed are per-row data).
+    sources    — length-B demand sources, or one for all rows.
+    seeds      — optional per-row seeds; defaults to each cfg's own.
+    batch_tile — if set, rows run in tiles of this many (the ragged tail
+                 padded by repeating row 0, the pad rows discarded);
+                 None runs the whole batch as one tile.
+
+    On the "fused" engine a tile is one batch: each epoch is ONE launch of
+    the fused cycle kernel whose grid is the tile's rows (one block, one
+    SM, per row), and one epoch boundary for all of them.  On the "ref"
+    and "arb" engines the rows run one after another.  The device-sharded
+    path of the JAX package (`devices` / `mesh`, `sweep_sharded`) is left
+    out: on one card the batch is the grid.  Returns a `SimResult` whose
+    leaves carry a leading (B,) axis, on the CPU, in input order.
+    """
+    cfgs = list(cfgs)
+    if not cfgs:
+        raise ValueError("simulate_batch needs at least one config")
+    n = len(cfgs)
+    sources, seeds = _per_row(cfgs, sources, seeds)
+    stc = cfgs[0].static_spec()
+    if (engine or stc.engine) != "fused":
+        batch_tile = 1
+    tile = n if batch_tile is None else batch_tile
+    parts = []
+    for lo in range(0, n, tile):
+        idx = list(range(lo, min(lo + tile, n)))
+        idx += [idx[0]] * (tile - len(idx))   # pad rows repeat row 0
+        run = batch_inputs([cfgs[i] for i in idx], [sources[i] for i in idx],
+                           seeds=[seeds[i] for i in idx], device=device,
+                           engine=engine)
+        res = _simulate_impl(run)
+        parts.append(tree_map(lambda x: x[:min(tile, n - lo)], res))
+    return _stack_results(parts)
+
+
+class SweepSpec(NamedTuple):
+    """One row of a sweep: a network config x workload x seed point.
+
+    ``workload`` names any demand source `traffic.lookup_workload`
+    resolves; ``predictor`` picks the bank member driving the hysteresis
+    machine; ``guard`` arms the predictor's self-healing layer and
+    ``control`` picks the lever(s) the applied config drives.  ``faults``
+    and ``placement`` take a ready `FaultStream` / `PlacementStream` (or
+    None); the JAX package's named fault and placement scenarios are not
+    ported yet, and a name raises.  A key of `sweep`'s overrides takes
+    precedence over the per-spec value."""
+
+    mode: str
+    workload: str
+    static_gpu_vcs: int = 2
+    seed: int = 0
+    predictor: str = "kf"
+    faults: FaultStream | None = None
+    guard: bool = False
+    placement: PlacementStream | None = None
+    control: str = "bandwidth"
+
+
+# The JAX package's tile (its paper sweeps are multiples of 6 rows, so one
+# executable serves them all with no padding).  Kept for parity; the
+# port's `sweep` runs each group as ONE tile, because its kernel's grid is
+# the batch: a tile of 6 would fill 6 of the card's 132 SMs.
+SWEEP_TILE = 6
+
+
+def sweep(
+    specs: Sequence[SweepSpec],
+    batch_tile: int | None = None,
+    *,
+    device: str | torch.device | None = None,
+    **overrides,
+) -> list[SimResult]:
+    """Run a heterogeneous sweep, batching rows that share a structure.
+
+    Rows are grouped by `static_spec()` (every mode shares one), each
+    group runs through `simulate_batch` (one tile unless ``batch_tile``),
+    and results come back as one `SimResult` per spec, in input order, on
+    the CPU.  ``overrides`` are forwarded to every row's `NoCConfig` (e.g.
+    n_epochs=30).  The JAX package's `sweep_sharded` (a device mesh) is
+    left out: on one card the batch is the grid."""
+    specs = list(specs)
+    rows: list[SimResult | None] = [None] * len(specs)
+    groups: dict[SimStatic, list[int]] = {}
+    cfgs = []
+    for i, sp in enumerate(specs):
+        kw = dict(overrides)
+        kw.setdefault("faults", sp.faults)
+        kw.setdefault("guard", sp.guard)
+        kw.setdefault("placement", sp.placement)
+        kw.setdefault("control", sp.control)
+        for key in ("faults", "placement"):
+            if isinstance(kw[key], str):
+                raise ValueError(
+                    f"named {key} scenario {kw[key]!r}: the port has no "
+                    f"{key} registry yet; pass a ready stream or None")
+        cfg = NoCConfig(
+            mode=sp.mode, static_gpu_vcs=sp.static_gpu_vcs, seed=sp.seed,
+            predictor=sp.predictor, **kw,
+        )
+        cfgs.append(cfg)
+        groups.setdefault(cfg.static_spec(), []).append(i)
+    for idxs in groups.values():
+        res = simulate_batch(
+            [cfgs[i] for i in idxs], [specs[i].workload for i in idxs],
+            batch_tile=batch_tile, device=device,
+        )
+        for j, i in enumerate(idxs):
+            rows[i] = tree_map(lambda x: x[j], res)
+    return rows
 
 
 def run_workload(mode: str, workload: str, *, device=None,

@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch._util import tree_map
 from repro_torch.core import kalman
 
 Tensor = torch.Tensor
@@ -108,48 +109,64 @@ def step_probed(
     state: PredictorState,
     z: Tensor,
 ) -> tuple[PredictorState, Tensor, KFInternals]:
-    """`step` plus the KF internals of the epoch."""
-    kf_post, kf_prior, innovation = kalman.step(kf_params, state.kf, z)
-    zbar = torch.mean(z)
+    """`step` plus the KF internals of the epoch.  ``z`` (m,) steps one
+    bank; ``z`` (B, m) steps B banks at once, with every leaf of ``pp`` and
+    ``state`` carrying the leading B.  One bank is a batch of one, so a
+    bank's bits do not depend on how many step beside it."""
+    if z.ndim > 1:
+        return _step_rows(pp, kf_params, state, z)
+    out = _step_rows(tree_map(lambda x: x[None], pp), kf_params,
+                     tree_map(lambda x: x[None], state), z[None])
+    return tuple(tree_map(lambda x: x[0], part) for part in out)
+
+
+def _step_rows(pp, kf_params, state, z):
+    kf_post, kf_prior, innovation = kalman.batched_step(kf_params, state.kf, z)
+    m = z.shape[-1]
+    zsum = z[:, 0]
+    for j in range(1, m):
+        zsum = zsum + z[:, j]
+    zbar = zsum / m
     ema = pp.ema_alpha * zbar + (1.0 - pp.ema_alpha) * state.ema
 
     # innovation gate: a NaN observation always rejects (NaN > t is False)
-    nis = kalman.innovation_nis(kf_params, kf_prior, z)
-    z_finite = torch.isfinite(z).all()
+    nis = kalman.batched_nis(kf_params, kf_prior, z)
+    z_finite = torch.isfinite(z).all(-1)
     reject = pp.guard & (~z_finite | (nis > pp.nis_threshold))
-    kf_x = torch.where(reject, kf_prior.x, kf_post.x)
-    kf_p = torch.where(reject, kf_prior.p, kf_post.p)
+    kf_x = torch.where(reject[:, None], kf_prior.x, kf_post.x)
+    kf_p = torch.where(reject[:, None, None], kf_prior.p, kf_post.p)
 
     # divergence watchdog + covariance reset
     zero_i = torch.zeros((), dtype=torch.int32)
     reject_run = torch.where(reject, state.reject_run + 1, zero_i)
-    cov_tr = torch.trace(kf_p)
+    cov_tr = kalman.batched_trace(kf_p)
     cov_bad = ~torch.isfinite(cov_tr) | (cov_tr > pp.cov_limit)
     run_bad = reject_run >= pp.watchdog_limit
     do_reset = pp.guard & ((reject_run == pp.watchdog_limit) | cov_bad)
     n = kf_params.state_dim
     kf_x = torch.where(
-        do_reset,
+        do_reset[:, None],
         torch.where(torch.isfinite(kf_x), kf_x, torch.zeros_like(kf_x)),
         kf_x,
     )
-    kf_p = torch.where(do_reset, torch.eye(n, dtype=kf_p.dtype), kf_p)
+    kf_p = torch.where(do_reset[:, None, None],
+                       torch.eye(n, dtype=kf_p.dtype), kf_p)
     healthy = ~pp.guard | ~(run_bad | cov_bad)
     kf_state = kalman.KalmanState(x=kf_x, p=kf_p)
 
-    x_pred = kalman.one_step_prediction(kf_params, kf_state)[0]
+    x_pred = kalman._mv(kf_params.a, kf_x)[:, 0]       # one_step_prediction
+    ones = torch.ones_like(reject_run)
     candidates = torch.stack([
         kalman.binarize(x_pred, pp.threshold),
         kalman.binarize(ema, pp.threshold),
         kalman.binarize(zbar, pp.threshold),
-        torch.tensor(1, dtype=torch.int32),
-        torch.tensor(0, dtype=torch.int32),
-    ])
-    signal = candidates[pp.kind.long()]
+        ones, ones - 1,
+    ], dim=-1)
+    signal = candidates.gather(-1, pp.kind.long()[:, None])[:, 0]
     internals = KFInternals(
         innovation=innovation,
-        gain=kalman.kalman_gain(kf_params, kf_prior)[0],
-        cov_trace=torch.trace(kf_state.p),
+        gain=kalman.batched_gain(kf_params, kf_prior)[:, 0],
+        cov_trace=kalman.batched_trace(kf_state.p),
         x_pred=x_pred,
         nis=nis,
         rejected=reject.to(torch.int32),
@@ -168,6 +185,7 @@ def step(
     state: PredictorState,
     z: Tensor,
 ) -> tuple[PredictorState, Tensor]:
-    """Advance the bank one epoch; returns (new_state, signal () int32)."""
+    """Advance the bank one epoch; returns (new_state, signal () int32, or
+    (B,) for B banks)."""
     new_state, signal, _ = step_probed(pp, kf_params, state, z)
     return new_state, signal

@@ -143,9 +143,11 @@ PB_GRANT, PB_DENY = 0, 1
 PB_MCQ_SUM, PB_MCQ_MAX = 0, 1
 
 
-def zero_probe(d: LaneDims, device="cpu") -> ProbeLanes:
+def zero_probe(d: LaneDims, device="cpu", lead: tuple[int, ...] = ()
+               ) -> ProbeLanes:
+    """A zero flight-recorder carry, with leading batch dims ``lead``."""
     def z(rows, lanes):
-        return torch.zeros((rows, lanes), dtype=_I32, device=device)
+        return torch.zeros((*lead, rows, lanes), dtype=_I32, device=device)
 
     return ProbeLanes(occ=z(d.PV, d.lanes_sr), arb=z(2, d.lanes_sr),
                       mcq=z(2, LANES_R))
@@ -647,7 +649,25 @@ def cycle_steps_lanes(
 ):
     """`cycle_step_lanes` over every cycle row of xi (n, XI_ROWS, S*64) and
     xf (n, XF_ROWS, 128) — the plain version of one kernel launch (B2, or
-    B3 with ``probe``: then it returns (LaneState, ProbeLanes))."""
+    B3 with ``probe``: then it returns (LaneState, ProbeLanes)).
+
+    A batch — xi (B, n, XI_ROWS, S*64), the state, the probe and every
+    epoch row but ``route`` with the leading B — walks its rows one by
+    one, as the kernel's grid runs them side by side."""
+    if xi.ndim == 4:
+        rows = []
+        for b in range(xi.shape[0]):
+            rows.append(cycle_steps_lanes(
+                d, LaneState(*(x[b] for x in st)), xi[b], xf[b],
+                *(c if c.ndim == 2 else c[b] for c in consts),
+                probe=None if probe is None else ProbeLanes(
+                    *(x[b] for x in probe)),
+            ))
+        if probe is None:
+            return LaneState(*(torch.stack(x) for x in zip(*rows)))
+        st_rows, pb_rows = zip(*rows)
+        return (LaneState(*(torch.stack(x) for x in zip(*st_rows))),
+                ProbeLanes(*(torch.stack(x) for x in zip(*pb_rows))))
     for c in range(xi.shape[0]):
         if probe is None:
             st = cycle_step_lanes(d, st, xi[c], xf[c], *consts)
@@ -687,109 +707,127 @@ def run_consts(d: LaneDims, topo: Topology, device="cpu"):
             ntype.to(device))
 
 
+def _tile(x: Tensor, S: int) -> Tensor:
+    """(..., k) -> (..., S*k): S copies of the last dim side by side."""
+    return x.repeat(*([1] * (x.ndim - 1)), S)
+
+
+def _lanes_r(d: LaneDims, x: Tensor) -> Tensor:
+    """(..., R) -> (..., S*64): pad to R_PAD and tile over the subnets."""
+    return _tile(torch.nn.functional.pad(x.to(_I32), (0, R_PAD - d.R)), d.S)
+
+
+# Every helper below takes any leading batch dims (B, ...) on its inputs
+# and gives them to its outputs: a batch of simulations is these rows
+# stacked, which is the layout the kernels' grid reads.
+
 def placement_rows(d: LaneDims, ntype_e: Tensor) -> Tensor:
-    """This epoch's (1, 128) node-type row; padded lanes carry -1."""
-    pad = torch.full((LANES_R - d.R,), -1, dtype=_I32, device=ntype_e.device)
-    return torch.cat([ntype_e.to(_I32), pad])[None, :]
+    """This epoch's (..., 1, 128) node-type row; padded lanes carry -1."""
+    return torch.nn.functional.pad(
+        ntype_e.to(_I32), (0, LANES_R - d.R), value=-1)[..., None, :]
 
 
 def policy_rows(
     d: LaneDims,
-    sub_enabled: Tensor, sub_is_req: Tensor, sub_is_rep: Tensor,  # (S,) bool
-    req_match: Tensor,                                             # (S, R) bool
-    fs: Tensor, n_req_subs: Tensor,                                # () scalars
+    sub_enabled: Tensor, sub_is_req: Tensor, sub_is_rep: Tensor,  # (.., S)
+    req_match: Tensor,                                             # (.., S, R)
+    fs: Tensor, n_req_subs: Tensor,                                # (..,)
 ):
-    """Subnet-structure rows: (PS_ROWS, S*64) + (PR_ROWS, 128)."""
+    """Subnet-structure rows: (..., PS_ROWS, S*64) + (..., PR_ROWS, 128)."""
     def sr_of_s(x):
-        return x.to(_I32).repeat_interleave(R_PAD)[None, :]
+        return x.to(_I32).repeat_interleave(R_PAD, dim=-1)[..., None, :]
 
+    lead = req_match.shape[:-2]
     rm = torch.nn.functional.pad(req_match.to(_I32), (0, R_PAD - d.R))
     pol_sr = torch.cat(
         [sr_of_s(sub_enabled), sr_of_s(sub_is_req), sr_of_s(sub_is_rep),
-         rm.reshape(1, d.lanes_sr)],
-        dim=0,
+         rm.reshape(*lead, 1, d.lanes_sr)],
+        dim=-2,
     )
     pol_r = torch.stack([
-        fs.to(_I32).expand(LANES_R), n_req_subs.to(_I32).expand(LANES_R),
-    ])
+        fs.to(_I32)[..., None].expand(*lead, LANES_R),
+        n_req_subs.to(_I32)[..., None].expand(*lead, LANES_R),
+    ], dim=-2)
     return pol_sr, pol_r
 
 
 def mask_rows(d: LaneDims, g_vec: Tensor, c_vec: Tensor):
-    """Epoch VC-partition masks (V,) -> (V, S*64) int32 rows."""
-    gm = g_vec.to(_I32)[:, None].expand(d.V, d.lanes_sr).contiguous()
-    cm = c_vec.to(_I32)[:, None].expand(d.V, d.lanes_sr).contiguous()
-    return gm, cm
+    """Epoch VC-partition masks (..., V) -> (..., V, S*64) int32 rows."""
+    def rows(x):
+        return x.to(_I32)[..., None].expand(*x.shape, d.lanes_sr).contiguous()
+
+    return rows(g_vec), rows(c_vec)
 
 
 def prof_rows(prof: WorkloadProfile) -> Tensor:
-    """This epoch's scalar profile leaves broadcast to (5, 128) float32."""
+    """This epoch's profile leaves (...) broadcast to (..., 5, 128)
+    float32."""
+    leaves = [torch.as_tensor(leaf, dtype=torch.float32) for leaf in prof]
     return torch.stack([
-        torch.as_tensor(leaf, dtype=torch.float32).expand(LANES_R)
-        for leaf in prof
-    ])
+        x[..., None].expand(*x.shape, LANES_R) for x in leaves
+    ], dim=-2)
 
 
 def cycle_xs(
     d: LaneDims,
     cycles: Tensor,      # (E,) int32
-    u_phase: Tensor,     # (E,) float32
-    u_gen: Tensor,       # (E, R) float32
-    dests_all: Tensor,   # (E, R) int
-    sa_all: Tensor,      # (E,) int32
-    active_all: Tensor,  # (E, S) bool
+    u_phase: Tensor,     # (..., E) float32
+    u_gen: Tensor,       # (..., E, R) float32
+    dests_all: Tensor,   # (..., E, R) int
+    sa_all: Tensor,      # (..., E) int32
+    active_all: Tensor,  # (..., E, S) bool
     rep_gate: Tensor,    # (E,) bool
-    router_ok: Tensor | None = None,  # (R,) bool
-    mc_ok: Tensor | None = None,      # (R,) bool
+    router_ok: Tensor | None = None,  # (..., R) bool
+    mc_ok: Tensor | None = None,      # (..., R) bool
 ):
-    """Per-cycle xs in lane layout: (E, XI_ROWS, S*64) + (E, XF_ROWS, 128).
-    `router_ok` ANDs into the active row, `mc_ok` becomes the MC-ok row."""
-    E = cycles.shape[0]
+    """Per-cycle xs in lane layout: (..., E, XI_ROWS, S*64) + (..., E,
+    XF_ROWS, 128), the leading dims those of ``u_phase``.  `router_ok` ANDs
+    into the active row, `mc_ok` becomes the MC-ok row."""
+    *lead, E = u_phase.shape
     L = d.lanes_sr
-    dev = cycles.device
-    F = torch.nn.functional
+    dev = u_phase.device
 
     def b_sr(x):
-        return x.to(_I32)[:, None].expand(E, L)
+        return x.to(_I32)[..., None].expand(*lead, E, L)
 
-    def r_row(x):  # (R,) -> (L,): pad to R_PAD, tile over subnets
-        return F.pad(x.to(_I32), (0, R_PAD - d.R)).repeat(d.S)
-
-    dest_rows = F.pad(dests_all.to(_I32), (0, R_PAD - d.R)).repeat(1, d.S)
-    act_rows = active_all.to(_I32).repeat_interleave(R_PAD, dim=1)
+    act_rows = active_all.to(_I32).repeat_interleave(R_PAD, dim=-1)
     if router_ok is not None:
-        act_rows = act_rows * r_row(router_ok)[None, :]
-    mcok_src = torch.ones((d.R,), dtype=_I32, device=dev) if mc_ok is None else mc_ok
-    mcok_rows = r_row(mcok_src)[None, :].expand(E, L)
+        act_rows = act_rows * _lanes_r(d, router_ok)[..., None, :]
+    if mc_ok is None:
+        mc_ok = torch.ones((d.R,), dtype=_I32, device=dev)
     xi = torch.stack(
-        [b_sr(cycles), b_sr(sa_all), b_sr(rep_gate), act_rows, dest_rows,
-         mcok_rows],
-        dim=1,
+        [b_sr(cycles), b_sr(sa_all), b_sr(rep_gate),
+         act_rows.expand(*lead, E, L), _lanes_r(d, dests_all).expand(*lead, E, L),
+         _lanes_r(d, mc_ok)[..., None, :].expand(*lead, E, L)],
+        dim=-2,
     ).contiguous()
-    u_ph = u_phase.to(torch.float32)[:, None].expand(E, LANES_R)
-    u_g = F.pad(u_gen.to(torch.float32), (0, LANES_R - d.R))
-    xf = torch.stack([u_ph, u_g], dim=1).contiguous()
+    u_ph = u_phase.to(torch.float32)[..., None].expand(*lead, E, LANES_R)
+    u_g = torch.nn.functional.pad(u_gen.to(torch.float32), (0, LANES_R - d.R))
+    xf = torch.stack([u_ph, u_g.expand(*lead, E, LANES_R)], dim=-2).contiguous()
     return xi, xf
 
 
-def _to_sr_rows(d: LaneDims, x: Tensor) -> Tensor:
-    """(S, R, *tail) -> (prod(tail), S*64) int32, tail flattened C-style."""
+def _to_sr_rows(d: LaneDims, x: Tensor, n_tail: int) -> Tensor:
+    """(..., S, R, *tail) -> (..., prod(tail), S*64) int32, tail flattened
+    C-style; ``n_tail`` is the number of tail dims."""
+    lead = x.shape[:x.ndim - 2 - n_tail]
     rows = 1
-    for t in x.shape[2:]:
+    for t in x.shape[x.ndim - n_tail:]:
         rows *= t
-    x = x.to(_I32).reshape(d.S, d.R, rows).permute(2, 0, 1)
+    x = x.to(_I32).reshape(*lead, d.S, d.R, rows).movedim(-1, -3)
     x = torch.nn.functional.pad(x, (0, R_PAD - d.R))
-    return x.reshape(rows, d.lanes_sr).contiguous()
+    return x.reshape(*lead, rows, d.lanes_sr).contiguous()
 
 
 def _from_sr_rows(d: LaneDims, x: Tensor, tail: tuple, dtype) -> Tensor:
-    rows = x.shape[0]
-    x = x.reshape(rows, d.S, R_PAD)[:, :, :d.R]
-    return x.permute(1, 2, 0).reshape((d.S, d.R) + tail).to(dtype).contiguous()
+    *lead, rows, _ = x.shape
+    x = x.reshape(*lead, rows, d.S, R_PAD)[..., :d.R]
+    return x.movedim(-3, -1).reshape(*lead, d.S, d.R, *tail).to(
+        dtype).contiguous()
 
 
 def _to_r_row(d: LaneDims, x: Tensor) -> Tensor:
-    return torch.nn.functional.pad(x.to(_I32), (0, LANES_R - d.R))[None, :]
+    return torch.nn.functional.pad(x.to(_I32), (0, LANES_R - d.R))[..., None, :]
 
 
 def pack_state(
@@ -798,28 +836,29 @@ def pack_state(
 ) -> LaneState:
     """Dense sim carry -> lane layout (all int32)."""
     dev = subs.buf_meta.device
+    lead = outstanding.shape[:-1]
     mcq = torch.nn.functional.pad(
-        mc.q_meta.to(_I32).T, (0, LANES_R - d.R)
+        mc.q_meta.to(_I32).transpose(-1, -2), (0, LANES_R - d.R)
     ).contiguous()
     mc_rows = torch.cat([
         _to_r_row(d, mc.head), _to_r_row(d, mc.count),
         _to_r_row(d, mc.timer), _to_r_row(d, mc.stage_valid),
         _to_r_row(d, mc.stage_dst), _to_r_row(d, mc.stage_cls),
-    ], dim=0)
+    ], dim=-2)
     node_rows = torch.cat([
         _to_r_row(d, outstanding), _to_r_row(d, backlog),
-        phase.to(_I32).reshape(1, 1).expand(1, LANES_R),
-    ], dim=0)
+        phase.to(_I32)[..., None, None].expand(*lead, 1, LANES_R),
+    ], dim=-2)
     return LaneState(
-        buf_meta=_to_sr_rows(d, subs.buf_meta),
-        buf_binj=_to_sr_rows(d, subs.buf_binj),
-        head=_to_sr_rows(d, subs.head),
-        count=_to_sr_rows(d, subs.count),
-        rr=_to_sr_rows(d, subs.rr_ptr),
+        buf_meta=_to_sr_rows(d, subs.buf_meta, 3),
+        buf_binj=_to_sr_rows(d, subs.buf_binj, 3),
+        head=_to_sr_rows(d, subs.head, 2),
+        count=_to_sr_rows(d, subs.count, 2),
+        rr=_to_sr_rows(d, subs.rr_ptr, 1),
         mcq=mcq,
         mc=mc_rows,
         node=node_rows,
-        cnt=torch.zeros((1, LANES_R), dtype=_I32, device=dev),
+        cnt=torch.zeros((*lead, 1, LANES_R), dtype=_I32, device=dev),
     )
 
 
@@ -836,30 +875,32 @@ def unpack_state(d: LaneDims, ls: LaneState, mc_cls,
         rr_ptr=_from_sr_rows(d, ls.rr, (P,), torch.int8),
     )
     mc = mc_cls(
-        q_meta=ls.mcq[:, :d.R].T.to(torch.int8).contiguous(),
-        head=ls.mc[MC_HEAD, :d.R].clone(),
-        count=ls.mc[MC_COUNT, :d.R].clone(),
-        timer=ls.mc[MC_TIMER, :d.R].clone(),
-        stage_valid=ls.mc[MC_SVALID, :d.R] != 0,
-        stage_dst=ls.mc[MC_SDST, :d.R].clone(),
-        stage_cls=ls.mc[MC_SCLS, :d.R].clone(),
+        q_meta=ls.mcq[..., :d.R].transpose(-1, -2).to(
+            torch.int8).contiguous(),
+        head=ls.mc[..., MC_HEAD, :d.R].clone(),
+        count=ls.mc[..., MC_COUNT, :d.R].clone(),
+        timer=ls.mc[..., MC_TIMER, :d.R].clone(),
+        stage_valid=ls.mc[..., MC_SVALID, :d.R] != 0,
+        stage_dst=ls.mc[..., MC_SDST, :d.R].clone(),
+        stage_cls=ls.mc[..., MC_SCLS, :d.R].clone(),
     )
-    outstanding = ls.node[ND_OUTST, :d.R].clone()
-    backlog = ls.node[ND_BACKLOG, :d.R].clone()
-    phase = ls.node[ND_PHASE, 0].clone()
+    outstanding = ls.node[..., ND_OUTST, :d.R].clone()
+    backlog = ls.node[..., ND_BACKLOG, :d.R].clone()
+    phase = ls.node[..., ND_PHASE, 0].clone()
     return subs, mc, outstanding, backlog, phase
 
 
 def unpack_probe(d: LaneDims, pb: ProbeLanes):
     """Probe lanes -> dense probe accumulators, all int32: (occ (S,R,P,V),
-    grant (S,R), deny (S,R), mcq_sum (R,), mcq_max (R,)).  Padded lanes
-    never accumulate, so the [:R] slices are exact."""
+    grant (S,R), deny (S,R), mcq_sum (R,), mcq_max (R,)), with the probe's
+    leading batch dims.  Padded lanes never accumulate, so the [:R] slices
+    are exact."""
     occ = _from_sr_rows(d, pb.occ, (N_PORTS, d.V), _I32)
     arb = _from_sr_rows(d, pb.arb, (2,), _I32)
     return (
         occ,
         arb[..., PB_GRANT].contiguous(),
         arb[..., PB_DENY].contiguous(),
-        pb.mcq[PB_MCQ_SUM, :d.R].clone(),
-        pb.mcq[PB_MCQ_MAX, :d.R].clone(),
+        pb.mcq[..., PB_MCQ_SUM, :d.R].clone(),
+        pb.mcq[..., PB_MCQ_MAX, :d.R].clone(),
     )

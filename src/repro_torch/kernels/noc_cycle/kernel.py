@@ -134,34 +134,39 @@ def _fused_args(
     xf: torch.Tensor, consts: tuple[torch.Tensor, ...], what: str,
 ) -> list[int]:
     """Check B2/B3's common operands; returns the C arguments up to the
-    probe pointers (ints, then data pointers)."""
+    probe pointers (ints, then data pointers).  A batch of B simulations
+    is xi (B, n, XI_ROWS, L) with every per-simulation operand carrying the
+    leading B (the kernel's grid); ``route`` is shared.  xi (n, XI_ROWS, L)
+    is one simulation, with no leading dim anywhere."""
     if (d.V, d.B) not in FUSED_VB:
         raise ValueError(f"{what} has no instantiation for V={d.V}, B={d.B}")
     L, LR, P = d.lanes_sr, fused.LANES_R, fused.N_PORTS
-    n = xi.shape[0]
+    batch = xi.shape[0] if xi.ndim == 4 else 1
+    lead = xi.shape[:1] if xi.ndim == 4 else ()
+    n = xi.shape[-3]
     shapes = dict(
         buf_meta=(d.PV * d.B, L), buf_binj=(d.PV * d.B, L), head=(d.PV, L),
         count=(d.PV, L), rr=(P, L), mcq=(d.Q, LR), mc=(fused.MC_ROWS, LR),
         node=(fused.ND_ROWS, LR), cnt=(1, LR),
     )
     for name, x in zip(fused.LaneState._fields, state):
-        _check(name, x, shapes[name])
+        _check(name, x, (*lead, *shapes[name]))
     named = [
-        ("xi", xi, (n, fused.XI_ROWS, L), torch.int32),
-        ("xf", xf, (n, fused.XF_ROWS, LR), torch.float32),
-        ("gmask", consts[0], (d.V, L), torch.int32),
-        ("cmask", consts[1], (d.V, L), torch.int32),
-        ("prof", consts[2], (fused.N_PROF, LR), torch.float32),
-        ("pol_sr", consts[3], (fused.PS_ROWS, L), torch.int32),
-        ("pol_r", consts[4], (fused.PR_ROWS, LR), torch.int32),
-        ("ntype", consts[5], (1, LR), torch.int32),
+        ("xi", xi, (*lead, n, fused.XI_ROWS, L), torch.int32),
+        ("xf", xf, (*lead, n, fused.XF_ROWS, LR), torch.float32),
+        ("gmask", consts[0], (*lead, d.V, L), torch.int32),
+        ("cmask", consts[1], (*lead, d.V, L), torch.int32),
+        ("prof", consts[2], (*lead, fused.N_PROF, LR), torch.float32),
+        ("pol_sr", consts[3], (*lead, fused.PS_ROWS, L), torch.int32),
+        ("pol_r", consts[4], (*lead, fused.PR_ROWS, LR), torch.int32),
+        ("ntype", consts[5], (*lead, 1, LR), torch.int32),
         ("route", consts[6], (d.R, L), torch.int32),
-        ("exists", consts[7], (P, L), torch.int32),
+        ("exists", consts[7], (*lead, P, L), torch.int32),
     ]
     for name, x, shape, dtype in named:
         _check(name, x, shape, dtype)
     return [
-        1, n, d.S, d.R, d.V, d.B, d.Q, d.width, d.mc_service_period,
+        batch, n, d.S, d.R, d.V, d.B, d.Q, d.width, d.mc_service_period,
         d.mshr_limit, d.bcap, d.stamp_mask,
         *(x.data_ptr() for x in state),
         *(x.data_ptr() for _, x, _, _ in named),
@@ -176,7 +181,9 @@ def noc_fused_cycles(
     pol_sr: torch.Tensor, pol_r: torch.Tensor, ntype: torch.Tensor,
     route: torch.Tensor, exists: torch.Tensor,
 ) -> None:
-    """B2: run xi.shape[0] cycles, updating ``state``'s arrays IN PLACE."""
+    """B2: run the n cycles of xi (n, XI_ROWS, L), or of each row of a
+    batch xi (B, n, XI_ROWS, L) in one launch of B blocks, updating
+    ``state``'s arrays IN PLACE."""
     consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
     args = _fused_args(d, state, xi, xf, consts, "noc_fused_cycles")
     stream = torch.cuda.current_stream(xi.device).cuda_stream
@@ -197,9 +204,10 @@ def noc_fused_cycles_probed(
     consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
     args = _fused_args(d, state, xi, xf, consts, "noc_fused_cycles_probed")
     L, LR = d.lanes_sr, fused.LANES_R
+    lead = xi.shape[:1] if xi.ndim == 4 else ()
     for name, x, shape in zip(fused.ProbeLanes._fields, probe,
                               ((d.PV, L), (2, L), (2, LR))):
-        _check(f"probe.{name}", x, shape)
+        _check(f"probe.{name}", x, (*lead, *shape))
     stream = torch.cuda.current_stream(xi.device).cuda_stream
     rc = library().noc_fused_cycles_probed(
         *args, *(x.data_ptr() for x in probe), stream
@@ -228,6 +236,8 @@ def noc_fused_cycles_clocked(
     its clock64() sums per stage (`CLOCK_STAGES`) over the launch, in SM
     clocks.  Synchronises (it reads the sums back); not counted in
     ops.LAUNCHES."""
+    if xi.ndim == 4:
+        raise ValueError("noc_fused_cycles_clocked runs one simulation")
     consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)
     args = _fused_args(d, state, xi, xf, consts, "noc_fused_cycles_clocked")
     clocks = torch.zeros(len(CLOCK_STAGES), dtype=torch.int64,

@@ -54,7 +54,12 @@ def fused_cycle_step(
     matching ``xf`` — from ``state``; returns the new state, or (state,
     ProbeLanes) with the flight-recorder carry ``probe`` added to.  The
     inputs are left unchanged unless ``donate``: then the kernel may update
-    their (contiguous) arrays in place."""
+    their (contiguous) arrays in place.
+
+    A batch of B simulations is xi (B, n, XI_ROWS, L), with the state, the
+    probe and every epoch row but ``route`` carrying the leading B: on the
+    card it is ONE launch whose grid is the batch, on the CPU the plain
+    version walks the rows."""
     if xi.ndim == 2:
         xi, xf = xi[None], xf[None]
     consts = (gmask, cmask, prof, pol_sr, pol_r, ntype, route, exists)

@@ -275,7 +275,7 @@ def test_fused_kernel_matches_plain(mode, donate):
     st = fused.pack_state(d, subs, mc, outst, backlog,
                           traffic.init_phase().to(dev))
     ep = sim.epoch_inputs(run, 0, torch.tensor(1, dtype=torch.int32), 0)
-    xi, xf, consts = sim.lane_inputs(run, tables, ep)
+    xi, xf, consts = sim.lane_row(*sim.lane_inputs(run, tables, ep), 0)
     st = ops.fused_cycle_step(d, st, xi[:60], xf[:60], *consts)  # fill
     assert int(st.count.sum()) > 0
     kept = fused.LaneState(*(x.clone() for x in st))
@@ -293,6 +293,66 @@ def test_fused_kernel_matches_plain(mode, donate):
 
 
 @pytest.mark.cuda
+def test_fused_kernel_batch_matches_plain():
+    """B2 on a batch of three runs (kf / 4subnet / fair, two seeds) in one
+    launch against the plain version walking the rows, from states 60
+    cycles in, after 1 and 300 cycles; and each row against a launch of
+    its own."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    cfgs = [sim.NoCConfig(mode=m, seed=s, n_epochs=2, epoch_len=400,
+                          policy=PolicyConfig(warmup=200, hold=100,
+                                              revert=300))
+            for m, s in (("kf", 0), ("4subnet", 1), ("fair", 0))]
+    run = sim.batch_inputs(cfgs, "SHIFT_PATH_BFS", device=dev)
+    tables = sim.lane_tables(run)
+    d = tables[0]
+    subs, mc, outst, backlog = sim.init_sim_state(run.stc, dev, n_rows=3)
+    st = fused.pack_state(d, subs, mc, outst, backlog,
+                          torch.zeros(3, dtype=torch.int32, device=dev))
+    ep = sim.epoch_inputs(run, 0, torch.tensor([1, 0, 1], dtype=torch.int32),
+                          0)
+    xi, xf, consts = sim.lane_inputs(run, tables, ep)
+    ops.reset_launches()
+    st = ops.fused_cycle_step(d, st, xi[:, :60], xf[:, :60], *consts)
+    assert ops.LAUNCHES["noc_fused_cycles"] == 1
+    assert int(st.count.sum()) > 0
+    for n in (1, 300):
+        k = ops.fused_cycle_step(d, st, xi[:, 60:60 + n], xf[:, 60:60 + n],
+                                 *consts)
+        p = fused.cycle_steps_lanes(d, st, xi[:, 60:60 + n],
+                                    xf[:, 60:60 + n], *consts)
+        for name, a, b in zip(fused.LaneState._fields, k, p):
+            assert torch.equal(a, b), (n, name)
+        for b in range(3):
+            xb, fb, cb = sim.lane_row(xi[:, 60:60 + n], xf[:, 60:60 + n],
+                                      consts, b)
+            alone = ops.fused_cycle_step(
+                d, fused.LaneState(*(x[b] for x in st)), xb, fb, *cb)
+            for name, a, c in zip(fused.LaneState._fields, k, alone):
+                assert torch.equal(a[b], c), (n, b, name)
+
+
+@pytest.mark.cuda
+def test_simulate_batch_equals_standalone_on_card():
+    """simulate_batch of mixed modes and seeds (a ragged tile) equals each
+    row's standalone simulate bitwise, one B2 launch an epoch a tile."""
+    _need_cuda()
+    cfgs = [_small_cfg(m, seed=s) for m, s in
+            (("kf", 0), ("fair", 1), ("4subnet", 0), ("kf", 1),
+             ("baseline", 2))]
+    ops.reset_launches()
+    res = sim.simulate_batch(cfgs, "SHIFT_PATH_BFS", batch_tile=3)
+    assert ops.LAUNCHES["noc_fused_cycles"] == 2 * cfgs[0].n_epochs
+    for b, cfg in enumerate(cfgs):
+        alone = sim.simulate(cfg, "SHIFT_PATH_BFS")
+        for f, x, y in zip(sim.SimResult._fields, res, alone):
+            pairs = zip(x, y) if f == "counters" else [(x, y)]
+            for xx, yy in pairs:
+                assert torch.equal(xx[b], yy), (b, f)
+
+
+@pytest.mark.cuda
 def test_probed_kernel_matches_plain():
     """B3 against `cycle_steps_lanes(..., probe=...)` from a non-zero
     carry, after 1 and 50 cycles, bitwise on every field."""
@@ -306,7 +366,7 @@ def test_probed_kernel_matches_plain():
     st = fused.pack_state(d, subs, mc, outst, backlog,
                           traffic.init_phase().to(dev))
     ep = sim.epoch_inputs(run, 0, torch.tensor(1, dtype=torch.int32), 0)
-    xi, xf, consts = sim.lane_inputs(run, tables, ep)
+    xi, xf, consts = sim.lane_row(*sim.lane_inputs(run, tables, ep), 0)
     st = ops.fused_cycle_step(d, st, xi[:60], xf[:60], *consts)  # fill
     pb = fused.zero_probe(d, dev)
     _, pb = ops.fused_cycle_step(d, st, xi[:7], xf[:7], *consts, probe=pb)

@@ -73,19 +73,26 @@ def _port_files():
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """No module of the port, nor chip_smoke.py, imports jax or repro."""
+    """No module of the port, nor chip_smoke.py, nor a torch driver
+    (benchmarks/torch_*.py) imports jax, repro or the JAX drivers' CLI
+    helpers (benchmarks._cli)."""
     bad = []
-    for path in _port_files():
+    drivers = sorted((ROOT / "benchmarks").glob("torch_*.py"))
+    assert len(drivers) >= 5
+    for path in _port_files() + drivers:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""] if node.level == 0 else []
+                names += [f"{node.module}.{a.name}" for a in node.names
+                          if node.module == "benchmarks"]
             else:
                 continue
             for n in names:
-                if n.split(".")[0] in ("jax", "jaxlib", "repro"):
+                if (n.split(".")[0] in ("jax", "jaxlib", "repro")
+                        or n.startswith("benchmarks._cli")):
                     bad.append(f"{path.relative_to(ROOT)}: {n}")
     assert not bad, bad
     # the walk covers every subpackage of the port, the serving and fleet
