@@ -54,9 +54,12 @@ build/repro_torch/), then runs, each phase failing the script on error:
      JAX package's committed noc_ablation row in BENCH_noc.json (read-only)
      and its gate (KF >= every naive predictor on SHIFT_PATH_BFS); the
      gate scenario under the default scheme, its kf cell within 2e-6 of
-     the reference's 0.735548; the ablation's wall and aggregate simulated
-     cycles/s, B2's ms per launch at batch 60 beside batch 1, and the time
-     to draw one paper run's streams;
+     the reference's 0.735548; B2 at batch 60 (the ablation's epoch-0
+     inputs) bitwise against its plain version on every LaneState field, 1
+     cycle from the zero state and 1 and 200 cycles from the state 500
+     cycles in; the ablation's wall and aggregate simulated cycles/s, B2's
+     ms per launch at batch 60 beside batch 1, and the time to draw one
+     paper run's streams;
   [B4] the KF bank kernel (kf_bank) against its plain version, bitwise,
      at n = 7 ... 1,048,576 filters and M = 3, 5 observations, in its step
      form and its epoch form (the boost signal fused in, against
@@ -586,6 +589,8 @@ def rel_l2(a, b) -> float:
 ABLATION_BENCH = "noc_ablation"
 ABL_KF_PARTITIONABLE = 0.735548
 ABL_TOL = 2e-6
+# cycles of B2 at batch 60 held against its plain version in [sweep] (d)
+B60_PLAIN_CYCLES = 200
 
 
 def phase_sweep(dev) -> dict:
@@ -598,8 +603,9 @@ def phase_sweep(dev) -> dict:
     its gate; (c) the gate scenario under the default (partitionable)
     scheme, its kf cell against the reference's reading; (d) B2 per launch
     at batch 60 beside batch 1 (turns 1, 60, 60, 1) and the time to draw
-    one paper run's streams.  Returns B2's launches on these paths and the
-    timings."""
+    one paper run's streams; and B2 at batch 60 held bitwise against its
+    plain version.  Returns B2's launches on these paths, its max abs error
+    at batch 60 and the timings."""
     import torch
 
     from benchmarks import torch_fig_ablation as abl
@@ -708,7 +714,35 @@ def phase_sweep(dev) -> dict:
     st60 = fused.pack_state(d, subs, mc, outst, backlog,
                             torch.zeros(len(specs), dtype=torch.int32,
                                         device=dev))
+
+    # B2 against its plain version at batch 60, bitwise on every LaneState
+    # field: 1 cycle from the zero state, then 1 and B60_PLAIN_CYCLES
+    # cycles from the state 500 cycles in (the plain version walks the 60
+    # rows one by one; these launches are not counted on the main path)
+    out["b2_err"] = 0
+
+    def b2_vs_plain(st, n, plain_from=None, first=0):
+        k = ops.fused_cycle_step(d, st, xi[:, :n], xf[:, :n], *consts)
+        p = fused.cycle_steps_lanes(
+            d, st if plain_from is None else plain_from, xi[:, first:n],
+            xf[:, first:n], *consts)
+        err = max_diff(k, p)
+        check(err == 0, f"B2 at batch {len(specs)} disagrees with {n} plain "
+                        f"cycles (max abs err {err})")
+        out["b2_err"] = max(out["b2_err"], err)
+        return p
+
+    t0 = time.time()
+    b2_vs_plain(st60, 1)
     kernel.noc_fused_cycles(d, st60, xi, xf, *consts)      # fill
+    p1 = b2_vs_plain(st60, 1)
+    b2_vs_plain(st60, B60_PLAIN_CYCLES, plain_from=p1, first=1)
+    print(f"[sweep] (d) B2 at batch {len(specs)} (the ablation's epoch-0 "
+          f"inputs) bitwise equal to its plain version on every LaneState "
+          f"field of every row: 1 cycle from the zero state, 1 and "
+          f"{B60_PLAIN_CYCLES} cycles from the state 500 cycles in "
+          f"({time.time() - t0:.1f} s)")
+    sys.stdout.flush()
     x1, f1, c1 = sim.lane_row(xi, xf, consts, 0)
     st1 = type(st60)(*(x[0].clone() for x in st60))
 
@@ -1919,7 +1953,8 @@ def main() -> int:
         dict(name="noc_fused_cycles", route="cuda",
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
              replaces="src/repro/kernels/noc_cycle/kernel.py:114",
-             launches=b2_launches + swp["launches"], max_abs_err=b2_err,
+             launches=b2_launches + swp["launches"],
+             max_abs_err=max(b2_err, swp["b2_err"]),
              ms=b2_ms,
              plain_ms=b2_plain_ms, bound_ms=bm2, bound_by=by2,
              library_ms=None),

@@ -157,9 +157,12 @@ def _mm(a: Tensor, b: Tensor) -> Tensor:
     """a (..., i, k) @ b (..., k, j) with each k-sum taken in index order,
     one multiply and one add at a time: the same bits at every batch size
     (a batched matmul may pick its order by the batch)."""
-    acc = a[..., :, 0, None] * b[..., None, 0, :]
-    for k in range(1, a.shape[-1]):
-        acc = acc + a[..., :, k, None] * b[..., None, k, :]
+    if a.shape[-1] == 1:
+        return a * b                    # one product per element, no sum
+    terms = (a.unsqueeze(-1) * b.unsqueeze(-3)).unbind(-2)
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
     return acc
 
 
@@ -182,6 +185,16 @@ def batched_step(
     every product sums in index order (`_mm`), so a filter's bits do not
     depend on the bank's size; the coast is decided per filter.  Returns
     (posterior, prior, innovation), each with the leading B."""
+    return batched_update(params, states, z, u)[:3]
+
+
+def batched_update(
+    params: KalmanParams, states: KalmanState, z: Tensor,
+    u: Tensor | None = None,
+):
+    """`batched_step` that also returns the innovation covariance S (B, m,
+    m) and the gain K (B, n, m) it used, for the callers that need them
+    (`innovation_nis`, `kalman_gain`) without forming them again."""
     x, p = states
     a, h = params.a, params.h
     x_prior = _mv(a, x)
@@ -203,26 +216,20 @@ def batched_step(
     x_post = torch.where(coast[:, None], x_prior, x_post)
     p_post = torch.where(coast[:, None, None], p_prior, p_post)
     return (KalmanState(x=x_post, p=p_post), KalmanState(x=x_prior, p=p_prior),
-            innovation)
+            innovation, s, k)
 
 
-def batched_gain(params: KalmanParams, prior: KalmanState) -> Tensor:
-    """`kalman_gain` over a bank: (B, n, m), in `batched_step`'s order."""
-    s = _innovation_cov(params, prior.p)
-    return _solve(s, _mm(params.h, prior.p.transpose(-1, -2))).transpose(-1, -2)
-
-
-def batched_nis(params: KalmanParams, prior: KalmanState, z: Tensor) -> Tensor:
-    """`innovation_nis` over a bank: (B,), sums in index order."""
-    s = _innovation_cov(params, prior.p)
-    nu = z - _mv(params.h, prior.x)
-    sol = _solve(s, nu[..., None])[..., 0]
-    return _mm(nu[..., None, :], sol[..., None])[..., 0, 0]
+def batched_nis(s: Tensor, innovation: Tensor) -> Tensor:
+    """`innovation_nis` over a bank from `batched_update`'s S (B, m, m) and
+    innovation (B, m): (B,), sums in index order."""
+    sol = _solve(s, innovation[..., None])[..., 0]
+    return _mm(innovation[..., None, :], sol[..., None])[..., 0, 0]
 
 
 def batched_trace(p: Tensor) -> Tensor:
     """tr(P) over a bank (B, n, n) -> (B,), summed in index order."""
-    acc = p[..., 0, 0]
-    for i in range(1, p.shape[-1]):
-        acc = acc + p[..., i, i]
+    diag = torch.diagonal(p, dim1=-2, dim2=-1).unbind(-1)
+    acc = diag[0]
+    for d in diag[1:]:
+        acc = acc + d
     return acc

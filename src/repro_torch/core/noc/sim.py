@@ -310,7 +310,8 @@ def threefry_epoch_streams(
     flag = threefry.partitionable()
     uniq, inv = torch.unique(torch.as_tensor(list(seeds), dtype=torch.int64),
                              return_inverse=True)
-    inv = inv.to(device)
+    # distinct seeds in ascending order (one run among them) need no gather
+    inv = None if inv.equal(torch.arange(len(inv))) else inv.to(device)
     keys = threefry.split(threefry.prng_key(uniq, device), n_epochs)
     # ~12 int64 words alive per drawn element at the widest step
     per_epoch = len(uniq) * epoch_len * n_routers * 8 * 12
@@ -330,7 +331,8 @@ def threefry_epoch_streams(
         if lo not in drawn:
             drawn.clear()
             drawn[lo] = draw(lo)
-        return tuple(x[:, epoch - lo][inv] for x in drawn[lo])
+        return tuple(x[:, epoch - lo] if inv is None else x[:, epoch - lo][inv]
+                     for x in drawn[lo])
 
     return streams
 
@@ -987,22 +989,20 @@ def simulate_batch(
                  padded by repeating row 0, the pad rows discarded);
                  None runs the whole batch as one tile.
 
-    On the "fused" engine a tile is one batch: each epoch is ONE launch of
-    the fused cycle kernel whose grid is the tile's rows (one block, one
-    SM, per row), and one epoch boundary for all of them.  On the "ref"
-    and "arb" engines the rows run one after another.  The device-sharded
-    path of the JAX package (`devices` / `mesh`, `sweep_sharded`) is left
-    out: on one card the batch is the grid.  Returns a `SimResult` whose
-    leaves carry a leading (B,) axis, on the CPU, in input order.
+    A tile is one batch with one epoch boundary for all its rows.  On the
+    "fused" engine each epoch is ONE launch of the fused cycle kernel whose
+    grid is the tile's rows (one block, one SM, per row); on the "ref" and
+    "arb" engines each epoch walks the rows' cycles one row after another.
+    The device-sharded path of the JAX package (`devices` / `mesh`,
+    `sweep_sharded`) is left out: on one card the batch is the grid.
+    Returns a `SimResult` whose leaves carry a leading (B,) axis, on the
+    CPU, in input order.
     """
     cfgs = list(cfgs)
     if not cfgs:
         raise ValueError("simulate_batch needs at least one config")
     n = len(cfgs)
     sources, seeds = _per_row(cfgs, sources, seeds)
-    stc = cfgs[0].static_spec()
-    if (engine or stc.engine) != "fused":
-        batch_tile = 1
     tile = n if batch_tile is None else batch_tile
     parts = []
     for lo in range(0, n, tile):

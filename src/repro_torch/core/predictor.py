@@ -121,7 +121,8 @@ def step_probed(
 
 
 def _step_rows(pp, kf_params, state, z):
-    kf_post, kf_prior, innovation = kalman.batched_step(kf_params, state.kf, z)
+    kf_post, kf_prior, innovation, s, gain = kalman.batched_update(
+        kf_params, state.kf, z)
     m = z.shape[-1]
     zsum = z[:, 0]
     for j in range(1, m):
@@ -130,7 +131,7 @@ def _step_rows(pp, kf_params, state, z):
     ema = pp.ema_alpha * zbar + (1.0 - pp.ema_alpha) * state.ema
 
     # innovation gate: a NaN observation always rejects (NaN > t is False)
-    nis = kalman.batched_nis(kf_params, kf_prior, z)
+    nis = kalman.batched_nis(s, innovation)
     z_finite = torch.isfinite(z).all(-1)
     reject = pp.guard & (~z_finite | (nis > pp.nis_threshold))
     kf_x = torch.where(reject[:, None], kf_prior.x, kf_post.x)
@@ -165,7 +166,7 @@ def _step_rows(pp, kf_params, state, z):
     signal = candidates.gather(-1, pp.kind.long()[:, None])[:, 0]
     internals = KFInternals(
         innovation=innovation,
-        gain=kalman.batched_gain(kf_params, kf_prior)[:, 0],
+        gain=gain[:, 0],
         cov_trace=kalman.batched_trace(kf_state.p),
         x_pred=x_pred,
         nis=nis,

@@ -814,9 +814,11 @@ def _to_sr_rows(d: LaneDims, x: Tensor, n_tail: int) -> Tensor:
     rows = 1
     for t in x.shape[x.ndim - n_tail:]:
         rows *= t
-    x = x.to(_I32).reshape(*lead, d.S, d.R, rows).movedim(-1, -3)
-    x = torch.nn.functional.pad(x, (0, R_PAD - d.R))
-    return x.reshape(*lead, rows, d.lanes_sr).contiguous()
+    # one zero fill and one converting copy; a pad of the moved view would
+    # keep its strides and need a third copy to flatten
+    out = torch.zeros((*lead, rows, d.S, R_PAD), dtype=_I32, device=x.device)
+    out[..., :d.R] = x.reshape(*lead, d.S, d.R, rows).movedim(-1, -3)
+    return out.reshape(*lead, rows, d.lanes_sr)
 
 
 def _from_sr_rows(d: LaneDims, x: Tensor, tail: tuple, dtype) -> Tensor:

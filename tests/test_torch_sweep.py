@@ -45,9 +45,9 @@ def assert_rows_equal(batch: tsim.SimResult, b: int, row: tsim.SimResult):
 ])
 def test_batch_rows_equal_standalone(engine, tile, cases):
     """Mixed modes and seeds in tiles of 3 (four rows: a ragged tail of
-    one, padded) on the fused engine, or one after another on the dense
-    one: every row bitwise its standalone run.  (`sweep` below runs its
-    rows as one tile.)"""
+    one, padded) on the fused engine, or as one batch whose epochs walk
+    the rows on the dense one: every row bitwise its standalone run.
+    (`sweep` below runs its rows as one tile.)"""
     res = tsim.simulate_batch([port_config(c) for c in cases], WORKLOAD,
                               batch_tile=tile, device="cpu", engine=engine)
     assert res.gpu_ipc.shape == (len(cases), SIZE["n_epochs"])
