@@ -7,18 +7,25 @@ seed's.  Claim: where 2-subnet-fair dips, the KF run holds IPC up.
     PYTHONPATH=src python3 benchmarks/torch_fig12.py [--device cpu]
         [--workload STO] [--n-epochs N] [--seeds 0,1,2]
         [--partitionable 0|1]
+        [--faults NAME] [--placement NAME] [--topology WxH]
 
 Imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
+
+if __package__ in (None, ""):   # run as a file: make `benchmarks` importable
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
 
 import numpy as np
 import torch
 
+from benchmarks import torch_cli
 from repro_torch.core import threefry
 from repro_torch.core.noc.sim import NoCConfig, simulate_batch
 
@@ -52,12 +59,14 @@ def main(argv=None):
     ap.add_argument("--n-epochs", type=int, default=120)
     ap.add_argument("--seeds", default="0,1,2")
     ap.add_argument("--partitionable", type=int, choices=(0, 1), default=1)
+    torch_cli.add_flags(ap)
     args = ap.parse_args(argv)
+    overrides = torch_cli.shared_overrides(args)
     seeds = tuple(int(s) for s in args.seeds.split(","))
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
         tr = run(workload=args.workload, n_epochs=args.n_epochs, seeds=seeds,
-                 device=args.device)
+                 device=args.device, **overrides)
     wall = time.time() - t0
     print("epoch,fair_gpu_ipc,kf_gpu_ipc,kf_signal,applied_config")
     for i in range(len(tr["fair_ipc"])):

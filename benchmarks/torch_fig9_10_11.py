@@ -7,17 +7,24 @@ GPU IPC; KF >= fair on GPU IPC; CPU IPC unaffected.
 
     PYTHONPATH=src python3 benchmarks/torch_fig9_10_11.py [--device cpu]
         [--n-epochs N] [--seeds 0,1,2] [--partitionable 0|1]
+        [--faults NAME] [--placement NAME] [--topology WxH]
 
 Imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
+if __package__ in (None, ""):   # run as a file: make `benchmarks` importable
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
 import torch
 
+from benchmarks import torch_cli
 from repro_torch.core import threefry
 from repro_torch.core.noc.sim import SweepSpec, summarize_seeds, sweep
 
@@ -50,12 +57,14 @@ def main(argv=None):
     ap.add_argument("--n-epochs", type=int, default=60)
     ap.add_argument("--seeds", default="0,1,2")
     ap.add_argument("--partitionable", type=int, choices=(0, 1), default=1)
+    torch_cli.add_flags(ap)
     args = ap.parse_args(argv)
+    overrides = torch_cli.shared_overrides(args)
     seeds = tuple(int(s) for s in args.seeds.split(","))
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
         results = run(n_epochs=args.n_epochs, seeds=seeds,
-                      device=args.device)
+                      device=args.device, **overrides)
     wall = time.time() - t0
     print("workload,mode,gpu_ipc,gpu_ipc_std,cpu_ipc,avg_latency,kf_on_frac")
     for wl, row in results.items():

@@ -10,6 +10,7 @@ GPU IPC must be >= every naive predictor's.
 
     PYTHONPATH=src python3 benchmarks/torch_fig_ablation.py [--gate]
         [--smoke] [--device cpu] [--n-epochs N] [--partitionable 0|1]
+        [--faults NAME] [--placement NAME] [--topology WxH]
 
 ``--partitionable 0`` draws with JAX's original threefry scheme, the one
 the JAX package's committed `noc_ablation` row in BENCH_noc.json was drawn
@@ -19,11 +20,17 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 import sys
 import time
 
+if __package__ in (None, ""):   # run as a file: make `benchmarks` importable
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
 import torch
 
+from benchmarks import torch_cli
 from repro_torch.core import threefry
 from repro_torch.core.allocator import PolicyConfig
 from repro_torch.core.noc.sim import SweepSpec, summarize_seeds, sweep
@@ -93,13 +100,15 @@ def main(argv=None) -> int:
                     help="one seed on the gate scenario at full dims")
     ap.add_argument("--gate", action="store_true",
                     help="exit 1 unless KF >= every naive predictor")
+    torch_cli.add_flags(ap)
     args = ap.parse_args(argv)
+    overrides = torch_cli.shared_overrides(args)
     seeds, scenarios = ((SMOKE["seeds"], SMOKE["scenarios"]) if args.smoke
                         else (SEEDS, SCENARIO_SET))
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
         res = run(n_epochs=args.n_epochs, seeds=seeds, scenarios=scenarios,
-                  device=args.device)
+                  device=args.device, **overrides)
     wall = time.time() - t0
     print("scenario,predictor,gpu_ipc,gpu_ipc_std,cpu_ipc,avg_latency,"
           "boost_frac")

@@ -60,6 +60,22 @@ build/repro_torch/), then runs, each phase failing the script on error:
      cycles in; the ablation's wall and aggregate simulated cycles/s, B2's
      ms per launch at batch 60 beside batch 1, and the time to draw one
      paper run's streams;
+  [scen] the named fault and placement scenarios through sweep on B2, under
+     threefry's original scheme: the fault study (benchmarks/
+     torch_fig_faults.py: healthy + FLAP_BFS / BROWNOUT / TELEM_GLITCH /
+     FLAP_DURING_SHIFT x kf_guarded / kf / always_off x 3 seeds = 45 rows)
+     and the placement study (torch_fig_placement.py: 5 scenarios x
+     bandwidth / placement / joint x 3 seeds + the identity pair = 48
+     rows), each grid exactly 120 B2 launches, its 15 gpu_ipc cells within
+     2e-6 of the JAX package's committed noc_faults / noc_placement row in
+     BENCH_noc.json (read-only), its bitwise verdict (healthy_bitwise,
+     identity_bitwise), its probed runs through B3 (4 guarded runs, one
+     joint run; 120 launches each) equal to the row's integer probes, and
+     its gate; then under the default scheme TELEM_GLITCH / kf_guarded and
+     MIX_PATH_STO_BFS / joint against the reference's 0.728684 and
+     0.735650 (2e-6), and the Fig. 4 traces (torch_fig4_traffic.py, PATH)
+     with their CoV claim; each grid's wall and aggregate simulated
+     cycles/s;
   [B4] the KF bank kernel (kf_bank) against its plain version, bitwise,
      at n = 7 ... 1,048,576 filters and M = 3, 5 observations, in its step
      form and its epoch form (the boost signal fused in, against
@@ -86,7 +102,10 @@ build/repro_torch/), then runs, each phase failing the script on error:
      (the reference's zero-token prompts make the schedule independent of
      the model's numbers); the run's wall time (no sync added inside it),
      then a decode step and a 512-token prefill each timed alone, back to
-     back, and profiled for the device's busy time;
+     back, and profiled for the device's busy time; then the same checks
+     on a second workload (mean gen 32, max_len 768) on which the KF must
+     boost and switch at least once, with its wall and its boosted and
+     switch counts;
   [B6] the selective-scan kernel (mamba_scan) against its plain version
      `scan_ref`, bitwise, at the JAX kernel test's four shapes and at the
      forward shape (1, 2048, 8192, 16), timed there beside its bytes bound;
@@ -105,9 +124,10 @@ build/repro_torch/), then runs, each phase failing the script on error:
      prefill of a 300-token prompt and 2 decode steps on the card (B7)
      against the same parameters on the CPU (plain), relative L2 <= 1e-2
      on the logits, SSM states and conv rings;
-  [serve-m] the [serve] run on the full falcon-mamba-7b: exactly 64 B7
-     launches per prefill (2,048), EngineStats equal to a CPU smoke run,
-     the wall, and a decode step and a 512-token prefill timed alone;
+  [serve-m] the [serve] runs on the full falcon-mamba-7b: exactly 64 B7
+     launches per prefill (2,048 a workload), EngineStats equal to a CPU
+     smoke run, the wall, a decode step and a 512-token prefill timed
+     alone, and the second workload's boosts and switches;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch (B1:
      per call of arbitrate_lanes, as the "arb" engine calls it), the plain
@@ -824,6 +844,159 @@ def phase_sweep(dev) -> dict:
     return out
 
 
+# the JAX package's committed fault and placement rows (read-only), and
+# one cell of each under jax 0.9.0's default threefry setting (the JAX
+# package's sweep on the CPU reads them); all within ABL_TOL
+FAULTS_BENCH, PLACEMENT_BENCH = "noc_faults", "noc_placement"
+SCEN_PARTITIONABLE = {("faults", "TELEM_GLITCH", "kf_guarded"): 0.728684,
+                      ("placement", "MIX_PATH_STO_BFS", "joint"): 0.735650}
+
+
+def bench_row(name: str) -> dict:
+    with open(os.path.join(HERE, "BENCH_noc.json")) as f:
+        rows = [r for r in json.load(f) if r.get("bench") == name]
+    check(len(rows) == 1, f"BENCH_noc.json holds {len(rows)} {name} rows, "
+                          f"expected 1")
+    return rows[0]
+
+
+def check_cells(tag: str, table: dict, want: dict) -> float:
+    """Every gpu_ipc cell of a committed row within ABL_TOL of ``table``;
+    returns the largest |diff|."""
+    worst = 0.0
+    for row, cells in want.items():
+        for arm, v in cells.items():
+            got = table[row][arm]["gpu_ipc"]
+            worst = max(worst, abs(got - v))
+            check(abs(got - v) <= ABL_TOL,
+                  f"{tag} {row}/{arm}: gpu_ipc {got:.7f}, BENCH_noc.json {v} "
+                  f"(|diff| {abs(got - v):.2e} > {ABL_TOL})")
+    return worst
+
+
+def phase_scen(dev) -> dict:
+    """[scen] the named fault and placement scenarios through sweep on B2:
+    (a) the fault study (benchmarks/torch_fig_faults.py, 45 rows x 120
+    epochs) and (b) the placement study (torch_fig_placement.py, 48 rows)
+    under threefry's original scheme, each grid exactly 120 B2 launches,
+    its 15 cells against BENCH_noc.json's committed row, its bitwise
+    verdict, its probed runs' integer counters (B3) equal to the row's and
+    its gate; (c) one cell of each under the default scheme against the
+    reference's reading, and the Fig. 4 traces (torch_fig4_traffic.py).
+    Returns B2's and B3's launches on these paths."""
+    import numpy as np
+    import torch
+
+    from benchmarks import torch_fig4_traffic as fig4
+    from benchmarks import torch_fig_faults as flt
+    from benchmarks import torch_fig_placement as plc
+    from repro_torch.core import threefry
+    from repro_torch.kernels.noc_cycle import ops
+
+    out = {"b2": 0, "b3": 0}
+
+    def drive(tag, mod, rows, n_probed, **kw):
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        res = mod.run(device=dev, **kw)
+        torch.cuda.synchronize()
+        check(res["rows"] == rows, f"{tag}: {res['rows']} rows, expected "
+                                   f"{rows}")
+        check(res["b2_launches"] == 120 and res["b3_launches"] == 120 * n_probed
+              and dict(ops.LAUNCHES) == {"noc_fused_cycles": 120,
+                                         "noc_fused_cycles_probed":
+                                         120 * n_probed, "noc_arbitrate": 0},
+              f"{tag}: launches {ops.LAUNCHES}, expected 120 of B2 for the "
+              f"grid and {120 * n_probed} of B3 for {n_probed} probed runs")
+        out["b2"] += res["b2_launches"]
+        out["b3"] += res["b3_launches"]
+        return res
+
+    def rate(res):
+        return (f"sweep wall {res['sweep_s']:.3f} s, "
+                f"{res['rows'] * 120 * 500 / res['sweep_s']:.0f} simulated "
+                f"cycles/s in aggregate")
+
+    # (a) the fault study against noc_faults
+    row = bench_row(FAULTS_BENCH)
+    with threefry.threefry_partitionable(False):
+        res = drive("[scen] (a)", flt, 45, len(flt.FAULT_SET))
+    worst = check_cells("[scen] (a)", res["table"], row["gpu_ipc"])
+    check(res["healthy_bitwise"], "[scen] (a): healthy guard-on run differs "
+                                  "from guard-off")
+    check(res["probes"] == row["probes"],
+          f"[scen] (a): probes {res['probes']} differ from BENCH_noc.json's "
+          f"{row['probes']}")
+    verdict = flt.guard_verdict(res["table"], flt.FAULT_SET)
+    check(verdict["guard_beats_all"], f"[scen] (a) gate failed: {verdict}")
+    print(f"[scen] (a) fault study, {res['rows']} rows (healthy + 4 scenarios "
+          f"x 3 arms x 3 seeds) x 120x500 in one sweep, threefry original "
+          f"scheme: 120 B2 launches, {rate(res)}; 15 of 15 gpu_ipc cells "
+          f"within {ABL_TOL} of BENCH_noc.json (max |diff| {worst:.2e}); "
+          f"healthy_bitwise; 4 probed guarded runs ({res['b3_launches']} B3 "
+          f"launches, {res['probe_s']:.2f} s) equal to the row's probes "
+          f"{res['probes']['TELEM_GLITCH']} (TELEM_GLITCH) and the rest; "
+          f"guard_beats_all; margins {verdict['margins']}")
+    sys.stdout.flush()
+
+    # (b) the placement study against noc_placement
+    row = bench_row(PLACEMENT_BENCH)
+    with threefry.threefry_partitionable(False):
+        res = drive("[scen] (b)", plc, 48, 1)
+    worst = check_cells("[scen] (b)", res["table"], row["gpu_ipc"])
+    check(res["identity_bitwise"], "[scen] (b): the identity pair differs")
+    check(res["probes"] == row["probes"],
+          f"[scen] (b): probes {res['probes']} differ from BENCH_noc.json's "
+          f"{row['probes']}")
+    verdict = plc.control_verdict(res["table"], plc.SCENARIOS)
+    check(verdict["joint_beats_bandwidth"],
+          f"[scen] (b) gate failed: {verdict}")
+    print(f"[scen] (b) placement study, {res['rows']} rows (5 scenarios x 3 "
+          f"controls x 3 seeds + the identity pair) x 120x500 in one sweep, "
+          f"threefry original scheme: 120 B2 launches, {rate(res)}; 15 of 15 "
+          f"gpu_ipc cells within {ABL_TOL} of BENCH_noc.json (max |diff| "
+          f"{worst:.2e}); identity_bitwise; probed joint run "
+          f"({res['b3_launches']} B3 launches, {res['probe_s']:.2f} s) "
+          f"{res['probes']['joint']}; joint_beats_bandwidth; margins "
+          f"{verdict['margins']}")
+    sys.stdout.flush()
+
+    # (c) one cell of each under the default scheme, and Fig. 4
+    got = {}
+    for (study, sc, arm), want in SCEN_PARTITIONABLE.items():
+        if study == "faults":
+            res = drive(f"[scen] (c) {sc}", flt, 18, 0, fault_set=(sc,),
+                        probe=False)
+        else:
+            res = drive(f"[scen] (c) {sc}", plc, 12, 0, scenarios=(sc,),
+                        probe=False)
+        v = res["table"][sc][arm]["gpu_ipc"]
+        check(abs(v - want) <= ABL_TOL,
+              f"[scen] (c) {sc}/{arm} under the default scheme: gpu_ipc "
+              f"{v:.7f}, expected {want} +- {ABL_TOL}")
+        got[f"{sc}/{arm}"] = (v, res["rows"], res["sweep_s"])
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    tr = fig4.run(device=dev)
+    wall4 = time.time() - t0
+    check(ops.LAUNCHES["noc_fused_cycles"] == 120,
+          f"[scen] (c) Fig. 4 launches {ops.LAUNCHES}")
+    out["b2"] += 120
+    check(all(v.shape == (120,) and np.isfinite(v).all() for v in tr.values()),
+          "[scen] (c) Fig. 4: misshapen or non-finite traces")
+    gpu_cov, cpu_cov, holds = fig4.cov_claim(tr)
+    print(f"[scen] (c) default (partitionable) scheme: "
+          + "; ".join(f"{k} gpu_ipc {v:.7f} ({n} rows, sweep {s:.3f} s)"
+                      for k, (v, n, s) in got.items())
+          + f", reference {list(SCEN_PARTITIONABLE.values())}; Fig. 4 PATH "
+          f"baseline 120x500 (120 B2 launches, wall {wall4:.2f} s): gpu_inj "
+          f"CoV {gpu_cov:.3f}, cpu_push CoV {cpu_cov:.3f} (claim gpu > 2x "
+          f"cpu: {holds})")
+    sys.stdout.flush()
+    return out
+
+
 def phase_b4(dev):
     """B4 against its plain version, then the fleet path through B4."""
     import torch
@@ -1103,13 +1276,29 @@ def wall_ms(fn, n: int) -> float:
     return (time.time() - t0) * 1e3 / n
 
 
+# the serving workloads: the first keeps the KF at config 0 throughout;
+# on the second (mean gen 32, max_len 768) it boosts and switches
+SERVE_RUNS = (
+    (dict(max_slots=8, max_len=2048, budget_tokens=1024),
+     dict(n_requests=32, mean_prompt=512, mean_gen=16, seed=0)),
+    (dict(max_slots=8, max_len=768, budget_tokens=1024),
+     dict(n_requests=32, mean_prompt=512, mean_gen=32, seed=0)),
+)
+
+
+def switches(configs) -> int:
+    return sum(a != b for a, b in zip(configs, configs[1:]))
+
+
 def serve_main(dev, tag, cfg, params, t_init, counter, key, kname):
-    """The serving main path at full width: Engine(mode="kf") over 32
-    requests on the card with ``params``, exactly n_layers launches of
-    kernel ``key`` (counted in ``counter.LAUNCHES``) per prefill and no
-    other launch of that counter, and EngineStats equal to the same Engine
-    run at smoke size on the CPU; then a decode step and a 512-token
-    prefill timed alone and profiled.  Returns the launches."""
+    """The serving main path at full width: Engine(mode="kf") on the card
+    with ``params`` over each of SERVE_RUNS' workloads (32 requests),
+    exactly n_layers launches of kernel ``key`` (counted in
+    ``counter.LAUNCHES``) per prefill and no other launch of that counter,
+    and EngineStats equal to the same Engine run at smoke size on the CPU;
+    on the second workload the KF must boost and switch.  After the first
+    run a decode step and a 512-token prefill are timed alone and
+    profiled.  Returns the launches of both runs."""
     import torch
 
     import repro_torch.configs as configs
@@ -1117,94 +1306,114 @@ def serve_main(dev, tag, cfg, params, t_init, counter, key, kname):
     from repro_torch.serve import batching
     from repro_torch.serve.engine import Engine, EngineConfig
 
-    ecfg = EngineConfig(mode="kf", max_slots=8, max_len=2048,
-                        budget_tokens=1024)
-    wl = batching.WorkloadConfig(n_requests=32, mean_prompt=512, mean_gen=16,
-                                 seed=0)
-    # the run as a user makes it: no sync is added inside it
-    engine = Engine(params, cfg, ecfg)
-    counter.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    stats = engine.run(batching.generate(wl))
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = dict(counter.LAUNCHES)
-    launches = counts[key]
-    # the engine prefills each request once, in one prefill_caches call
-    check(len(stats.finished) == wl.n_requests,
-          f"{tag} {len(stats.finished)} of {wl.n_requests} requests finished")
-    check(counts == {**{k: 0 for k in counts},
-                     key: cfg.n_layers * wl.n_requests},
-          f"serving path: launches {counts}, expected {key} = "
-          f"{cfg.n_layers} layers x {wl.n_requests} prefills and no other")
-    logits, _ = lm.decode_step(params, engine._tokens, engine.state, cfg)
-    check(logits.shape == (ecfg.max_slots, 1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all())
-          and all(bool(torch.isfinite(leaf.float()).all())
-                  for leaf in engine.state.caches[0]),
-          f"{tag} serving path: non-finite logits or caches")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prompt_toks = sum(r.prompt_len for r in stats.finished)
-    gen_toks = sum(r.tokens_out for r in stats.finished)
-
-    # each model call alone, after the run: host wall per call over
-    # back-to-back calls, and the device's busy time under torch.profiler
-    def decode():
-        return lm.decode_step(params, engine._tokens, engine.state, cfg)
-
-    toks = torch.zeros((1, 512), dtype=torch.int64, device=dev)
-
-    def prefill():
-        return lm.prefill_caches(params, toks, cfg, ecfg.max_len)
-
-    d_wall = wall_ms(decode, 10)
-    p_wall = wall_ms(prefill, 5)
-    _, d_busy, d_dev, d_host = profile_device(decode, 3)
-    _, p_busy, p_dev, _ = profile_device(prefill, 1)
-    prof_lines = [
-        f"{tag} decode step alone: wall {d_wall:.2f} ms ({1e3 / d_wall:.1f}"
-        f" steps/s, 10 back-to-back steps), device busy {fmt_ms(d_busy)} "
-        f"(torch.profiler), idle share "
-        + (f"{1 - d_busy / d_wall:.3f}" if d_busy > 0 else "not measured")
-        + f"; top device ops (ms per step): {fmt_top(d_dev)}; top host "
-        f"ops by self time: {fmt_top(d_host)}",
-        f"{tag} prefill of 512 tokens alone: wall {p_wall:.2f} ms "
-        f"({512e3 / p_wall:.0f} tokens/s, 5 back-to-back prefills), device "
-        f"busy {fmt_ms(p_busy)}; top device ops: {fmt_top(p_dev)}",
-    ]
-
     smoke = configs.smoke(cfg.name)
     cpu_params = lm.make_lm(torch.Generator().manual_seed(SEED), smoke)
-    t1 = time.time()
-    ref = Engine(cpu_params, smoke, ecfg, device="cpu").run(
-        batching.generate(wl))
-    t_ref = time.time() - t1
 
     def trace(st):
         return (st.configs, st.kf_signals, st.iters, st.clock,
                 [(r.rid, r.t_first_token, r.t_done, r.tokens_out)
                  for r in st.finished], st.summary())
 
-    check(trace(stats) == trace(ref),
-          f"{tag} EngineStats on the card differ from the CPU smoke run")
-    summ = {k: round(v, 6) for k, v in stats.summary().items()}
-    print(f"{tag} {cfg.name} full width, {cfg.n_layers} layers, Engine(kf, "
-          f"8 slots, max_len 2048, budget 1024), 32 requests (mean prompt "
-          f"512, mean gen 16): {launches} {kname} launches = {cfg.n_layers} "
-          f"x {wl.n_requests} prefills; all finished; logits finite; "
-          f"EngineStats equal to the CPU smoke run ({t_ref:.1f} s); init "
-          f"{t_init:.1f} s; wall {wall:.2f} s for {prompt_toks} prompt and "
-          f"{gen_toks} generated tokens ({(prompt_toks + gen_toks) / wall:.0f}"
-          f" tokens/s over the run); peak device memory {peak_gb:.1f} GB; "
-          f"{stats.iters} iterations, KF boosted {sum(stats.configs)}")
-    print(f"{tag} summary() on the virtual clock (not wall time): {summ}")
-    print("\n".join(prof_lines))
-    sys.stdout.flush()
-    del engine
-    torch.cuda.empty_cache()
-    return launches
+    total = 0
+    for i, (ekw, wkw) in enumerate(SERVE_RUNS):
+        ecfg = EngineConfig(mode="kf", **ekw)
+        wl = batching.WorkloadConfig(**wkw)
+        # the run as a user makes it: no sync is added inside it
+        engine = Engine(params, cfg, ecfg)
+        counter.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        stats = engine.run(batching.generate(wl))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(counter.LAUNCHES)
+        launches = counts[key]
+        total += launches
+        # the engine prefills each request once, in one prefill_caches call
+        check(len(stats.finished) == wl.n_requests,
+              f"{tag} {len(stats.finished)} of {wl.n_requests} requests "
+              f"finished")
+        check(counts == {**{k: 0 for k in counts},
+                         key: cfg.n_layers * wl.n_requests},
+              f"{tag} serving path: launches {counts}, expected {key} = "
+              f"{cfg.n_layers} layers x {wl.n_requests} prefills and no "
+              f"other")
+        logits, _ = lm.decode_step(params, engine._tokens, engine.state, cfg)
+        check(logits.shape == (ecfg.max_slots, 1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all())
+              and all(bool(torch.isfinite(leaf.float()).all())
+                      for leaf in engine.state.caches[0]),
+              f"{tag} serving path: non-finite logits or caches")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        prompt_toks = sum(r.prompt_len for r in stats.finished)
+        gen_toks = sum(r.tokens_out for r in stats.finished)
+
+        prof_lines = []
+        if i == 0:
+            # each model call alone, after the run: host wall per call over
+            # back-to-back calls, and the device's busy time under
+            # torch.profiler
+            def decode():
+                return lm.decode_step(params, engine._tokens, engine.state,
+                                      cfg)
+
+            toks = torch.zeros((1, 512), dtype=torch.int64, device=dev)
+
+            def prefill():
+                return lm.prefill_caches(params, toks, cfg, ecfg.max_len)
+
+            d_wall = wall_ms(decode, 10)
+            p_wall = wall_ms(prefill, 5)
+            _, d_busy, d_dev, d_host = profile_device(decode, 3)
+            _, p_busy, p_dev, _ = profile_device(prefill, 1)
+            prof_lines = [
+                f"{tag} decode step alone: wall {d_wall:.2f} ms "
+                f"({1e3 / d_wall:.1f} steps/s, 10 back-to-back steps), "
+                f"device busy {fmt_ms(d_busy)} (torch.profiler), idle share "
+                + (f"{1 - d_busy / d_wall:.3f}" if d_busy > 0
+                   else "not measured")
+                + f"; top device ops (ms per step): {fmt_top(d_dev)}; top "
+                f"host ops by self time: {fmt_top(d_host)}",
+                f"{tag} prefill of 512 tokens alone: wall {p_wall:.2f} ms "
+                f"({512e3 / p_wall:.0f} tokens/s, 5 back-to-back prefills), "
+                f"device busy {fmt_ms(p_busy)}; top device ops: "
+                f"{fmt_top(p_dev)}",
+            ]
+
+        t1 = time.time()
+        ref = Engine(cpu_params, smoke, ecfg, device="cpu").run(
+            batching.generate(wl))
+        t_ref = time.time() - t1
+        check(trace(stats) == trace(ref),
+              f"{tag} EngineStats on the card differ from the CPU smoke run "
+              f"(workload {i + 1})")
+        boosted, n_sw = sum(stats.configs), switches(stats.configs)
+        if i == 1:
+            check(boosted > 0 and n_sw >= 1,
+                  f"{tag} the switching workload boosted {boosted} of "
+                  f"{stats.iters} iterations with {n_sw} switches")
+        summ = {k: round(v, 6) for k, v in stats.summary().items()}
+        print(f"{tag} workload {i + 1}: {cfg.name} full width, "
+              f"{cfg.n_layers} layers, Engine(kf, {ecfg.max_slots} slots, "
+              f"max_len {ecfg.max_len}, budget {ecfg.budget_tokens}), "
+              f"{wl.n_requests} requests (mean prompt {wl.mean_prompt}, mean "
+              f"gen {wl.mean_gen}): {launches} {kname} launches = "
+              f"{cfg.n_layers} x {wl.n_requests} prefills; all finished; "
+              f"logits finite; EngineStats equal to the CPU smoke run "
+              f"({t_ref:.1f} s); init {t_init:.1f} s; wall {wall:.2f} s for "
+              f"{prompt_toks} prompt and {gen_toks} generated tokens "
+              f"({(prompt_toks + gen_toks) / wall:.0f} tokens/s over the "
+              f"run); peak device memory {peak_gb:.1f} GB")
+        print(f"{tag} workload {i + 1}: wall {wall:.2f} s, {stats.iters} "
+              f"iterations, KF boosted {boosted}, {n_sw} switches")
+        print(f"{tag} summary() on the virtual clock (not wall time): {summ}")
+        if prof_lines:
+            print("\n".join(prof_lines))
+        sys.stdout.flush()
+        del engine
+        torch.cuda.empty_cache()
+    return total
 
 
 def phase_serve(dev):
@@ -1911,6 +2120,8 @@ def main() -> int:
 
     # ---- the paper sweep: simulate_batch / sweep through B2 at batch > 1
     swp = phase_sweep(dev)
+    # ---- the named fault and placement scenarios through sweep
+    scen = phase_scen(dev)
 
     # ---- the fleet path (B4) and the serving path (B5)
     b4 = phase_b4(dev)
@@ -1953,7 +2164,7 @@ def main() -> int:
         dict(name="noc_fused_cycles", route="cuda",
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
              replaces="src/repro/kernels/noc_cycle/kernel.py:114",
-             launches=b2_launches + swp["launches"],
+             launches=b2_launches + swp["launches"] + scen["b2"],
              max_abs_err=max(b2_err, swp["b2_err"]),
              ms=b2_ms,
              plain_ms=b2_plain_ms, bound_ms=bm2, bound_by=by2,
@@ -1961,7 +2172,8 @@ def main() -> int:
         dict(name="noc_fused_cycles_probed", route="cuda",
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
              replaces="src/repro/kernels/noc_cycle/kernel.py:152",
-             launches=b3_launches, max_abs_err=b3_err, ms=b3_ms,
+             launches=b3_launches + scen["b3"], max_abs_err=b3_err,
+             ms=b3_ms,
              plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),
         b4, b5, b6, b7,

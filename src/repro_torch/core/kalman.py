@@ -54,6 +54,15 @@ def init_state(n: int, p0: float = 1.0, dtype=torch.float32) -> KalmanState:
     )
 
 
+def make_params(a, b, h, q, r, dtype=torch.float32) -> KalmanParams:
+    """`KalmanParams` from scalars, lists or arrays, each made at least
+    2-D (a scalar becomes (1, 1), a length-k vector (1, k))."""
+    return KalmanParams(*(
+        torch.atleast_2d(torch.as_tensor(m, dtype=dtype))
+        for m in (a, b, h, q, r)
+    ))
+
+
 def time_update(
     params: KalmanParams, state: KalmanState, u: Tensor | None = None
 ) -> KalmanState:
@@ -117,6 +126,18 @@ def step(
     prior = time_update(params, state, u)
     posterior, innovation = measurement_update(params, prior, z)
     return posterior, prior, innovation
+
+
+def filter_trace(params: KalmanParams, state0: KalmanState, zs: Tensor):
+    """Run the KF along a trace ``zs`` of shape (T, m), one `step` per row.
+
+    Returns (final_state, (xs_post, xs_prior)), the xs of shape (T, n)."""
+    state, post_xs, prior_xs = state0, [], []
+    for z in zs:
+        state, prior, _ = step(params, state, z)
+        post_xs.append(state.x)
+        prior_xs.append(prior.x)
+    return state, (torch.stack(post_xs), torch.stack(prior_xs))
 
 
 def paper_params(
@@ -233,3 +254,17 @@ def batched_trace(p: Tensor) -> Tensor:
     for d in diag[1:]:
         acc = acc + d
     return acc
+
+
+def batched_filter_trace(params: KalmanParams, states0: KalmanState,
+                         zs: Tensor):
+    """`filter_trace` over a bank: ``zs`` (T, B, m), ``states0`` leaves with
+    the leading B.  Each row steps through `batched_step`, so a filter's
+    bits do not depend on B.  Returns (final_states, (xs_post, xs_prior)),
+    the xs of shape (T, B, n)."""
+    states, post_xs, prior_xs = states0, [], []
+    for z in zs:
+        states, prior, _ = batched_step(params, states, z)
+        post_xs.append(states.x)
+        prior_xs.append(prior.x)
+    return states, (torch.stack(post_xs), torch.stack(prior_xs))

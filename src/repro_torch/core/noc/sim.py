@@ -427,8 +427,10 @@ def batch_inputs(
     else:
         streams = _batched_streams(rng)
     profile = stack_profiles(resolve_source(x, stc.n_epochs) for x in sources)
+    # the neighbor table makes a materialized link fault two-way
     faults = stack_trees([
-        resolve_faults(c.faults, stc.n_epochs, n_routers=topo.n_routers)
+        resolve_faults(c.faults, stc.n_epochs, n_routers=topo.n_routers,
+                       neighbor=topo.neighbor, opposite=topo.opposite)
         for c in cfgs])
     return RunInputs(
         stc=stc, mp=stack_trees([c.mode_policy() for c in cfgs]), topo=topo,
@@ -1023,19 +1025,21 @@ class SweepSpec(NamedTuple):
     resolves; ``predictor`` picks the bank member driving the hysteresis
     machine; ``guard`` arms the predictor's self-healing layer and
     ``control`` picks the lever(s) the applied config drives.  ``faults``
-    and ``placement`` take a ready `FaultStream` / `PlacementStream` (or
-    None); the JAX package's named fault and placement scenarios are not
-    ported yet, and a name raises.  A key of `sweep`'s overrides takes
-    precedence over the per-spec value."""
+    names a registered fault scenario (`faults.FAULTS`) and ``placement``
+    a registered placement scenario (`placement.PLACEMENTS`); either may
+    also be a schedule, a ready stream, or None (healthy / the identity
+    layout).  Rows that differ only in them share one `static_spec()`, so
+    one batch.  A key of `sweep`'s overrides takes precedence over the
+    per-spec value."""
 
     mode: str
     workload: str
     static_gpu_vcs: int = 2
     seed: int = 0
     predictor: str = "kf"
-    faults: FaultStream | None = None
+    faults: FaultSourceLike = None
     guard: bool = False
-    placement: PlacementStream | None = None
+    placement: PlacementSourceLike = None
     control: str = "bandwidth"
 
 
@@ -1071,11 +1075,6 @@ def sweep(
         kw.setdefault("guard", sp.guard)
         kw.setdefault("placement", sp.placement)
         kw.setdefault("control", sp.control)
-        for key in ("faults", "placement"):
-            if isinstance(kw[key], str):
-                raise ValueError(
-                    f"named {key} scenario {kw[key]!r}: the port has no "
-                    f"{key} registry yet; pass a ready stream or None")
         cfg = NoCConfig(
             mode=sp.mode, static_gpu_vcs=sp.static_gpu_vcs, seed=sp.seed,
             predictor=sp.predictor, **kw,

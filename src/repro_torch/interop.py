@@ -8,6 +8,9 @@ field names whose leaves numpy can read (for example a NamedTuple of numpy
 arrays) and returns the port's structure of the same names on ``device``.
 uint16 injection stamps widen to the port's int32 stamps value for value;
 bfloat16 leaves (numpy's ml_dtypes type) cross as torch.bfloat16 exactly.
+The port materializes named fault and placement scenarios itself
+(`core.noc.faults`, `core.noc.placement`); `fault_stream` and
+`placement_stream` carry streams built elsewhere, such as a test's.
 """
 from __future__ import annotations
 

@@ -138,3 +138,23 @@ def assert_congruent(j, t):
             rtol=RTOL, err_msg=name,
         )
     assert t.applied_config.dtype == torch.int32
+
+
+def assert_tables_close(want, got, path: str = ""):
+    """Two drivers' results equal key for key: floats to rtol 1e-6 (atol
+    1e-9 for a zero spread), arrays elementwise (integer arrays exactly),
+    anything else exactly."""
+    if isinstance(want, dict):
+        assert list(got) == list(want), path
+        for k in want:
+            assert_tables_close(want[k], got[k], f"{path}/{k}")
+    elif isinstance(want, (float, np.ndarray)):
+        want, got = np.asarray(want), np.asarray(got)
+        assert got.shape == want.shape, path
+        if np.issubdtype(want.dtype, np.floating):
+            np.testing.assert_allclose(got, want, rtol=RTOL, atol=1e-9,
+                                       err_msg=path)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=path)
+    else:
+        assert got == want, path

@@ -3,14 +3,17 @@ a small size: each `run()` over one seed and one workload (30-cycle
 epochs) returns its table with the reference driver's keys and finite
 cells, and each `main()` prints that table and its summary lines; the
 ablation's `--gate` exits 1 exactly when KF loses to a naive predictor on
-the gate scenario.  The numbers themselves are held against the JAX
-package's sweep in tests/test_torch_sweep.py."""
+the gate scenario; `benchmarks/torch_cli.py`'s flags become overrides
+checked against the port's registries.  The numbers themselves are held
+against the JAX drivers in tests/test_torch_fig_twins.py (and the fault,
+placement and Fig. 4 twins)."""
+import argparse
 import functools
 import math
 
 import pytest
 
-from benchmarks import torch_fig2_3, torch_fig9_10_11, torch_fig12
+from benchmarks import torch_cli, torch_fig2_3, torch_fig9_10_11, torch_fig12
 from benchmarks import torch_fig_ablation as abl
 
 SMALL = dict(epoch_len=30, seeds=(0,), device="cpu")
@@ -97,3 +100,43 @@ def test_ablation_gate_exit_code(kf_wins, monkeypatch):
     monkeypatch.setattr(abl, "run", lambda **kw: {**res, "table": table})
     rc = abl.main(["--gate", "--smoke", "--device", "cpu"])
     assert rc == (0 if kf_wins else 1)
+
+
+def _cli_args(argv):
+    return torch_cli.add_flags(argparse.ArgumentParser()).parse_args(argv)
+
+
+def test_cli_flags_become_overrides(capsys):
+    args = _cli_args(["--faults", "BROWNOUT", "--placement", "SWAP_MID",
+                      "--topology", "4x8"])
+    assert torch_cli.shared_overrides(args) == {
+        "faults": "BROWNOUT", "placement": "SWAP_MID", "width": 4,
+        "height": 8}
+    assert torch_cli.shared_overrides(_cli_args([])) == {}
+    assert "--faults: injecting" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv,err", [
+    (["--faults", "BROWN_OUT"], "did you mean ['BROWNOUT']"),
+    (["--placement", "SWAP"], "unknown placement scenario 'SWAP'"),
+    (["--topology", "9x9"], "caps at 64"),
+    (["--topology", "six"], "expects WxH"),
+])
+def test_cli_flags_rejected_at_the_command_line(argv, err):
+    with pytest.raises((ValueError, SystemExit)) as e:
+        torch_cli.shared_overrides(_cli_args(argv))
+    assert err in str(e.value)
+
+
+def test_driver_takes_cli_overrides(monkeypatch):
+    """A driver's main forwards the flags to its run()."""
+    seen = {}
+
+    def fake_run(**kw):
+        seen.update(kw)
+        return small_run("fig2_3")
+
+    monkeypatch.setattr(torch_fig2_3, "run", fake_run)
+    torch_fig2_3.main(["--device", "cpu", "--faults", "FLAP_BFS",
+                       "--placement", "GPU_NEAR_MC"])
+    assert seen["faults"] == "FLAP_BFS" and seen["placement"] == "GPU_NEAR_MC"

@@ -3,7 +3,8 @@
 * `simulate_batch` of mixed modes and seeds equal to standalone
   `simulate`, bitwise in every field, with a ragged tile;
 * the port's `sweep` against JAX's `sweep` on a 2-mode x 2-workload x
-  2-seed grid, and its `summarize_seeds` to float32 rounding.
+  2-seed grid, and its `summarize_seeds` to float32 rounding;
+* named fault and placement scenarios through both packages' `sweep`.
 
 The rows draw their own streams (JAX's threefry, jax 0.9.0's default
 partitionable setting in both packages); tests/test_torch_sim_threefry.py
@@ -99,7 +100,23 @@ def test_sweep_summaries_match_reference():
                                        err_msg=k)
 
 
-def test_named_fault_scenario_raises():
-    with pytest.raises(ValueError, match="faults registry"):
-        tsim.sweep([tsim.SweepSpec("kf", WORKLOAD, faults="FLAP_DURING_SHIFT")],
-                   device="cpu", **SIZE)
+NAMED = [("kf", WORKLOAD, dict(faults="FLAP_DURING_SHIFT", guard=True)),
+         ("kf", WORKLOAD, dict(faults="TELEM_GLITCH")),
+         ("kf", WORKLOAD, dict(placement="GPU_NEAR_MC", control="joint")),
+         ("kf", "STO", dict(placement="SWAP_MID", control="placement")),
+         ("fair", WORKLOAD, dict(faults="BROWNOUT",
+                                 placement="GPU_NEAR_MC_ALWAYS"))]
+
+
+def test_named_scenarios_sweep_matches_reference():
+    """Named fault and placement scenarios in one sweep (one batch: they
+    share the static spec) against JAX's sweep of the same names, row for
+    row to assert_congruent's bar."""
+    kw = dict(SIZE)
+    jrows = jsim.sweep([jsim.SweepSpec(m, wl, **x) for m, wl, x in NAMED],
+                       policy=JPolicyConfig(*POLICY), **kw)
+    trows = tsim.sweep([tsim.SweepSpec(m, wl, **x) for m, wl, x in NAMED],
+                       device="cpu", policy=tsim.PolicyConfig(*POLICY), **kw)
+    assert len(trows) == len(NAMED)
+    for j, t in zip(jrows, trows):
+        assert_congruent(j, t)
