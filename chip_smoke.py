@@ -88,10 +88,12 @@ build/repro_torch/), then runs, each phase failing the script on error:
   [B5] the flash attention kernels (flash_attn: bf16 through the wgmma
      kernel fed by TMA, f32 through the SIMT kernel) against their plain
      version at the llama3.2-3b shape (S = 48, 512, 2048, causal), the
-     h2o-danube-1.8b shape at S = 6144 with its 4096 window, and the grok-1
-     shape with its logit cap (and kv_len < Sk); the bf16 kernel and torch's
-     scaled_dot_product_attention timed at each llama shape (device time
-     under torch.profiler, and CUDA events per call) beside the bound;
+     h2o-danube-1.8b shape at S = 6144 with its 4096 window, the grok-1
+     shape with its logit cap (and kv_len < Sk), and zamba2's shared block
+     (H = KV = 32, D = 80, causal) at S = 512 and 2048; the bf16 kernel and
+     torch's scaled_dot_product_attention timed at each llama and zamba2
+     shape (device time under torch.profiler, and CUDA events per call)
+     beside the bound;
   [serve-w] llama3.2-3b at full width cut to 2 layers: prefill of a
      256-token prompt and 2 decode steps on the card (B5) against the same
      parameters on the CPU (plain), relative L2 of K/V and logits;
@@ -110,24 +112,44 @@ build/repro_torch/), then runs, each phase failing the script on error:
      `scan_ref`, bitwise, at the JAX kernel test's four shapes and at the
      forward shape (1, 2048, 8192, 16), timed there beside its bytes bound;
   [B7] the fused scan kernel (mamba_fused) against its plain version within
-     1e-5 (abs + rel), at the JAX test's two shapes in f32 and at
+     1e-5 (abs + rel), at the JAX test's two shapes in f32, at
      (1, L, 8192, 16) with bf16 xc/B/C and a nonzero h0 for L = 48, 517,
-     2048, with how many of the 5 are bitwise; its instantiation (states
-     per thread, steps in flight, threads per block, steps per tile);
-     timed at each model shape with CUDA events per call and with
-     torch.profiler's device time per launch, beside its bound;
-  [fwd-m] falcon-mamba-7b at full width and depth (64 layers, random
-     weights from the seed), B = 1, L = 2048: lm.forward with use_kernel
-     (exactly 64 B6 launches) and without (exactly 64 B7 launches), logits
+     2048, and at zamba2's S = 64: (1, 517, 5120, 64) in bf16 and f32, from
+     h0 and from zero, (1, 2048, 5120, 64) bf16, a ragged D = 5001 and an
+     unaligned base (the element copies), with how many are bitwise; its
+     instantiation (states per thread, steps in flight, threads per block,
+     steps per tile); timed at each model shape with CUDA events per call
+     and with torch.profiler's device time per launch, beside its bound
+     (at S = 64 also beside the mamba2 scan's own bound, which has one
+     exponential a head, not one a state);
+  [fwd-m] falcon-mamba-7b at full width, depth cut to 32 of its 64
+     layers (to keep the script inside its time limit; random weights
+     from the seed), B = 1, L = 2048: lm.forward with use_kernel
+     (exactly 32 B6 launches) and without (exactly 32 B7 launches), logits
      of the two within relative L2 1e-2, and the wall of each;
   [serve-mw] falcon-mamba-7b at full width cut to 2 layers: forward +
      prefill of a 300-token prompt and 2 decode steps on the card (B7)
      against the same parameters on the CPU (plain), relative L2 <= 1e-2
      on the logits, SSM states and conv rings;
-  [serve-m] the [serve] runs on the full falcon-mamba-7b: exactly 64 B7
-     launches per prefill (2,048 a workload), EngineStats equal to a CPU
+  [serve-m] the [serve] runs on that 32-layer falcon-mamba-7b: exactly 32
+     B7 launches per prefill (1,024 a workload), EngineStats equal to a CPU
      smoke run, the wall, a decode step and a 512-token prefill timed
      alone, and the second workload's boosts and switches;
+  [fwd-z] zamba2-2.7b at full width and depth (54 mamba2 layers in 9
+     super-blocks of 6, the shared attention block after each; random
+     weights from the seed), B = 1, L = 2048: lm.forward with exactly 54 B7
+     and 9 B5 launches, its wall, tokens/s and the device's busy share;
+  [serve-zw] zamba2-2.7b at full width cut to 6 layers (one super-block
+     and one application of the shared block): forward + prefill of a
+     300-token prompt and 2 decode steps on the card (B7, B5) against the
+     same parameters on the CPU (plain), relative L2 <= 1e-2 on the logits,
+     every mamba2 SSM state and conv ring and the shared block's K/V; where
+     the card misses 1e-2, the distance after each block is printed beside
+     the CPU's own drift between its bf16 GEMMs and its f32 ones (the
+     witness), and the bound is max(1e-2, 1.5 x the witness);
+  [serve-z] the [serve] runs on the full zamba2-2.7b: exactly 54 B7 and 9
+     B5 launches per prefill, EngineStats equal to a CPU smoke run, the
+     wall, a decode step and a 512-token prefill timed alone;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch (B1:
      per call of arbitrate_lanes, as the "arb" engine calls it), the plain
@@ -140,6 +162,7 @@ package beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -491,7 +514,7 @@ def ptxas_usage(log: str) -> dict:
               ("mamba_scan_kernel", "B6"),
               *((f"mamba_fused_kernelI{t}Li{n}ELb{w}E", f"B7 {tn} S{n}{wn}")
                 for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
-                for n in (8, 16) for w, wn in ((1, ""), (0, " narrow"))),
+                for n in (8, 16, 64) for w, wn in ((1, ""), (0, " narrow"))),
               *((f"flash_fwd_{k}kernelILi{d}E", f"B5 {n} D{d}")
                 for d in (64, 80, 128)
                 for k, n in (("sm90_", "bf16"), ("", "f32"))))
@@ -1118,11 +1141,13 @@ def phase_b5(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     llama = ("llama3.2-3b", 24, 8, 128)
+    zamba = ("zamba2-2.7b", 32, 32, 80)   # the shared attention block
     cases = [(llama, s, True, None, None, None) for s in (48, 512, 2048)] + [
         (("h2o-danube-1.8b", 32, 8, 80), 6144, True, 4096, None, None),
         (("grok-1-314b", 48, 8, 128), 512, True, None, 30.0, None),
         (("grok-1-314b", 48, 8, 128), 512, True, None, 30.0, 300),
-    ]
+    ] + [(zamba, s, True, None, None, None) for s in (512, 2048)]
+    timed = (llama[0], zamba[0])
     tol = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (8e-3, 2 ** -7)}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timing = []
@@ -1142,7 +1167,7 @@ def phase_b5(dev):
                   f"B5 differs from its plain version: {arch} S={s} {dtype} "
                   f"(max abs err {float(diff.max())})")
             errs[dtype] = max(errs[dtype], float(diff.max()))
-            if arch == "llama3.2-3b" and dtype == torch.bfloat16:
+            if arch in timed and dtype == torch.bfloat16:
                 # the kernel and SDPA each timed two ways: CUDA events over
                 # back-to-back calls (host work included: the wrapper,
                 # checks, three tensor-map encodes and the launch) and the
@@ -1171,6 +1196,7 @@ def phase_b5(dev):
                       "torch.profiler recorded no device time for B5 or SDPA")
                 flops = 4 * d * h * pairs
                 timing.append(dict(
+                    arch=arch, h=h, kv=kv, d=d,
                     s=s, ms=ms, dev_ms=dev_ms, lib=lib, lib_dev=lib_dev,
                     plain=plain, bm=bm, by=by, blocks=h * -(-s // 128),
                     tflops=flops / ms / 1e9, dev_tflops=flops / dev_ms / 1e9,
@@ -1182,7 +1208,8 @@ def phase_b5(dev):
           f"err bf16 {errs[torch.bfloat16]:.3g} (atol 8e-3 + 2^-7 rel), f32 "
           f"{errs[torch.float32]:.3g} (atol 2e-5 + 1e-5 rel)")
     for t in timing:
-        print(f"[B5] llama3.2-3b bf16 B=1 H=24 KV=8 D=128 S={t['s']} causal "
+        print(f"[B5] {t['arch']} bf16 B=1 H={t['h']} KV={t['kv']} D={t['d']} "
+              f"S={t['s']} causal "
               f"({t['blocks']} blocks of 384 threads on "
               f"{torch.cuda.get_device_properties(0).multi_processor_count}"
               f" SMs): kernel events {t['ms']:.4f} ms per call "
@@ -1194,16 +1221,21 @@ def phase_b5(dev):
               f"({t['by']}; {t['bound_tflops']:.1f} TFLOP/s at the bound); "
               f"plain {t['plain']:.4f} ms")
     sys.stdout.flush()
-    t = timing[-1]
+    t, z = (next(x for x in timing if x["arch"] == a and x["s"] == 2048)
+            for a in timed)
     # ms and library_ms at S = 2048 are CUDA-event ms per call, as in every
-    # other row; the profiler's device time is in the [B5] lines above
+    # other row; the profiler's device time is in the [B5] lines above;
+    # zamba2's shared block (H = KV = 32, D = 80) beside llama's
     return dict(name="flash_attn", route="cuda",
                 source="src/repro_torch/kernels/flash_attn/csrc/"
                        "flash_attn_sm90.cu",
                 replaces="src/repro/kernels/flash_attn/kernel.py:31",
                 launches=None, max_abs_err=errs[torch.bfloat16],
                 ms=t["ms"], plain_ms=t["plain"], bound_ms=t["bm"],
-                bound_by=t["by"], library_ms=t["lib"])
+                bound_by=t["by"], library_ms=t["lib"],
+                zamba2=dict(shape="(1, 2048, 32, 80) bf16 causal",
+                            ms=z["ms"], plain_ms=z["plain"], bound_ms=z["bm"],
+                            bound_by=z["by"], library_ms=z["lib"]))
 
 
 def _to_cpu(tree):
@@ -1290,15 +1322,16 @@ def switches(configs) -> int:
     return sum(a != b for a, b in zip(configs, configs[1:]))
 
 
-def serve_main(dev, tag, cfg, params, t_init, counter, key, kname):
+def serve_main(dev, tag, cfg, params, t_init, kernels):
     """The serving main path at full width: Engine(mode="kf") on the card
-    with ``params`` over each of SERVE_RUNS' workloads (32 requests),
-    exactly n_layers launches of kernel ``key`` (counted in
-    ``counter.LAUNCHES``) per prefill and no other launch of that counter,
-    and EngineStats equal to the same Engine run at smoke size on the CPU;
-    on the second workload the KF must boost and switch.  After the first
-    run a decode step and a 512-token prefill are timed alone and
-    profiled.  Returns the launches of both runs."""
+    with ``params`` over each of SERVE_RUNS' workloads (32 requests);
+    ``kernels`` lists (counter module, key, name, launches per prefill):
+    each kernel launched exactly that many times per prefill (counted in
+    ``counter.LAUNCHES``) and no other launch of those counters; and
+    EngineStats equal to the same Engine run at smoke size on the CPU; on
+    the second workload the KF must boost and switch.  After the first run
+    a decode step and a 512-token prefill are timed alone and profiled.
+    Returns each kernel's launches over both runs, by name."""
     import torch
 
     import repro_torch.configs as configs
@@ -1314,36 +1347,41 @@ def serve_main(dev, tag, cfg, params, t_init, counter, key, kname):
                 [(r.rid, r.t_first_token, r.t_done, r.tokens_out)
                  for r in st.finished], st.summary())
 
-    total = 0
+    total = {name: 0 for _, _, name, _ in kernels}
+    counters = {c for c, _, _, _ in kernels}
     for i, (ekw, wkw) in enumerate(SERVE_RUNS):
         ecfg = EngineConfig(mode="kf", **ekw)
         wl = batching.WorkloadConfig(**wkw)
         # the run as a user makes it: no sync is added inside it
         engine = Engine(params, cfg, ecfg)
-        counter.reset_launches()
+        for c in counters:
+            c.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.time()
         stats = engine.run(batching.generate(wl))
         torch.cuda.synchronize()
         wall = time.time() - t0
-        counts = dict(counter.LAUNCHES)
-        launches = counts[key]
-        total += launches
+        counts = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+        want = {k: 0 for k in counts}
+        for _, key, name, per in kernels:
+            want[key] = per * wl.n_requests
+            total[name] += counts[key]
         # the engine prefills each request once, in one prefill_caches call
         check(len(stats.finished) == wl.n_requests,
               f"{tag} {len(stats.finished)} of {wl.n_requests} requests "
               f"finished")
-        check(counts == {**{k: 0 for k in counts},
-                         key: cfg.n_layers * wl.n_requests},
-              f"{tag} serving path: launches {counts}, expected {key} = "
-              f"{cfg.n_layers} layers x {wl.n_requests} prefills and no "
-              f"other")
+        check(counts == want,
+              f"{tag} serving path: launches {counts}, expected {want} ("
+              + ", ".join(f"{per} {name}" for _, _, name, per in kernels)
+              + f" per prefill x {wl.n_requests} prefills) and no other")
         logits, _ = lm.decode_step(params, engine._tokens, engine.state, cfg)
+        caches = list(engine.state.caches) + (
+            [] if engine.state.shared_kv is None else [engine.state.shared_kv])
         check(logits.shape == (ecfg.max_slots, 1, cfg.vocab_size)
               and bool(torch.isfinite(logits).all())
               and all(bool(torch.isfinite(leaf.float()).all())
-                      for leaf in engine.state.caches[0]),
+                      for c in caches for leaf in c),
               f"{tag} serving path: non-finite logits or caches")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         prompt_toks = sum(r.prompt_len for r in stats.finished)
@@ -1398,8 +1436,11 @@ def serve_main(dev, tag, cfg, params, t_init, counter, key, kname):
               f"{cfg.n_layers} layers, Engine(kf, {ecfg.max_slots} slots, "
               f"max_len {ecfg.max_len}, budget {ecfg.budget_tokens}), "
               f"{wl.n_requests} requests (mean prompt {wl.mean_prompt}, mean "
-              f"gen {wl.mean_gen}): {launches} {kname} launches = "
-              f"{cfg.n_layers} x {wl.n_requests} prefills; all finished; "
+              f"gen {wl.mean_gen}): "
+              + ", ".join(f"{counts[key]} {name} launches = {per} x "
+                          f"{wl.n_requests} prefills"
+                          for _, key, name, per in kernels)
+              + "; all finished; "
               f"logits finite; EngineStats equal to the CPU smoke run "
               f"({t_ref:.1f} s); init {t_init:.1f} s; wall {wall:.2f} s for "
               f"{prompt_toks} prompt and {gen_toks} generated tokens "
@@ -1429,11 +1470,11 @@ def phase_serve(dev):
     params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
     torch.cuda.synchronize()
     t_init = time.time() - t0
-    launches = serve_main(dev, "[serve]", cfg, params, t_init, fa_ops,
-                          "flash_attn", "B5")
+    launches = serve_main(dev, "[serve]", cfg, params, t_init,
+                          [(fa_ops, "flash_attn", "B5", cfg.n_layers)])
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches["B5"]
 
 
 def scan_inputs(g, b, L, d, s):
@@ -1512,9 +1553,28 @@ def b7_bound(b, L, d, s, elem, h0=True):
     return t[by], by
 
 
+def m2_bound(b, L, nh, hd, s, elem):
+    """Least time of the mamba2 scan itself (fused_chunked_scan_m2's
+    function): dt (B, L, nh) f32, x (B, L, nh*hd), B and C read once, h0
+    read and y, h_last (f32) written once; ~6 f32 flops per (t, d, s) at
+    the f32 rate and one exponential per (t, head), not per (t, d, s)."""
+    d = nh * hd
+    n = b * L * d * s
+    nbytes = (b * L * nh * 4 + b * L * d * (elem + 4) + 2 * b * L * s * elem
+              + nh * 4 + 2 * b * d * s * 4)
+    t = {"bytes": nbytes / PEAK_BYTES_S * 1e3,
+         "operations": max(6 * n / PEAK_F32_FLOP_S,
+                           b * L * nh / PEAK_EXP_S) * 1e3}
+    by = max(t, key=t.get)
+    return t[by], by
+
+
 def phase_b7(dev):
     """B7 against its plain version within 1e-5 at the JAX kernel test's
-    shapes (f32) and the model's (bf16 xc/B/C, nonzero h0); timed."""
+    shapes (f32), falcon-mamba's (S = 16: bf16 xc/B/C, nonzero h0) and
+    zamba2's (S = 64: bf16 and f32, from zero and from h0, a ragged D and
+    an unaligned base through the element copies); timed at the models'
+    shapes."""
     import torch
 
     from repro_torch.kernels.mamba_scan import fused as ms_fused
@@ -1522,47 +1582,71 @@ def phase_b7(dev):
     from repro_torch.kernels.mamba_scan import sweep_b7
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    z_hd = 64   # zamba2's ssm head dim: A is one value a head
 
-    def inputs(b, L, d, s, dtype, model):
+    def inputs(b, L, d, s, dtype, kind, h0):
         u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
             shape, generator=g, device=dev)
         dt = u((b, L, d), 0.001, 0.1)
         xc, bm, cm = (torch.randn(shape, generator=g, device=dev).to(dtype)
                       for shape in ((b, L, d), (b, L, s), (b, L, s)))
-        if model:   # falcon-mamba's A (S4D-real) and a nonzero state
+        if kind == "falcon":    # S4D-real A
             a_mat = -torch.arange(1, s + 1, dtype=torch.float32,
                                   device=dev).repeat(d, 1)
-            h0 = torch.randn((b, d, s), generator=g, device=dev)
-        else:       # the JAX test's A, from zero
+        elif kind == "zamba2":  # -(1 .. nh) a head, over its channels
+            a_mat = -(torch.arange(d, device=dev) // z_hd + 1).to(
+                torch.float32)[:, None].expand(d, s).contiguous()
+        else:                   # the JAX test's A
             a_mat = -torch.exp(0.3 * torch.randn((d, s), generator=g,
                                                  device=dev))
-            h0 = None
-        return dt, xc, bm, cm, a_mat, h0
+        h = torch.randn((b, d, s), generator=g, device=dev) if h0 else None
+        return dt, xc, bm, cm, a_mat, h
 
-    cases = [(2, 64, 32, 8, torch.float32, False),
-             (1, 128, 64, 16, torch.float32, False)] + [
-        (1, L, 8192, 16, torch.bfloat16, True) for L in (48, 517, 2048)]
+    def unaligned(t):
+        """t's values in a view one element into its storage."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (b, L, d, s, dtype, kind, h0, unaligned base, timed)
+    cases = [(2, 64, 32, 8, f32, "jax", False, False, False),
+             (1, 128, 64, 16, f32, "jax", False, False, False)] + [
+        (1, L, 8192, 16, bf16, "falcon", True, False, True)
+        for L in (48, 517, 2048)] + [
+        (1, 517, 5120, 64, dt_, "zamba2", h0, False, dt_ == bf16 and h0)
+        for dt_ in (bf16, f32) for h0 in (True, False)] + [
+        (1, 2048, 5120, 64, bf16, "zamba2", True, False, True),
+        (1, 517, 5001, 64, bf16, "zamba2", True, False, False),
+        (1, 517, 5120, 64, f32, "zamba2", True, True, False)]
     inst = ms_kernel.fused_config()
-    k16, k8 = min(inst["K"], 16), min(inst["K"], 8)
+    k16, k8, k64 = (min(inst["K"], n) for n in (16, 8, 64))
     channels = inst["threads"] * k16 // 16
     print(f"[B7] instantiation: {k16} states per thread at S = 16 ({k8} at "
-          f"S = 8), {inst['U']} steps in flight, {inst['threads']} threads "
-          f"per block ({channels} channels at S = 16), {inst['tile']} steps "
-          f"per tile")
-    err, timing, bitwise = 0.0, {}, 0
-    for b, L, d, s, dtype, model in cases:
-        dt, xc, bm, cm, a_mat, h0 = inputs(b, L, d, s, dtype, model)
+          f"S = 8, {k64} at S = 64), {inst['U']} steps in flight, "
+          f"{inst['threads']} threads per block ({channels} channels at S = "
+          f"16, {inst['threads'] * k64 // 64} at S = 64), {inst['tile']} "
+          f"steps per tile")
+    err, err64, timing, bitwise = 0.0, 0.0, {}, 0
+    for b, L, d, s, dtype, kind, with_h0, shift, timed in cases:
+        dt, xc, bm, cm, a_mat, h0 = inputs(b, L, d, s, dtype, kind, with_h0)
+        if shift:
+            dt, xc, bm, cm = (unaligned(t) for t in (dt, xc, bm, cm))
         y, hl = ms_fused.fused_mamba_scan(dt, xc, bm, cm, a_mat, h0=h0)
         y_p, hl_p = ms_fused.fused_mamba_scan_plain(dt, xc, bm, cm, a_mat, h0)
         bitwise += torch.equal(y, y_p) and torch.equal(hl, hl_p)
         for got, want in ((y, y_p), (hl, hl_p)):
             diff = (got - want).abs()
             err = max(err, float(diff.max()))
+            if s == 64:
+                err64 = max(err64, float(diff.max()))
             check(bool(torch.isfinite(got).all()) and bool(
                 (diff <= 1e-5 + 1e-5 * want.abs()).all()),
                 f"B7 differs from its plain version at {(b, L, d, s)} "
-                f"{dtype} (max abs err {float(diff.max())})")
-        if model:
+                f"{dtype} h0={with_h0} unaligned={shift} (max abs err "
+                f"{float(diff.max())})")
+        if timed:
             # CUDA events over back-to-back calls (the wrapper's host work
             # included) and the kernel's device time under torch.profiler
             def kern():
@@ -1571,30 +1655,46 @@ def phase_b7(dev):
             ms = cuda_ms(kern, 20)
             dev_ms, dev_n = sweep_b7.device_ms(kern, 20)
             plain = (cuda_ms(lambda: ms_fused.fused_mamba_scan_plain(
-                dt, xc, bm, cm, a_mat, h0), 1, warmup=0) if L == 517 else None)
-            timing[L] = (ms, dev_ms, dev_n, plain, *b7_bound(b, L, d, s, 2))
+                dt, xc, bm, cm, a_mat, h0), 1, warmup=0)
+                if L == 517 or s == 64 else None)
+            timing[(L, d, s)] = (ms, dev_ms, dev_n, plain,
+                                 *b7_bound(b, L, d, s, 2))
+        del dt, xc, bm, cm, a_mat, h0, y, hl, y_p, hl_p
     print(f"[B7] mamba_fused within 1e-5 (abs + rel) of its plain version at "
           f"{len(cases)} shapes (the JAX test's two in f32 from zero; (1, L, "
-          f"8192, 16) bf16 from a nonzero h0 at L = 48, 517, 2048), bitwise "
-          f"at {bitwise} of them: max abs err {err:.3g}")
-    for L, (ms, dev_ms, dev_n, plain, bm, by) in timing.items():
-        print(f"[B7] (1, {L}, 8192, 16) bf16: kernel events {ms:.4f} ms per "
+          f"8192, 16) bf16 from a nonzero h0 at L = 48, 517, 2048; zamba2's "
+          f"(1, 517, 5120, 64) in bf16 and f32, from h0 and from zero, (1, "
+          f"2048, 5120, 64) bf16, a ragged D = 5001 and an unaligned f32 "
+          f"base through the element copies), bitwise at {bitwise} of them: "
+          f"max abs err {err:.3g} (S = 64: {err64:.3g})")
+    for (L, d, s), (ms, dev_ms, dev_n, plain, bm, by) in timing.items():
+        extra = ""
+        if s == 64:
+            m2, m2_by = m2_bound(1, L, d // z_hd, z_hd, s, 2)
+            extra = (f"; the mamba2 scan's own bound (one exponential a "
+                     f"head) {m2:.4f} ms ({m2_by}; device/that bound "
+                     f"{dev_ms / m2:.2f}x)")
+        print(f"[B7] (1, {L}, {d}, {s}) bf16: kernel events {ms:.4f} ms per "
               f"call, device {fmt_ms(dev_ms)} per launch (torch.profiler, "
               f"mean of {dev_n} recorded of 20), bound {bm:.4f} ms ({by}; "
               f"device/bound {dev_ms / bm:.2f}x)"
-              + ("" if plain is None else f", plain {plain:.1f} ms"))
+              + ("" if plain is None else f", plain {plain:.1f} ms") + extra)
     sys.stdout.flush()
     torch.cuda.empty_cache()
-    ms, _, _, plain, bm, by = timing[517]
+    ms, _, _, plain, bm, by = timing[(517, 8192, 16)]
+    zms, _, _, zplain, zbm, zby = timing[(2048, 5120, 64)]
     return dict(name="mamba_fused", route="cuda",
                 source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
                 replaces="src/repro/kernels/mamba_scan/fused.py:28",
                 launches=None, max_abs_err=err, ms=ms, plain_ms=plain,
-                bound_ms=bm, bound_by=by, library_ms=None)
+                bound_ms=bm, bound_by=by, library_ms=None,
+                zamba2=dict(shape="(1, 2048, 5120, 64) bf16 from h0",
+                            ms=zms, plain_ms=zplain, bound_ms=zbm,
+                            bound_by=zby, library_ms=None))
 
 
 def phase_fwd_m(dev, params, cfg):
-    """falcon-mamba-7b at full width and depth through `lm.forward`, B = 1,
+    """falcon-mamba-7b at full width through `lm.forward`, B = 1,
     L = 2048: use_kernel=True through B6, use_kernel=False through B7, one
     launch per layer each, logits agreeing.  Returns B6's launches."""
     import torch
@@ -1625,7 +1725,7 @@ def phase_fwd_m(dev, params, cfg):
     walls = {uk: wall_ms(lambda: lm.forward(params, toks, cfg,
                                             use_kernel=uk), 2)
              for uk in (True, False)}
-    print(f"[fwd-m] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+    print(f"[fwd-m] {cfg.name} full width ({cfg.n_layers} layers, "
           f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, vocab "
           f"{cfg.vocab_size:,}), B=1, L=2048: forward(use_kernel=True) "
           f"{counts[True]['mamba_scan']} B6 launches, wall "
@@ -1689,6 +1789,194 @@ def phase_serve_mw(dev):
     sys.stdout.flush()
     check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
     del params, cpu_params, on_card, on_cpu, st_card, st_cpu
+    torch.cuda.empty_cache()
+
+
+def phase_fwd_z(dev, params, cfg):
+    """zamba2-2.7b at full width and depth through `lm.forward`, B = 1,
+    L = 2048: one B7 launch a mamba2 layer, one B5 launch an application
+    of the shared block, and no B6; the wall, tokens/s and the device's
+    busy share.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import lm
+
+    g = torch.Generator().manual_seed(SEED + 14)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g).to(dev)
+    n_super = cfg.n_layers // cfg.shared_attn_period
+    ms_ops.reset_launches()
+    fa_ops.reset_launches()
+    logits = lm.forward(params, toks, cfg).logits
+    counts = {**ms_ops.LAUNCHES, **fa_ops.LAUNCHES}
+    want = {"mamba_scan": 0, "mamba_fused": cfg.n_layers,
+            "flash_attn": n_super}
+    check(counts == want, f"[fwd-z] forward launched {counts}, expected "
+                          f"{want}")
+    check(logits.shape == (1, 2048, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "[fwd-z] forward logits misshapen or non-finite")
+    del logits
+
+    def fwd():
+        return lm.forward(params, toks, cfg)
+
+    wall = wall_ms(fwd, 2)
+    _, busy, top_dev, _ = profile_device(fwd, 1)
+    print(f"[fwd-z] {cfg.name} full width and depth ({cfg.n_layers} mamba2 "
+          f"layers in {n_super} super-blocks of {cfg.shared_attn_period}, "
+          f"the shared block after each; d_model {cfg.d_model}, d_inner "
+          f"{cfg.d_inner}, {cfg.d_inner // cfg.ssm_head_dim} ssm heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, attention "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
+          f"{cfg.vocab_size:,}), B=1, L=2048: {counts['mamba_fused']} B7 and "
+          f"{counts['flash_attn']} B5 launches; wall {wall:.1f} ms "
+          f"({2048e3 / wall:.0f} tokens/s), device busy {fmt_ms(busy)} "
+          f"(torch.profiler), idle share "
+          + (f"{1 - busy / wall:.3f}" if busy > 0 else "not measured")
+          + f"; top device ops (ms): {fmt_top(top_dev)}")
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    return counts
+
+
+class card_gemms:
+    """On the CPU, the card's GEMM forms: `layers.matmul` and
+    `layers.unembed` as bf16 products (the CPU's bf16 GEMM, f32 sums in
+    its own order, one rounding), in place of the f32 product rounded
+    once."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.models import layers
+
+        self.saved = layers.matmul, layers.unembed
+        layers.matmul = lambda x, w: torch.matmul(x, w.to(x.dtype))
+        layers.unembed = lambda p, x: torch.matmul(
+            x, p["table"].to(x.dtype).T).to(torch.float32)
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.matmul, layers.unembed = self.saved
+
+
+def hybrid_run(params, toks, steps, cfg, dev) -> tuple[dict, list]:
+    """forward + prefill (cache_len 512) and len(steps) decode steps: the
+    logits of each and every state field after each, on the CPU; and the
+    forward's x after each of its blocks (each mamba2 layer, then the
+    shared block, per super-block)."""
+    from repro_torch.models import lm
+
+    trace, apply_block = [], lm._apply_block
+
+    def traced(*args, **kwargs):
+        x = apply_block(*args, **kwargs)
+        trace.append(x.float().cpu())
+        return x
+
+    lm._apply_block = traced
+    try:
+        out = lm.forward(params, toks.to(dev), cfg, return_caches=True,
+                         cache_len=512)
+    finally:
+        lm._apply_block = apply_block
+    seen = {"logits prefill": out.logits.cpu()}
+    st = out.caches
+
+    def fields(tag):
+        for j, c in enumerate(st.caches):
+            seen[f"ssm{j} {tag}"] = c.ssm.cpu().clone()
+            seen[f"conv{j} {tag}"] = c.conv.cpu().clone()
+        seen[f"shared k {tag}"] = st.shared_kv.k.cpu().clone()
+        seen[f"shared v {tag}"] = st.shared_kv.v.cpu().clone()
+
+    fields("prefill")
+    for t, tok in enumerate(steps):
+        lg, st = lm.decode_step(params, tok.to(dev), st, cfg)
+        seen[f"logits decode {t}"] = lg.cpu()
+        fields(f"decode {t}")
+    return seen, trace
+
+
+def phase_serve_zw(dev):
+    """zamba2-2.7b at full width, depth cut to one super-block (6 mamba2
+    layers, `shared_attn_period` kept at 6, so the shared block runs once):
+    the card (B7, B5) against the CPU (plain) on one seeded parameter set.
+    Where the card misses 1e-2, each block's distance is printed beside the
+    witness, the CPU's own drift between its bf16 GEMMs and its f32 ones,
+    and the bound is max(1e-2, 1.5 x that witness)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get("zamba2-2.7b"), n_layers=6)
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    cpu_params = _to_cpu(params)
+    g = torch.Generator().manual_seed(SEED + 15)
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
+    t0 = time.time()
+    ms_ops.reset_launches()
+    fa_ops.reset_launches()
+    on_card, tr_card = hybrid_run(params, toks, steps, cfg, dev)
+    # forward and prefill: one B7 a layer and one B5 each; decode neither
+    counts = {**ms_ops.LAUNCHES, **fa_ops.LAUNCHES}
+    want = {"mamba_scan": 0, "mamba_fused": 2 * cfg.n_layers,
+            "flash_attn": 2}
+    check(counts == want, f"[serve-zw] forward + prefill + decode launched "
+                          f"{counts}, expected {want}")
+    for k, v in on_card.items():
+        check(bool(torch.isfinite(v.float()).all()),
+              f"[serve-zw] non-finite {k} on the card")
+    t_card = time.time() - t0
+    t1 = time.time()
+    on_cpu, tr_cpu = hybrid_run(cpu_params, toks, steps, cfg, "cpu")
+    t_cpu = time.time() - t1
+    errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
+    worst = max(errs, key=errs.get)
+    bound = 1e-2
+    print(f"[serve-zw] zamba2-2.7b full width (d_model 2560, d_inner 5120, "
+          f"80 ssm heads of 64, state 64, shared block 32/32 heads of 80, "
+          f"d_ff 10240, vocab 32,000), 6 mamba2 layers + the shared block: "
+          f"forward + prefill of a 300-token prompt (chunks 256 + 44) and 2 "
+          f"decode steps, card (B7, B5, bf16 cuBLAS; {counts['mamba_fused']} "
+          f"B7 and {counts['flash_attn']} B5 launches in forward + prefill) "
+          f"vs CPU (plain) relative L2 worst {errs[worst]:.3e} ({worst}), "
+          f"all: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; card {t_card:.1f} s, CPU {t_cpu:.1f} s")
+    sys.stdout.flush()
+    if errs[worst] > bound:
+        # where the card and the CPU part ways, beside the CPU's own drift
+        # between its bf16 GEMMs (the card's form) and its f32 ones
+        with card_gemms():
+            witness_run, tr_w = hybrid_run(cpu_params, toks, steps, cfg,
+                                           "cpu")
+        names = [f"mamba2 {i}" for i in range(cfg.n_layers)] + [
+            "shared", "logits"]
+        logits = "logits prefill"
+        for n, c, p, w in zip(names, tr_card + [on_card[logits]],
+                              tr_cpu + [on_cpu[logits]],
+                              tr_w + [witness_run[logits]]):
+            print(f"[serve-zw] after {n}: card vs CPU {rel_l2(c, p):.3e}, "
+                  f"witness (CPU bf16 GEMMs vs f32) {rel_l2(w, p):.3e}")
+        w_errs = {k: rel_l2(witness_run[k], on_cpu[k]) for k in on_cpu}
+        w_worst = max(w_errs, key=w_errs.get)
+        bound = max(bound, 1.5 * w_errs[w_worst])
+        print(f"[serve-zw] witness over the same fields: worst "
+              f"{w_errs[w_worst]:.3e} ({w_worst}); bound max(1e-2, 1.5 x "
+              f"witness) = {bound:.3e}")
+    check(errs[worst] <= bound, f"[serve-zw] card and CPU differ: worst "
+                                f"{errs[worst]:.3e} ({worst}) > {bound:.3e}")
+    print(f"[serve-zw] card vs CPU worst {errs[worst]:.3e} within bound "
+          f"{bound:.3e}")
+    sys.stdout.flush()
+    del params, cpu_params, on_card, on_cpu
     torch.cuda.empty_cache()
 
 
@@ -2130,23 +2418,46 @@ def main() -> int:
     b5["launches"] = phase_serve(dev)
 
     # ---- the mamba paths: forward through B6, serving through B7, on
-    # falcon-mamba-7b at full width and depth (llama's weights are freed)
+    # falcon-mamba-7b at full width, depth cut to 32 of its 64 layers to
+    # keep the script well inside its time limit (llama's weights are freed)
     import repro_torch.configs as configs
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.models import lm
 
     b6 = phase_b6(dev)
     b7 = phase_b7(dev)
-    cfg_m = configs.get("falcon-mamba-7b")
+    cfg_m = dataclasses.replace(configs.get("falcon-mamba-7b"), n_layers=32)
     t0 = time.time()
     params_m = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_m)
     torch.cuda.synchronize()
     t_init_m = time.time() - t0
     b6["launches"] = phase_fwd_m(dev, params_m, cfg_m)
     phase_serve_mw(dev)
-    b7["launches"] = serve_main(dev, "[serve-m]", cfg_m, params_m, t_init_m,
-                                ms_ops, "mamba_fused", "B7")
+    b7["launches"] = serve_main(
+        dev, "[serve-m]", cfg_m, params_m, t_init_m,
+        [(ms_ops, "mamba_fused", "B7", cfg_m.n_layers)])["B7"]
     del params_m
+    torch.cuda.empty_cache()
+
+    # ---- the hybrid: zamba2-2.7b at full width and depth, its SSD scan
+    # through B7 (S = 64) and its shared attention block through B5
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    cfg_z = configs.get("zamba2-2.7b")
+    t0 = time.time()
+    params_z = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_z)
+    torch.cuda.synchronize()
+    t_init_z = time.time() - t0
+    fwd_z = phase_fwd_z(dev, params_z, cfg_z)
+    phase_serve_zw(dev)
+    serve_z = serve_main(
+        dev, "[serve-z]", cfg_z, params_z, t_init_z,
+        [(ms_ops, "mamba_fused", "B7", cfg_z.n_layers),
+         (fa_ops, "flash_attn", "B5",
+          cfg_z.n_layers // cfg_z.shared_attn_period)])
+    b5["launches"] += fwd_z["flash_attn"] + serve_z["B5"]
+    b7["launches"] += fwd_z["mamba_fused"] + serve_z["B7"]
+    del params_z
     torch.cuda.empty_cache()
 
     # ---- phase 6: the kernels line

@@ -25,7 +25,7 @@ from repro_torch.core.noc.traffic import RecordedTrace, WorkloadProfile
 from repro_torch.kernels.noc_cycle.fused import LaneState, ProbeLanes
 from repro_torch.models import lm
 from repro_torch.models.attention import KVCache
-from repro_torch.models.mamba import Mamba1State
+from repro_torch.models.mamba import Mamba1State, Mamba2State
 from repro_torch.models.config import ModelConfig
 
 
@@ -121,31 +121,40 @@ def epoch_stream_provider(
     return streams
 
 
-# a mamba1 mixer's leaves kept in float32; the others are in the parameter
-# dtype (the reference's `make_mamba1`)
+# a mamba mixer's leaves kept in float32 (the norm: its scale); the others
+# are in the parameter dtype (the reference's `make_mamba1`, `make_mamba2`)
 MAMBA1_F32 = ("dt_proj", "dt_bias", "a_log", "d_skip")
+MAMBA2_F32 = ("dt_bias", "a_log", "d_skip", "norm")
 
 
 def lm_params(tree, cfg: ModelConfig, device="cpu") -> dict:
     """An LM's parameter tree as the reference's `make_lm` builds it (dicts
-    of arrays, each pattern position's blocks stacked over n_super) -> the
-    port's tree (`lm.make_lm`'s layout: a list of per-layer dicts per
-    pattern position).  Leaf types are kept, except that a mamba1 mixer's
-    leaves are cast as the port's `make_mamba1` makes them: `MAMBA1_F32` in
-    float32, the rest in the parameter dtype."""
+    of arrays, each pattern position's blocks stacked over n_super; the
+    hybrid's one ``shared_attn`` block unstacked) -> the port's tree
+    (`lm.make_lm`'s layout: a list of per-layer dicts per pattern
+    position).  Leaf types are kept, except that a mamba mixer's leaves
+    are cast as the port's `make_mamba1` / `make_mamba2` make them:
+    `MAMBA1_F32` / `MAMBA2_F32` in float32, the rest in the parameter
+    dtype."""
     pattern, n_super = lm.layer_pattern(cfg)
     pdt = lm.param_dtype(cfg)
+    f32_keys = {"mamba1": MAMBA1_F32, "mamba2": MAMBA2_F32}
 
     def conv(node, i=None):
         if isinstance(node, dict):
             return {k: conv(v, i) for k, v in node.items()}
         return tensor(node if i is None else np.asarray(node)[i], device)
 
+    def cast(node, dtype):
+        if isinstance(node, dict):
+            return {k: cast(v, dtype) for k, v in node.items()}
+        return node.to(dtype)
+
     def block(j, kind, i):
         out = conv(tree["blocks"][j], i)
-        if kind == "mamba1":
+        if kind in f32_keys:
             out["mixer"] = {
-                k: v.to(torch.float32 if k in MAMBA1_F32 else pdt)
+                k: cast(v, torch.float32 if k in f32_keys[kind] else pdt)
                 for k, v in out["mixer"].items()}
         return out
 
@@ -157,13 +166,15 @@ def lm_params(tree, cfg: ModelConfig, device="cpu") -> dict:
 
 def decode_state(obj, device="cpu") -> lm.DecodeState:
     """A decode state (``caches`` stacked over n_super: (k, v, length)
-    attention caches or (conv, ssm) Mamba1 states; ``shared_kv``;
-    ``length``) as the port's `lm.DecodeState`: bf16 K/V and conv rings,
-    f32 SSM states, int32 lengths."""
+    attention caches or (conv, ssm) mamba states, a Mamba2State where the
+    stacked ssm has rank 5, (n_super, B, nh, hd, ds); the hybrid's
+    ``shared_kv``; ``length``) as the port's `lm.DecodeState`: bf16 K/V and
+    conv rings, f32 SSM states, int32 lengths."""
     def cache(c):
         if hasattr(c, "ssm"):
-            return Mamba1State(conv=tensor(c.conv, device, torch.bfloat16),
-                               ssm=tensor(c.ssm, device, torch.float32))
+            state = Mamba2State if np.ndim(c.ssm) == 5 else Mamba1State
+            return state(conv=tensor(c.conv, device, torch.bfloat16),
+                         ssm=tensor(c.ssm, device, torch.float32))
         return KVCache(k=tensor(c.k, device, torch.bfloat16),
                        v=tensor(c.v, device, torch.bfloat16),
                        length=tensor(c.length, device, torch.int32))

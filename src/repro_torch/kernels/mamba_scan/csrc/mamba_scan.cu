@@ -9,7 +9,10 @@
 // from dt, xc (B, L, D), B, C (B, L, S) and A (D, S), runs the recurrence
 // from h0 (zero when none is given) and emits only y = sum_s h * C
 // (B, L, D) and h_last (B, D, S).  xc, B and C are float32 or bfloat16
-// (the model's activations), cast to float32 on load.
+// (the model's activations), cast to float32 on load.  S is 8 or 16
+// (Mamba1, falcon-mamba) or 64 (Mamba2 / SSD, zamba2: the port's
+// models/mamba.fused_chunked_scan_m2 hands B7 a head's dt and decay
+// repeated over the head's channels, so the SSD scan is this function).
 //
 // Bound on an H100.  B6 moves 3 * B*L*D*S floats and does 2 flops per
 // element: bytes (~0.96 ms at B=1, L=2048, D=8192, S=16).  B7 moves only
@@ -61,6 +64,13 @@
 //    xc, D % 8 for bfloat16, or an unaligned base), the same kernel copies
 //    one element at a time through registers instead: one template, two
 //    instantiations, chosen at launch.
+//  - At S = 64 and the defaults (K = 4, 256 threads) a channel is G = 16
+//    lanes and a block CH = 16 channels: 86 KB of shared memory a block
+//    for float32 xc, 67 KB for bfloat16, above the 48 KB default, so the
+//    launcher raises the limit, as for the larger tiles at S = 16.  A
+//    variant whose layout cannot hold 64 states (a channel wider than a
+//    warp, or fewer than 8 channels a block) returns cudaErrorInvalidValue
+//    at S = 64 instead of being built.
 //
 // Rounding.  Every product and sum is __fmul_rn / __fadd_rn, so nvcc
 // contracts nothing into an FMA and each step rounds as the plain torch
@@ -156,7 +166,10 @@ struct FusedLayout {
   // [TILE][CH], then per step B and C (2S), permuted so that lane j's K
   // states sit at j*K ..
   static constexpr int kTile = kFTile * (3 * CH + 2 * S);
-  static_assert(S % K == 0 && 32 % G == 0 && CH % 8 == 0, "B7 layout");
+  // whether this instantiation lays out S states: a channel's lanes inside
+  // one warp, and whole 16-byte rows of bf16 xc a block (with few threads
+  // a block and few states a lane, S = 64 does not fit)
+  static constexpr bool kOk = S % K == 0 && 32 % G == 0 && CH % 8 == 0;
 };
 
 // The next tile's rows as they arrive, in floats: dt [TILE][CH], xc
@@ -376,6 +389,7 @@ mamba_fused_kernel(const float* __restrict__ dt, const T* __restrict__ xc,
                    const float* __restrict__ h0, int L, int D,
                    float* __restrict__ y, float* __restrict__ h_last) {
   using Lay = FusedLayout<S>;
+  static_assert(Lay::kOk, "B7 layout");
   constexpr int K = Lay::K, G = Lay::G;
   extern __shared__ __align__(16) float smem[];
   float* tile = smem;
@@ -476,12 +490,16 @@ template <typename T, int S>
 int launch_fused(const float* dt, const void* xc, const void* b,
                  const void* c, const float* a_mat, const float* h0, int bsz,
                  int L, int D, float* y, float* h_last, cudaStream_t stream) {
-  if (D % (16 / sizeof(T)) == 0 && aligned(dt, 16) && aligned(xc, 16) &&
-      aligned(b, 16) && aligned(c, 16) && aligned(y, 16))
-    return launch_fused_as<T, S, true>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                       h_last, stream);
-  return launch_fused_as<T, S, false>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                      h_last, stream);
+  if constexpr (!FusedLayout<S>::kOk) {
+    return (int)cudaErrorInvalidValue;  // see FusedLayout::kOk
+  } else {
+    if (D % (16 / sizeof(T)) == 0 && aligned(dt, 16) && aligned(xc, 16) &&
+        aligned(b, 16) && aligned(c, 16) && aligned(y, 16))
+      return launch_fused_as<T, S, true>(dt, xc, b, c, a_mat, h0, bsz, L, D,
+                                         y, h_last, stream);
+    return launch_fused_as<T, S, false>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
+                                        h_last, stream);
+  }
 }
 
 }  // namespace
@@ -497,11 +515,31 @@ extern "C" int mamba_scan_fwd(const float* a, const float* b, const float* h0,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (of xc, b and c); s: 8 or 16.
+// dtype: 0 = float32, 1 = bfloat16 (of xc, b and c); s: 8, 16 or 64.
 // B7's instantiation: {states per thread, steps in flight, threads per
 // block, steps per tile}; at S = 8 a thread holds min(K, 8) states.
 extern "C" void mamba_fused_config(int* out) {
   out[0] = B7_K, out[1] = B7_U, out[2] = B7_THREADS, out[3] = B7_TILE;
+}
+
+template <typename T>
+int launch_fused_s(int s, const float* dt, const void* xc, const void* b,
+                   const void* c, const float* a_mat, const float* h0,
+                   int bsz, int L, int D, float* y, float* h_last,
+                   cudaStream_t stream) {
+  switch (s) {
+    case 8:
+      return launch_fused<T, 8>(dt, xc, b, c, a_mat, h0, bsz, L, D, y, h_last,
+                                stream);
+    case 16:
+      return launch_fused<T, 16>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
+                                 h_last, stream);
+    case 64:  // mamba2 (zamba2): d_state 64
+      return launch_fused<T, 64>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
+                                 h_last, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int mamba_fused_fwd(int dtype, int s, const float* dt,
@@ -511,17 +549,11 @@ extern "C" int mamba_fused_fwd(int dtype, int s, const float* dt,
                                cudaStream_t stream) {
   if (bsz <= 0 || L <= 0 || D <= 0 || bsz > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && s == 8)
-    return launch_fused<float, 8>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                  h_last, stream);
-  if (dtype == 0 && s == 16)
-    return launch_fused<float, 16>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                   h_last, stream);
-  if (dtype == 1 && s == 8)
-    return launch_fused<__nv_bfloat16, 8>(dt, xc, b, c, a_mat, h0, bsz, L, D,
-                                          y, h_last, stream);
-  if (dtype == 1 && s == 16)
-    return launch_fused<__nv_bfloat16, 16>(dt, xc, b, c, a_mat, h0, bsz, L,
-                                           D, y, h_last, stream);
+  if (dtype == 0)
+    return launch_fused_s<float>(s, dt, xc, b, c, a_mat, h0, bsz, L, D, y,
+                                 h_last, stream);
+  if (dtype == 1)
+    return launch_fused_s<__nv_bfloat16>(s, dt, xc, b, c, a_mat, h0, bsz, L,
+                                         D, y, h_last, stream);
   return (int)cudaErrorInvalidValue;
 }

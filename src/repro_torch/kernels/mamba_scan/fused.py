@@ -7,7 +7,9 @@ decay and input built inside it and the C-projection folded in:
     a_t = exp(dt_t * A),  bx_t = (dt_t * xc_t) * B_t,
     h_t = a_t * h_{t-1} + bx_t,  y_t = sum_s h_t * C_t
 
-so that nothing of size (L, D, S) reaches device memory.  dt (B, L, D)
+so that nothing of size (L, D, S) reaches device memory.  Mamba2's (SSD)
+scan is the same function with each head's dt and decay repeated over the
+head's channels (`models.mamba.fused_chunked_scan_m2`).  dt (B, L, D)
 and A (D, S) are float32; xc (B, L, D) and b, c (B, L, S) are float32 or
 bfloat16 (the model's activations) and are read as float32.  It returns
 y (B, L, D) and h_last (B, D, S), both float32.

@@ -7,8 +7,9 @@ raises if the launch reports a CUDA error, and then counts the launch.
 The library is built at first call (`repro_torch.kernels._build`), never
 at import.
 
-B7 is instantiated for S = 8 and 16 states and for float32 and bfloat16
-xc / B / C; any other combination raises on the card.  `fused_config`
+B7 is instantiated for S = 8 and 16 states (Mamba1) and 64 (Mamba2) and
+for float32 and bfloat16 xc / B / C; any other combination raises on the
+card.  `fused_config`
 reports the library's B7 instantiation (states per thread, steps in
 flight, threads per block, steps per tile).
 """
@@ -24,7 +25,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan.ops import LAUNCHES
 
 SOURCES = [Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"]
-FUSED_STATES = (8, 16)
+FUSED_STATES = (8, 16, 64)
 FUSED_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

@@ -10,6 +10,9 @@ started together), holds each variant's y and h_last bitwise against
 B / C, from a nonzero h0, and times it at L = 517 and 2048: the kernel's
 device time per launch under torch.profiler (which ranks the variants)
 and CUDA events over back-to-back launches (outputs allocated once).
+Each variant whose layout holds 64 states (a channel's S / K lanes within
+a warp, at least 8 channels a block) is also held bitwise and timed at
+mamba2's shape (1, 517, 5120, 64); the others report "n/a" there.
 Stage 1 crosses K with the block size at the library's U and tile; stage
 2 crosses U with the tile at the fastest (K, threads).  Prints one line
 per variant (with ptxas's registers and spills) and the fastest; needs a
@@ -29,6 +32,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba_scan import fused, kernel
+
+
+def holds(k: int, threads: int, s: int) -> bool:
+    """Whether B7's layout (FusedLayout::kOk) takes s states at K = k
+    states per thread and ``threads`` threads per block."""
+    g = s // min(k, s)
+    return s % min(k, s) == 0 and 32 % g == 0 and (threads // g) % 8 == 0
 
 
 def _inputs(L: int, d: int = 8192, s: int = 16, seed: int = 0):
@@ -106,27 +116,32 @@ def run(variants: list[tuple[int, int, int, int]], cases) -> list[dict]:
             k, u, t, tile), cfg
         row = dict(K=k, U=u, threads=t, tile=tile,
                    ptxas=_ptxas(_build.build_log(*lib_spec).read_text()))
-        for L, (ins, want) in cases.items():
+        for key, (ins, want) in cases.items():
             dt, xc, b, c, a_mat, h0 = ins
+            if not holds(k, t, a_mat.shape[-1]):
+                row[f"ms{key}"] = row[f"dev{key}"] = None
+                continue
             y = torch.empty_like(dt)
             hl = torch.empty_like(h0)
             kernel.launch_fused(lib, dt, xc, b, c, a_mat, h0, y, hl)
             torch.cuda.synchronize()
             if want is not None:
-                row["bitwise"] = (torch.equal(y, want[0])
-                                  and torch.equal(hl, want[1]))
+                row["bitwise"] = row.get("bitwise", True) and (
+                    torch.equal(y, want[0]) and torch.equal(hl, want[1]))
             def launch():
                 kernel.launch_fused(lib, dt, xc, b, c, a_mat, h0, y, hl)
 
-            row[f"ms{L}"] = _ms(launch)
-            row[f"dev{L}"], recorded = device_ms(launch, 20)
+            row[f"ms{key}"] = _ms(launch)
+            row[f"dev{key}"], recorded = device_ms(launch, 20)
             if not recorded:
                 raise RuntimeError("torch.profiler recorded no B7 launch")
         print(f"[sweep] K={k} U={u} threads={t} tile={tile}: device "
               f"{row['dev517']:.4f} / {row['dev2048']:.4f} ms per launch at "
               f"L = 517 / 2048 (events {row['ms517']:.4f} / "
-              f"{row['ms2048']:.4f} ms per call), bitwise {row['bitwise']}, "
-              f"{row['ptxas']}", flush=True)
+              f"{row['ms2048']:.4f} ms per call), S = 64 at L = 517 "
+              + ("n/a" if row["dev64"] is None else
+                 f"{row['dev64']:.4f} ms (events {row['ms64']:.4f})")
+              + f", bitwise {row['bitwise']}, {row['ptxas']}", flush=True)
         out.append(row)
     return out
 
@@ -146,8 +161,11 @@ def main() -> int:
                          text=True).stdout.strip()
     print(f"[sweep] {smi}; default instantiation {kernel.fused_config()}")
     ins517 = _inputs(517)
+    ins64 = _inputs(517, d=5120, s=64, seed=2)
+    # keyed by L at (1, L, 8192, 16), and 64 for (1, 517, 5120, 64)
     cases = {517: (ins517, fused.fused_mamba_scan_plain(*ins517)),
-             2048: (_inputs(2048, seed=1), None)}
+             2048: (_inputs(2048, seed=1), None),
+             64: (ins64, fused.fused_mamba_scan_plain(*ins64))}
     base = kernel.fused_config()
     ints = lambda s: [int(x) for x in s.split(",")]  # noqa: E731
     stage1 = [(k, base["U"], t, base["tile"]) for k in ints(args.ks)

@@ -9,12 +9,14 @@ stacked layout, ``caches[j].k`` of shape (n_super, B, Smax, KV, D) or
 ``caches[j].ssm`` of shape (n_super, B, di, ds), and a layer works on its
 slice.
 
-This slice runs the dense kind ([attn + mlp], P = 1) and the mamba1 kind
-([mamba1], P = 1: falcon-mamba).  The other kinds raise
+The port runs the dense kind ([attn + mlp], P = 1), the mamba1 kind
+([mamba1], P = 1: falcon-mamba) and zamba2's hybrid ([mamba2 x 6], then
+ONE shared attn + mlp block whose weights every super-block reuses,
+``params["shared_attn"]``; its caches are ``DecodeState.shared_kv``, one
+stacked KVCache entry per application).  The other kinds raise
 NotImplementedError naming the ROADMAP item that brings them: `moe`
-(grok-1, llama4), `mamba2` and the hybrid shared block (zamba2),
-encoder-decoder (seamless-m4t) and the modality frontends (internvl2).
-`lm_loss` belongs to the training slice.
+(grok-1, llama4), encoder-decoder (seamless-m4t) and the modality
+frontends (internvl2).  `lm_loss` belongs to the training slice.
 """
 from __future__ import annotations
 
@@ -34,12 +36,25 @@ ACT_DTYPE = torch.bfloat16
 
 _LATER = {
     "moe": "ROADMAP queue A 'MoE (grok-1, llama4)'",
-    "mamba2": mamba.MAMBA2_LATER,
-    "hybrid": mamba.MAMBA2_LATER,
     "encdec": "ROADMAP queue A 'encoder-decoder and frontends'",
     "frontend": "ROADMAP queue A 'encoder-decoder and frontends'",
 }
-_PORTED = ("dense", "mamba1")
+_PORTED = ("dense", "mamba1", "mamba2")
+
+
+class _MambaKind(NamedTuple):
+    make: Any      # (gen, cfg, dtype) -> mixer params
+    scan: Any      # (p, x, cfg) -> (y, final state): prefill
+    decode: Any    # (p, x, cfg, state) -> (y, state): one token
+    init: Any      # (batch, cfg, dtype, device) -> zero state
+
+
+_MAMBA = {
+    "mamba1": _MambaKind(mamba.make_mamba1, mamba._mamba1_scan,
+                         mamba.apply_mamba1_decode, mamba.init_mamba1_state),
+    "mamba2": _MambaKind(mamba.make_mamba2, mamba._mamba2_scan,
+                         mamba.apply_mamba2_decode, mamba.init_mamba2_state),
+}
 
 
 def layer_pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
@@ -71,8 +86,6 @@ def _require_ported(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
         why = "encdec"
     elif cfg.frontend:
         why = "frontend"
-    elif cfg.is_hybrid:
-        why = "hybrid"
     else:
         why = next((k for k in pattern if k not in _PORTED), None)
     if why is not None:
@@ -88,9 +101,9 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 def _make_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
                 dtype) -> dict:
     dev = gen.device
-    if kind == "mamba1":
+    if kind in _MAMBA:
         return {"ln": layers.make_norm(cfg.d_model, cfg.norm, dev),
-                "mixer": mamba.make_mamba1(gen, cfg, dtype)}
+                "mixer": _MAMBA[kind].make(gen, cfg, dtype)}
     return {
         "ln1": layers.make_norm(cfg.d_model, cfg.norm, dev),
         "ln2": layers.make_norm(cfg.d_model, cfg.norm, dev),
@@ -112,6 +125,8 @@ def make_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
         "blocks": [[_make_block(gen, kind, cfg, dtype)
                     for _ in range(n_super)] for kind in pattern],
     }
+    if cfg.is_hybrid:  # zamba2's single shared attention block
+        params["shared_attn"] = _make_block(gen, "dense", cfg, dtype)
     if not cfg.tie_embeddings:
         params["unembed"] = {"table": layers.truncated_normal(
             gen, (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5, dtype)}
@@ -148,6 +163,9 @@ def _apply_block(p, kind: str, x: Tensor, cfg: ModelConfig,
         h = layers.apply_norm(p["ln"], x, cfg.norm)
         return x + mamba.apply_mamba1(p["mixer"], h, cfg,
                                       use_kernel=use_kernel)
+    if kind == "mamba2":
+        h = layers.apply_norm(p["ln"], x, cfg.norm)
+        return x + mamba.apply_mamba2(p["mixer"], h, cfg)
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     x = x + attention.self_attention(p["attn"], h, cfg, positions)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
@@ -164,7 +182,8 @@ def forward(
     `prefill_caches`, as the reference does).
 
     ``use_kernel`` picks the mamba1 scan (B6 when L % chunk == 0, else B7;
-    without it B7); dense attention always goes through the flash entry
+    without it B7); the mamba2 scan is B7 either way; dense attention, the
+    hybrid's shared block included, always goes through the flash entry
     point (B5 on the card).  The reference's ``remat`` is a training
     policy and does not apply to this inference path."""
     pattern, n_super = _require_ported(cfg)
@@ -176,6 +195,9 @@ def forward(
         for j, kind in enumerate(pattern):
             x = _apply_block(params["blocks"][j][i], kind, x, cfg, positions,
                              use_kernel=use_kernel)
+        if cfg.is_hybrid:
+            x = _apply_block(params["shared_attn"], "dense", x, cfg,
+                             positions, use_kernel=use_kernel)
     logits = _final_logits(params, x, cfg)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     aux = MoEAux(zero, zero, torch.zeros((1,), dtype=torch.float32,
@@ -193,19 +215,20 @@ def forward(
 class DecodeState:
     """Stacked per-pattern-position caches + shared-block caches."""
 
-    caches: list[Any]             # caches[j]: KVCache or Mamba1State,
-    #                               leaves (n_super, B, ...)
-    shared_kv: Optional[KVCache]  # the hybrid shared block (not in this slice)
+    caches: list[Any]             # caches[j]: KVCache, Mamba1State or
+    #                               Mamba2State, leaves (n_super, B, ...)
+    shared_kv: Optional[KVCache]  # the hybrid's shared block, one entry
+    #                               per application: (n_super, B, ...)
     length: Tensor                # (B,) tokens decoded so far
 
 
 def _new_cache(kind: str, n_super: int, batch: int, max_len: int,
                cfg: ModelConfig, dev, length: Tensor):
-    """Zeroed stacked caches of one pattern position."""
-    if kind == "mamba1":
-        one = mamba.init_mamba1_state(batch, cfg, ACT_DTYPE, dev)
-        return mamba.Mamba1State(*(x.expand(n_super, *x.shape).clone()
-                                   for x in one))
+    """Zeroed stacked caches of one pattern position (or of the shared
+    block: kind "dense")."""
+    if kind in _MAMBA:
+        one = _MAMBA[kind].init(batch, cfg, ACT_DTYPE, dev)
+        return type(one)(*(x.expand(n_super, *x.shape).clone() for x in one))
     shape = (n_super, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
                    v=torch.zeros(shape, dtype=ACT_DTYPE, device=dev),
@@ -221,12 +244,37 @@ def init_decode_state(batch: int, max_len: int, cfg: ModelConfig,
     length = torch.zeros((batch,), dtype=torch.int32, device=dev)
     caches = [_new_cache(kind, n_super, batch, max_len, cfg, dev, length)
               for kind in pattern]
-    return DecodeState(caches=caches, shared_kv=None, length=length)
+    shared_kv = (_new_cache("dense", n_super, batch, max_len, cfg, dev,
+                            length) if cfg.is_hybrid else None)
+    return DecodeState(caches=caches, shared_kv=shared_kv, length=length)
 
 
 def _layer_cache(cache, i: int):
     """Layer i's slice of a stacked cache (views of the stacked tensors)."""
     return type(cache)(*(leaf[i] for leaf in cache))
+
+
+def _decode_block(p, kind: str, x: Tensor, cfg: ModelConfig, cache,
+                  i: int) -> tuple[Tensor, Optional[Tensor]]:
+    """One block's decode step on layer i of the stacked ``cache``, written
+    in place; returns x and, for an attention block, its new lengths."""
+    if kind in _MAMBA:
+        h = layers.apply_norm(p["ln"], x, cfg.norm)
+        h, st = _MAMBA[kind].decode(p["mixer"], h, cfg,
+                                   _layer_cache(cache, i))
+        cache.conv[i] = st.conv
+        cache.ssm[i] = st.ssm
+        return x + h, None
+    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    h, c = attention.self_attention_decode(p["attn"], h, cfg,
+                                           _layer_cache(cache, i))
+    x = x + h
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    return x + layers.apply_mlp(p["mlp"], h, cfg.act), c.length
+
+
+def _with_lengths(cache: KVCache, lengths: list) -> KVCache:
+    return KVCache(k=cache.k, v=cache.v, length=torch.stack(lengths))
 
 
 def decode_step(
@@ -242,30 +290,42 @@ def decode_step(
     pattern, n_super = _require_ported(cfg)
     x = layers.embed(params["embed"], token, ACT_DTYPE)
     lengths = [[None] * n_super for _ in pattern]
+    shared_lengths = [None] * n_super
     for i in range(n_super):
         for j, kind in enumerate(pattern):
-            p = params["blocks"][j][i]
-            cache = state.caches[j]
-            if kind == "mamba1":
-                h = layers.apply_norm(p["ln"], x, cfg.norm)
-                h, st = mamba.apply_mamba1_decode(p["mixer"], h, cfg,
-                                                  _layer_cache(cache, i))
-                cache.conv[i] = st.conv
-                cache.ssm[i] = st.ssm
-                x = x + h
-                continue
-            h = layers.apply_norm(p["ln1"], x, cfg.norm)
-            h, c = attention.self_attention_decode(
-                p["attn"], h, cfg, _layer_cache(cache, i))
-            lengths[j][i] = c.length
-            x = x + h
-            h = layers.apply_norm(p["ln2"], x, cfg.norm)
-            x = x + layers.apply_mlp(p["mlp"], h, cfg.act)
-    caches = [c if kind == "mamba1" else
-              KVCache(k=c.k, v=c.v, length=torch.stack(lengths[j]))
+            x, lengths[j][i] = _decode_block(params["blocks"][j][i], kind, x,
+                                             cfg, state.caches[j], i)
+        if cfg.is_hybrid:
+            x, shared_lengths[i] = _decode_block(
+                params["shared_attn"], "dense", x, cfg, state.shared_kv, i)
+    caches = [c if kind in _MAMBA else _with_lengths(c, lengths[j])
               for j, (kind, c) in enumerate(zip(pattern, state.caches))]
+    shared_kv = (_with_lengths(state.shared_kv, shared_lengths)
+                 if cfg.is_hybrid else None)
     return _final_logits(params, x, cfg), DecodeState(
-        caches=caches, shared_kv=None, length=state.length + 1)
+        caches=caches, shared_kv=shared_kv, length=state.length + 1)
+
+
+def _prefill_block(p, kind: str, x: Tensor, cfg: ModelConfig,
+                   positions: Tensor, cache, i: int) -> Tensor:
+    """One block over the whole sequence, its final states or its K/V
+    written into layer i of the stacked ``cache``."""
+    if kind in _MAMBA:
+        h = layers.apply_norm(p["ln"], x, cfg.norm)
+        y, st = _MAMBA[kind].scan(p["mixer"], h, cfg)
+        cache.conv[i] = st.conv
+        cache.ssm[i] = st.ssm
+        return x + y
+    h = layers.apply_norm(p["ln1"], x, cfg.norm)
+    q, k, v = attention.qkv_project(p["attn"], h, cfg, positions)
+    o = attention.attend(q, k, v, causal=True, window=cfg.sliding_window,
+                         logit_cap=cfg.attn_logit_softcap)
+    x = x + attention.out_project(o, p["attn"]["wo"])
+    h = layers.apply_norm(p["ln2"], x, cfg.norm)
+    s = k.shape[1]
+    cache.k[i, :, :s] = k
+    cache.v[i, :, :s] = v
+    return x + layers.apply_mlp(p["mlp"], h, cfg.act)
 
 
 def prefill_caches(
@@ -274,8 +334,10 @@ def prefill_caches(
     """Run the full sequence once and return a DecodeState holding its K/V
     (padded to ``max_len`` positions) or its final conv and SSM states.
     Attention goes through `attend`, so through the flash kernel (B5) on
-    the card; the mamba1 scan through `fused_chunked_scan_m1`, so through
-    the fused kernel (B7): one launch per layer."""
+    the card, the hybrid's shared block included (one launch per
+    application); the mamba1 scan through `fused_chunked_scan_m1` and the
+    mamba2 scan through `fused_chunked_scan_m2`, so through the fused
+    kernel (B7): one launch per layer."""
     pattern, n_super = _require_ported(cfg)
     b, s = tokens.shape
     dev = tokens.device
@@ -284,24 +346,13 @@ def prefill_caches(
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     caches = [_new_cache(kind, n_super, b, max_len, cfg, dev, lens)
               for kind in pattern]
+    shared_kv = (_new_cache("dense", n_super, b, max_len, cfg, dev, lens)
+                 if cfg.is_hybrid else None)
     for i in range(n_super):
         for j, kind in enumerate(pattern):
-            p = params["blocks"][j][i]
-            if kind == "mamba1":
-                h = layers.apply_norm(p["ln"], x, cfg.norm)
-                y, st = mamba._mamba1_scan(p["mixer"], h, cfg)
-                x = x + y
-                caches[j].conv[i] = st.conv
-                caches[j].ssm[i] = st.ssm
-                continue
-            h = layers.apply_norm(p["ln1"], x, cfg.norm)
-            q, k, v = attention.qkv_project(p["attn"], h, cfg, positions)
-            o = attention.attend(q, k, v, causal=True,
-                                 window=cfg.sliding_window,
-                                 logit_cap=cfg.attn_logit_softcap)
-            x = x + attention.out_project(o, p["attn"]["wo"])
-            h = layers.apply_norm(p["ln2"], x, cfg.norm)
-            x = x + layers.apply_mlp(p["mlp"], h, cfg.act)
-            caches[j].k[i, :, :s] = k
-            caches[j].v[i, :, :s] = v
-    return DecodeState(caches=caches, shared_kv=None, length=lens)
+            x = _prefill_block(params["blocks"][j][i], kind, x, cfg,
+                               positions, caches[j], i)
+        if cfg.is_hybrid:
+            x = _prefill_block(params["shared_attn"], "dense", x, cfg,
+                               positions, shared_kv, i)
+    return DecodeState(caches=caches, shared_kv=shared_kv, length=lens)

@@ -1,4 +1,4 @@
-"""Selective state-space layers: Mamba1 (falcon-mamba).
+"""Selective state-space layers: Mamba1 (falcon-mamba) and Mamba2 (zamba2).
 
 The reference (`repro.models.mamba`) evaluates the diagonal recurrence
 h_t = a_t * h_{t-1} + b_t with a chunked associative scan: a loop over
@@ -25,11 +25,18 @@ B7 path give the same bits.  With random weights, a deep Mamba1 stack
 amplifies any last-bit difference: the scan carries a bf16 rounding flip
 to every later token, and the layers above grow it.
 
-Decode is a single-step state update (`apply_mamba1_decode`) carrying a
-conv ring buffer and the SSM state: the SSM analogue of a KV cache.
+Mamba2 (SSD) scans per head: one decay exp(dt * a_h) per (token, head)
+for all of the head's hd x ds states.  `_mamba2_scan` always goes through
+`fused_chunked_scan_m2` (the reference has no kernel branch for it): on a
+CUDA tensor the fused kernel B7 with each head's dt and decay repeated over
+the head's hd channels, one launch a layer at any L; on a CPU tensor the
+reference's chunked body, its last chunk shorter where L is ragged (the
+reference sends ragged L to `ref_scan`).  y sums over the states by
+`fused.state_sum` there too.
 
-Mamba2 (zamba2) is not in this slice: its functions raise
-NotImplementedError naming the ROADMAP item that brings them.
+Decode is a single-step state update (`apply_mamba1_decode`,
+`apply_mamba2_decode`) carrying a conv ring buffer and the SSM state: the
+SSM analogue of a KV cache.
 """
 from __future__ import annotations
 
@@ -45,7 +52,6 @@ from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
 F32 = torch.float32
-MAMBA2_LATER = "ROADMAP queue A 'mamba2 and zamba2's hybrid'"
 
 
 # --------------------------------------------------------------------------
@@ -261,12 +267,169 @@ def apply_mamba1_decode(p, x: Tensor, cfg: ModelConfig,
 
 
 # --------------------------------------------------------------------------
-# Mamba2 / SSD (zamba2): not in this slice
+# Mamba2 / SSD (zamba2)
 # --------------------------------------------------------------------------
 
-def _mamba2_later(*_args, **_kwargs):
-    raise NotImplementedError(f"mamba2 is not ported yet ({MAMBA2_LATER})")
+def n_ssm_heads(cfg: ModelConfig) -> int:
+    return cfg.d_inner // cfg.ssm_head_dim
 
 
-make_mamba2 = apply_mamba2 = apply_mamba2_decode = _mamba2_later
-init_mamba2_state = fused_chunked_scan_m2 = _mamba2_later
+def conv_dim(cfg: ModelConfig) -> int:
+    return cfg.d_inner + 2 * cfg.ssm_state  # x + B + C (n_groups = 1)
+
+
+def ssd_channels(dt: Tensor, xh: Tensor, a_h: Tensor, h0: Tensor):
+    """The SSD scan's inputs as B7's per-channel ones: dt (B, L, nh) ->
+    (B, L, nh * hd) and a_h (nh,) -> A (nh * hd, ds), each head's value
+    repeated over its hd channels (channel h * hd + e, the layout of
+    ``xh.reshape(B, L, nh * hd)``); xh and h0 (B, nh, hd, ds) as views of
+    (B, L, nh * hd) and (B, nh * hd, ds)."""
+    bsz, L, nh, hd = xh.shape
+    di, ds = nh * hd, h0.shape[-1]
+    return (dt.repeat_interleave(hd, dim=-1), xh.reshape(bsz, L, di),
+            a_h.repeat_interleave(hd)[:, None].expand(di, ds),
+            h0.reshape(bsz, di, ds))
+
+
+def fused_chunked_scan_m2(
+    dt: Tensor,    # (B, L, nh) fp32
+    xh: Tensor,    # (B, L, nh, hd)
+    b_t: Tensor,   # (B, L, ds)
+    c_t: Tensor,   # (B, L, ds)
+    a_h: Tensor,   # (nh,) negative per-head decay
+    h0: Tensor,    # (B, nh, hd, ds) fp32
+    chunk: int,
+) -> tuple[Tensor, Tensor]:
+    """Memory-bounded Mamba2/SSD scan emitting y (B, L, nh, hd) and h_last.
+
+    On CUDA tensors: B7 (`fused_mamba_scan`, from h0) over the nh * hd
+    channels, channel h * hd + e taking head h's dt and its decay a_h[h] at
+    every state, so that exp(dt * A), (dt * x) * B, the recurrence and
+    sum_s h * C are the reference's per-head values element for element;
+    one launch at any L.  On CPU tensors: the reference's body, a =
+    exp(dt * a_h) per head and bx = dt * x * B built per chunk, an
+    associative scan inside it and the C-projection folded in; where
+    L % chunk != 0 the last chunk is shorter."""
+    bsz, L, nh, hd = xh.shape
+    ds = b_t.shape[-1]
+    if dt.is_cuda:
+        dt_d, xc, a_mat, h0_d = ssd_channels(dt, xh, a_h, h0)
+        y, h_last = scan_fused.fused_mamba_scan(dt_d, xc, b_t, c_t, a_mat,
+                                                h0=h0_d, chunk=chunk)
+        return y.view(bsz, L, nh, hd), h_last.view(bsz, nh, hd, ds)
+    h, ys = h0, []
+    for t0 in range(0, L, chunk):
+        dt_c = dt[:, t0:t0 + chunk]
+        a = torch.exp(dt_c * a_h)[..., None, None]          # (B,C,nh,1,1)
+        bx = (dt_c[..., None] * xh[:, t0:t0 + chunk].to(F32))[..., None] \
+            * b_t[:, t0:t0 + chunk].to(F32)[:, :, None, None, :]
+        pa, pb = _assoc_scan(a, bx)                         # (B,C,nh,hd,ds)
+        hs = pa * h[:, None] + pb
+        ys.append(scan_fused.state_sum(
+            hs * c_t[:, t0:t0 + chunk].to(F32)[:, :, None, None, :]))
+        h = hs[:, -1]
+    return torch.cat(ys, 1), h
+
+
+def make_mamba2(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    """Random parameters on ``gen``'s device, the reference's init and leaf
+    types: A = -(1 .. nh) per head, dt_bias = softplus^-1 of steps
+    log-uniform in [1e-3, 1e-1]; dt_bias, a_log, d_skip and the norm's
+    scale in float32, the rest in ``dtype``."""
+    d, di, ds, dc = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    nh, cd = n_ssm_heads(cfg), conv_dim(cfg)
+    dev = gen.device
+    u = torch.rand((nh,), generator=gen, device=dev)
+    dt_init = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+    inv_dt = dt_init + torch.log(-torch.expm1(-dt_init))  # softplus^-1
+    return {
+        # z | x | B | C | dt
+        "in_proj": layers.dense_init(gen, d, (d, 2 * di + 2 * ds + nh),
+                                     dtype),
+        "conv_w": layers.truncated_normal(gen, (dc, cd), (1.0 / dc) ** 0.5,
+                                          dtype),
+        "conv_b": torch.zeros((cd,), dtype=dtype, device=dev),
+        "dt_bias": inv_dt,
+        "a_log": torch.log(torch.arange(1, nh + 1, dtype=F32, device=dev)),
+        "d_skip": torch.ones((nh,), dtype=F32, device=dev),
+        "norm": layers.make_norm(di, "rmsnorm", dev),
+        "out_proj": layers.dense_init(gen, di, (di, d), dtype),
+    }
+
+
+def _mamba2_split(p, x: Tensor, cfg: ModelConfig):
+    """x (B, L, D) -> z (B, L, di), xbc (B, L, conv_dim), dt (B, L, nh)."""
+    zxbcdt = layers.matmul(x, p["in_proj"])
+    return torch.split(zxbcdt, [cfg.d_inner, conv_dim(cfg), n_ssm_heads(cfg)],
+                       dim=-1)
+
+
+def _mamba2_ssm_inputs(p, xbc: Tensor, dt_raw: Tensor, cfg: ModelConfig):
+    """Returns (dt, xh, b_t, c_t, a_h); the decay is built in the scan."""
+    di, ds = cfg.d_inner, cfg.ssm_state
+    xr, b_t, c_t = torch.split(xbc, [di, ds, ds], dim=-1)
+    xh = xr.unflatten(-1, (n_ssm_heads(cfg), cfg.ssm_head_dim))
+    dt = _softplus(dt_raw.to(F32) + p["dt_bias"])               # (B, L, nh)
+    a_h = -torch.exp(p["a_log"])                                # (nh,)
+    return dt, xh, b_t, c_t, a_h
+
+
+def apply_mamba2(p, x: Tensor, cfg: ModelConfig) -> Tensor:
+    """Full-sequence Mamba2/SSD mixer. x: (B, L, D)."""
+    y, _ = _mamba2_scan(p, x, cfg)
+    return y
+
+
+def _mamba2_scan(p, x: Tensor, cfg: ModelConfig
+                 ) -> tuple[Tensor, "Mamba2State"]:
+    nh, hd, ds = n_ssm_heads(cfg), cfg.ssm_head_dim, cfg.ssm_state
+    z, xbc, dt_raw = _mamba2_split(p, x, cfg)
+    xbc, conv_state = causal_conv1d(xbc, p["conv_w"], p["conv_b"])
+    xbc = layers.silu(xbc)
+    dt, xh, b_t, c_t, a_h = _mamba2_ssm_inputs(p, xbc, dt_raw, cfg)
+    bsz, L = x.shape[0], x.shape[1]
+    h0 = torch.zeros((bsz, nh, hd, ds), dtype=F32, device=x.device)
+    y, h_last = fused_chunked_scan_m2(dt, xh, b_t, c_t, a_h, h0,
+                                      min(cfg.ssm_chunk, L))
+    y = y + xh.to(F32) * p["d_skip"][:, None]
+    y = y.reshape(bsz, L, cfg.d_inner)
+    # gated RMSNorm (mamba2): norm(y * silu(z))
+    y = y.to(x.dtype) * layers.silu(z)
+    y = layers.apply_norm(p["norm"], y, "rmsnorm")
+    out = layers.matmul(y, p["out_proj"])
+    return out, Mamba2State(conv=conv_state, ssm=h_last)
+
+
+class Mamba2State(NamedTuple):
+    conv: Tensor  # (B, K-1, conv_dim)
+    ssm: Tensor   # (B, nh, hd, ds) fp32
+
+
+def init_mamba2_state(batch: int, cfg: ModelConfig, dtype,
+                      device=None) -> Mamba2State:
+    return Mamba2State(
+        conv=torch.zeros((batch, cfg.ssm_conv - 1, conv_dim(cfg)),
+                         dtype=dtype, device=device),
+        ssm=torch.zeros((batch, n_ssm_heads(cfg), cfg.ssm_head_dim,
+                         cfg.ssm_state), dtype=F32, device=device),
+    )
+
+
+def apply_mamba2_decode(p, x: Tensor, cfg: ModelConfig,
+                        state: Mamba2State) -> tuple[Tensor, Mamba2State]:
+    """x: (B, 1, D) — one-token state update."""
+    z, xbc, dt_raw = _mamba2_split(p, x, cfg)
+    xbc, conv_state = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
+                                    state.conv)
+    xbc = layers.silu(xbc)
+    dt, xh, b_t, c_t, a_h = _mamba2_ssm_inputs(p, xbc, dt_raw, cfg)
+    a = torch.exp(dt[:, 0] * a_h)[..., None, None]            # (B,nh,1,1)
+    bx = (dt[:, 0, :, None] * xh[:, 0].to(F32))[..., None] \
+        * b_t[:, 0].to(F32)[:, None, None, :]
+    h = a * state.ssm + bx                                    # (B,nh,hd,ds)
+    y = torch.einsum("bhds,bs->bhd", h, c_t[:, 0].to(F32))
+    y = y + xh[:, 0].to(F32) * p["d_skip"][:, None]
+    y = y.reshape(x.shape[0], 1, cfg.d_inner).to(x.dtype) * layers.silu(z)
+    y = layers.apply_norm(p["norm"], y, "rmsnorm")
+    out = layers.matmul(y, p["out_proj"])
+    return out, Mamba2State(conv=conv_state, ssm=h)

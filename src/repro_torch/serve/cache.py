@@ -3,9 +3,10 @@
 `lm.DecodeState` stacks per-layer caches with a batch dimension = decode
 slots.  This module is the slot algebra the engine needs: write a single
 prefilled request's cache into slot `i`, clear a slot, and track occupancy.
-It works on every cache kind of the port (attention `KVCache`, Mamba1
-`Mamba1State` conv ring and SSM state) because it walks each cache's
-leaves, all stacked (n_super, B, ...).
+It works on every cache kind of the port (attention `KVCache`, the
+`Mamba1State` / `Mamba2State` conv ring and SSM state, and the hybrid's
+shared-block `shared_kv`) because it walks each cache's leaves, all
+stacked (n_super, B, ...).
 
 `insert_request` and `clear_slot` update ``state``'s tensors IN PLACE (the
 reference returns updated copies) and return a DecodeState over them.

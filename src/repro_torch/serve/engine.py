@@ -16,8 +16,9 @@ Modes: 'rr' (static 50/50, the paper's baseline), 'static' (fixed split),
 'kf' (full technique).  Time is a virtual clock advanced by a calibrated
 cost model (tokens processed), so runs are deterministic.
 
-The model (prefill through the flash kernel B5 on a dense decoder or the
-fused scan kernel B7 on falcon-mamba, decode) runs on ``device``,
+The model (prefill through the flash kernel B5 on a dense decoder, the
+fused scan kernel B7 on falcon-mamba, or both on zamba2, decode) runs on
+``device``,
 the CUDA device unless the caller passes another.  The KF and the
 hysteresis policy run on host CPU tensors, so the control decisions on the
 card are comparable with a CPU run.

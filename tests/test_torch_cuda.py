@@ -561,7 +561,10 @@ def _fused_inputs(B, L, D, S, dtype):
     # channels (64 at S = 16, 128 at S = 8)
     (1, 1, 72, 16), (1, 65, 8200, 16), (2, 300, 4104, 8),
     # D % 4 != 0: the narrow (one element) copies
-    (1, 37, 1001, 16)])
+    (1, 37, 1001, 16),
+    # S = 64 (mamba2): zamba2's d_inner, D ragged against the block's 16
+    # channels, and narrow copies
+    (1, 517, 5120, 64), (2, 70, 1000, 64), (1, 37, 1001, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mamba_fused_kernel_matches_plain(B, L, D, S, dtype):
     """B7 within atol/rtol 1e-5 of its plain version, from zero and from a
@@ -649,3 +652,79 @@ def test_mamba_kernels_launch_nothing_on_empty_inputs():
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0}
     assert hs.shape == a.shape and y.shape == (1, 0, 32)
     assert torch.equal(hl, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_scan_is_one_b7_launch(dtype):
+    """`fused_chunked_scan_m2` on the card: one B7 launch at any L, within
+    1e-5 of B7's plain version on the same expanded inputs and of the
+    chunked body on the CPU."""
+    _need_cuda()
+    from repro_torch.models import mamba as tmamba
+
+    rng = np.random.default_rng(9)
+    B, L, nh, hd, ds = 1, 300, 12, 64, 64
+    dt = torch.from_numpy(rng.uniform(0.001, 0.5, (B, L, nh)).astype(
+        np.float32))
+    xh, b, c = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(
+        dtype) for sh in ((B, L, nh, hd), (B, L, ds), (B, L, ds)))
+    a_h = -torch.arange(1.0, nh + 1)
+    h0 = torch.from_numpy(rng.normal(size=(B, nh, hd, ds)).astype(np.float32))
+    cpu = (dt, xh, b, c, a_h, h0)
+    ms_ops.reset_launches()
+    y, hl = tmamba.fused_chunked_scan_m2(*(t.cuda() for t in cpu), 256)
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 1}
+    assert y.shape == (B, L, nh, hd) and hl.shape == (B, nh, hd, ds)
+    dt_d, xc, a_mat, h0_d = tmamba.ssd_channels(dt.cuda(), xh.cuda(),
+                                                a_h.cuda(), h0.cuda())
+    y_p, hl_p = ms_fused.fused_mamba_scan_plain(dt_d, xc, b.cuda(), c.cuda(),
+                                                a_mat, h0_d)
+    torch.testing.assert_close(y.flatten(2), y_p, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hl.flatten(1, 2), hl_p, atol=1e-5, rtol=1e-5)
+    y_c, hl_c = tmamba.fused_chunked_scan_m2(*cpu, 256)
+    torch.testing.assert_close(y.cpu(), y_c, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(hl.cpu(), hl_c, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_hybrid_forward_launches_b7_per_layer_and_b5_per_super_block():
+    """A small zamba2 (head dim 64, which B5 takes) through lm.forward and
+    prefill on the card: one B7 launch a mamba2 layer and one B5 launch an
+    application of the shared block; logits within relative L2 1e-2 of
+    the CPU run of the same parameters."""
+    _need_cuda()
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.smoke("zamba2-2.7b"), d_model=128,
+                              n_heads=2, n_kv_heads=2, head_dim=64)
+    params = lm.make_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    cpu_params = _to_cpu(params)
+    toks = torch.randint(0, cfg.vocab_size, (1, 37),
+                         generator=torch.Generator().manual_seed(1))
+    ms_ops.reset_launches()
+    fa_ops.reset_launches()
+    out = lm.forward(params, toks.cuda(), cfg, return_caches=True,
+                     cache_len=64)
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * 4}
+    assert fa_ops.LAUNCHES == {"flash_attn": 2 * 2}
+    want = lm.forward(cpu_params, toks, cfg, return_caches=True, cache_len=64)
+    a, b = out.logits.double().cpu(), want.logits.double()
+    assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert out.caches.shared_kv.k.shape == (2, 1, 64, 2, 64)
+    lg, _ = lm.decode_step(params, toks[:, :1].cuda(), out.caches, cfg)
+    assert lg.shape == (1, 1, cfg.vocab_size) and bool(
+        torch.isfinite(lg).all())
+
+
+def _to_cpu(tree):
+    """A parameter tree's copy on the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()

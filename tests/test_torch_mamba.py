@@ -245,9 +245,17 @@ def test_init_decode_state_matches_jax(model):
     assert isinstance(ts.caches[0], tmamba.Mamba1State)
 
 
-def test_mamba2_and_hybrid_still_raise():
+def test_mamba2_and_hybrid_build():
+    """zamba2 is ported: its mixer and its hybrid model build on the CPU,
+    and the falcon-mamba helpers above leave it alone."""
     cfg = tconfigs.smoke("zamba2-2.7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.make_lm(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmamba.make_mamba2(None, cfg, torch.bfloat16)
+    params = tlm.make_lm(torch.Generator().manual_seed(0), cfg)
+    assert "shared_attn" in params
+    mixer = tmamba.make_mamba2(torch.Generator().manual_seed(1), cfg,
+                               torch.bfloat16)
+    assert mixer["in_proj"].shape == (
+        cfg.d_model, 2 * cfg.d_inner + 2 * cfg.ssm_state
+        + tmamba.n_ssm_heads(cfg))
+    st = tlm.init_decode_state(2, 16, cfg, device="cpu")
+    assert isinstance(st.caches[0], tmamba.Mamba2State)
+    assert st.shared_kv is not None

@@ -173,7 +173,7 @@ def test_source_defaults_are_swept():
     assert DEFAULTS["TILE"] % DEFAULTS["U"] == 0
 
 
-@pytest.mark.parametrize("S", [8, 16])
+@pytest.mark.parametrize("S", [8, 16, 64])
 @pytest.mark.parametrize("K", KS)
 def test_lane_sum_is_state_sum(S, K):
     """The in-thread halving and the xor partners give state_sum's bits."""
@@ -192,10 +192,14 @@ def test_lane_sum_is_state_sum(S, K):
 
 # L = 1, U - 1, U + 1 and one past a tile for every swept (K, U) (L = 0
 # launches nothing: the wrapper returns h0), and a prefill's length for
-# the library's own instantiation
+# the library's own instantiation; at S = 64 (mamba2: G = 32 / 16 / 8
+# lanes a channel for K = 2 / 4 / 8) every swept K at the library's U
 CASES = [(S, K, U, L) for S in (8, 16) for K in KS for U in US
          for L in sorted({1, U - 1, U + 1, DEFAULTS["TILE"] + 1} - {0})] + [
-    (S, DEFAULTS["K"], DEFAULTS["U"], 517) for S in (8, 16)]
+    (64, K, DEFAULTS["U"], L) for K in KS
+    for L in sorted({1, DEFAULTS["U"] - 1, DEFAULTS["U"] + 1,
+                     DEFAULTS["TILE"] + 1} - {0})] + [
+    (S, DEFAULTS["K"], DEFAULTS["U"], 517) for S in (8, 16, 64)]
 
 
 @pytest.mark.parametrize("S,K,U,L", CASES)
