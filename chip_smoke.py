@@ -89,11 +89,14 @@ build/repro_torch/), then runs, each phase failing the script on error:
      kernel fed by TMA, f32 through the SIMT kernel) against their plain
      version at the llama3.2-3b shape (S = 48, 512, 2048, causal), the
      h2o-danube-1.8b shape at S = 6144 with its 4096 window, the grok-1
-     shape with its logit cap (and kv_len < Sk), and zamba2's shared block
-     (H = KV = 32, D = 80, causal) at S = 512 and 2048; the bf16 kernel and
-     torch's scaled_dot_product_attention timed at each llama and zamba2
+     shape with its logit cap (S = 512, also with kv_len < Sk, and 2048),
+     zamba2's shared block (H = KV = 32, D = 80, causal) at S = 512 and
+     2048, and llama4-maverick's (H 40, KV 8, D 128: GQA groups of 5) at
+     S = 512 and 2048; the bf16 kernel and torch's
+     scaled_dot_product_attention timed at each llama, zamba2 and maverick
      shape (device time under torch.profiler, and CUDA events per call)
-     beside the bound;
+     beside the bound, and the kernel alone at grok-1's S = 2048 (SDPA has
+     no logit cap);
   [serve-w] llama3.2-3b at full width cut to 2 layers: prefill of a
      256-token prompt and 2 decode steps on the card (B5) against the same
      parameters on the CPU (plain), relative L2 of K/V and logits;
@@ -122,23 +125,24 @@ build/repro_torch/), then runs, each phase failing the script on error:
      and with torch.profiler's device time per launch, beside its bound
      (at S = 64 also beside the mamba2 scan's own bound, which has one
      exponential a head, not one a state);
-  [fwd-m] falcon-mamba-7b at full width, depth cut to 32 of its 64
+  [fwd-m] falcon-mamba-7b at full width, depth cut to 16 of its 64
      layers (to keep the script inside its time limit; random weights
      from the seed), B = 1, L = 2048: lm.forward with use_kernel
-     (exactly 32 B6 launches) and without (exactly 32 B7 launches), logits
+     (exactly 16 B6 launches) and without (exactly 16 B7 launches), logits
      of the two within relative L2 1e-2, and the wall of each;
   [serve-mw] falcon-mamba-7b at full width cut to 2 layers: forward +
      prefill of a 300-token prompt and 2 decode steps on the card (B7)
      against the same parameters on the CPU (plain), relative L2 <= 1e-2
      on the logits, SSM states and conv rings;
-  [serve-m] the [serve] runs on that 32-layer falcon-mamba-7b: exactly 32
-     B7 launches per prefill (1,024 a workload), EngineStats equal to a CPU
+  [serve-m] the [serve] runs on that 16-layer falcon-mamba-7b: exactly 16
+     B7 launches per prefill (512 a workload), EngineStats equal to a CPU
      smoke run, the wall, a decode step and a 512-token prefill timed
      alone, and the second workload's boosts and switches;
-  [fwd-z] zamba2-2.7b at full width and depth (54 mamba2 layers in 9
-     super-blocks of 6, the shared attention block after each; random
-     weights from the seed), B = 1, L = 2048: lm.forward with exactly 54 B7
-     and 9 B5 launches, its wall, tokens/s and the device's busy share;
+  [fwd-z] zamba2-2.7b at full width, depth cut to 24 of its 54 layers
+     (24 mamba2 layers in 4 super-blocks of 6, the shared attention block
+     after each; to keep the script inside its time limit; random weights
+     from the seed), B = 1, L = 2048: lm.forward with exactly 24 B7 and 4
+     B5 launches, its wall, tokens/s and the device's busy share;
   [serve-zw] zamba2-2.7b at full width cut to 6 layers (one super-block
      and one application of the shared block): forward + prefill of a
      300-token prompt and 2 decode steps on the card (B7, B5) against the
@@ -147,9 +151,35 @@ build/repro_torch/), then runs, each phase failing the script on error:
      the card misses 1e-2, the distance after each block is printed beside
      the CPU's own drift between its bf16 GEMMs and its f32 ones (the
      witness), and the bound is max(1e-2, 1.5 x the witness);
-  [serve-z] the [serve] runs on the full zamba2-2.7b: exactly 54 B7 and 9
-     B5 launches per prefill, EngineStats equal to a CPU smoke run, the
+  [serve-z] the [serve] runs on that 24-layer zamba2-2.7b: exactly 24 B7
+     and 4 B5 launches per prefill, EngineStats equal to a CPU smoke run, the
      wall, a decode step and a 512-token prefill timed alone;
+  [fwd-g] grok-1-314b at full width (d_model 6144, 48/8 heads, logit cap
+     30, 8 experts of d_ff 32768, top-2), depth cut to 4 of its 64 layers
+     (42.6 GB of bf16 weights; random weights from the seed), B = 1, L =
+     2048 (one dispatch group, capacity 640): lm.forward with exactly 4 B5
+     launches, finite logits, the expert load summing to k = 2, lb and zl
+     finite, TF32 off for the router's f32 product; the wall, tokens/s and
+     the device's busy share;
+  [serve-gw] that model's first layer (13.1 GB): forward + prefill of a
+     300-token prompt and 2 decode steps on the card (B5) against the same
+     parameters on the CPU (plain), relative L2 <= 1e-2 on the logits and
+     K/V, and every MoE call's routes compared: the expert choices equal,
+     or each differing one a near-tie (the CPU's probability margin within
+     twice the router drift of the witness, the CPU's bf16 GEMMs against
+     its f32 ones), and the capacity positions equal except those the
+     differing choices move; where a choice differs or the logits miss
+     1e-2 the witness runs, and the bound is max(1e-2, 1.5 x its worst
+     field); the host's free memory before the CPU copy;
+  [serve-g] the [serve] runs on the 4-layer grok-1: exactly 4 B5 launches
+     per prefill, EngineStats equal to a CPU smoke run, the wall, a decode
+     step and a 512-token prefill timed alone;
+  [fwd-l], [serve-lw], [serve-l] the same three for llama4-maverick-400b-
+     a17b at full width (d_model 5120, 40/8 heads, 128 experts of d_ff
+     8192, top-1, a shared expert, MoE every second layer), depth cut to
+     one super-block (2 layers, a dense and a MoE one; 37.1 GB): 2 B5
+     launches per forward or prefill; [serve-lw] on the whole 2-layer
+     model;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch (B1:
      per call of arbitrate_lanes, as the "arb" engine calls it), the plain
@@ -1132,7 +1162,9 @@ def phase_b4(dev):
 
 def phase_b5(dev):
     """B5 against its plain version at the models' shapes, and its time at
-    the llama3.2-3b shapes beside the bound and torch's SDPA."""
+    the llama3.2-3b, zamba2 and llama4-maverick shapes beside the bound and
+    torch's SDPA, and at grok-1's capped shape (S = 2048) beside the
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1142,12 +1174,18 @@ def phase_b5(dev):
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     llama = ("llama3.2-3b", 24, 8, 128)
     zamba = ("zamba2-2.7b", 32, 32, 80)   # the shared attention block
+    grok = ("grok-1-314b", 48, 8, 128)    # GQA groups of 6, logit cap 30
+    maverick = ("llama4-maverick-400b-a17b", 40, 8, 128)  # groups of 5
     cases = [(llama, s, True, None, None, None) for s in (48, 512, 2048)] + [
         (("h2o-danube-1.8b", 32, 8, 80), 6144, True, 4096, None, None),
-        (("grok-1-314b", 48, 8, 128), 512, True, None, 30.0, None),
-        (("grok-1-314b", 48, 8, 128), 512, True, None, 30.0, 300),
-    ] + [(zamba, s, True, None, None, None) for s in (512, 2048)]
-    timed = (llama[0], zamba[0])
+        (grok, 512, True, None, 30.0, None),
+        (grok, 512, True, None, 30.0, 300),
+        (grok, 2048, True, None, 30.0, None),
+    ] + [(zamba, s, True, None, None, None) for s in (512, 2048)] + [
+        (maverick, s, True, None, None, None) for s in (512, 2048)]
+    # timed at every S, beside SDPA; grok-1 at S = 2048 only, and without
+    # SDPA, which has no logit cap
+    timed = (llama[0], zamba[0], maverick[0])
     tol = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (8e-3, 2 ** -7)}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timing = []
@@ -1167,7 +1205,9 @@ def phase_b5(dev):
                   f"B5 differs from its plain version: {arch} S={s} {dtype} "
                   f"(max abs err {float(diff.max())})")
             errs[dtype] = max(errs[dtype], float(diff.max()))
-            if arch in timed and dtype == torch.bfloat16:
+            lib_too = arch in timed
+            if dtype == torch.bfloat16 and (lib_too or (
+                    arch == grok[0] and s == 2048)):
                 # the kernel and SDPA each timed two ways: CUDA events over
                 # back-to-back calls (host work included: the wrapper,
                 # checks, three tensor-map encodes and the launch) and the
@@ -1186,17 +1226,17 @@ def phase_b5(dev):
 
                 ms = cuda_ms(kern, reps)
                 dev_ms = profile_device(kern, 20)[1]
-                lib = cuda_ms(sdpa, reps)
-                lib_dev = profile_device(sdpa, 20)[1]
+                lib = cuda_ms(sdpa, reps) if lib_too else None
+                lib_dev = profile_device(sdpa, 20)[1] if lib_too else None
                 plain = cuda_ms(lambda: fa_ops.flash_attention_plain(
                     q, k, v, **kw), 5)
                 (bm, by), pairs = flash_bound(1, h, kv, s, s, d, causal,
                                               window, kv_len, dtype)
-                check(dev_ms > 0 and lib_dev > 0,
+                check(dev_ms > 0 and (not lib_too or lib_dev > 0),
                       "torch.profiler recorded no device time for B5 or SDPA")
                 flops = 4 * d * h * pairs
                 timing.append(dict(
-                    arch=arch, h=h, kv=kv, d=d,
+                    arch=arch, h=h, kv=kv, d=d, cap=cap,
                     s=s, ms=ms, dev_ms=dev_ms, lib=lib, lib_dev=lib_dev,
                     plain=plain, bm=bm, by=by, blocks=h * -(-s // 128),
                     tflops=flops / ms / 1e9, dev_tflops=flops / dev_ms / 1e9,
@@ -1208,24 +1248,33 @@ def phase_b5(dev):
           f"err bf16 {errs[torch.bfloat16]:.3g} (atol 8e-3 + 2^-7 rel), f32 "
           f"{errs[torch.float32]:.3g} (atol 2e-5 + 1e-5 rel)")
     for t in timing:
+        lib = (f"SDPA events {t['lib']:.4f} ms, device {t['lib_dev']:.4f} ms; "
+               f"kernel/SDPA events {t['ms'] / t['lib']:.2f}x, device "
+               f"{t['dev_ms'] / t['lib_dev']:.2f}x" if t["lib"] is not None
+               else "no SDPA time (SDPA has no logit cap)")
         print(f"[B5] {t['arch']} bf16 B=1 H={t['h']} KV={t['kv']} D={t['d']} "
-              f"S={t['s']} causal "
-              f"({t['blocks']} blocks of 384 threads on "
+              f"S={t['s']} causal"
+              + (f", logit cap {t['cap']:g}" if t["cap"] else "")
+              + f" ({t['blocks']} blocks of 384 threads on "
               f"{torch.cuda.get_device_properties(0).multi_processor_count}"
               f" SMs): kernel events {t['ms']:.4f} ms per call "
               f"({t['tflops']:.1f} TFLOP/s), device {t['dev_ms']:.4f} ms "
-              f"({t['dev_tflops']:.1f} TFLOP/s); SDPA events {t['lib']:.4f} "
-              f"ms, device {t['lib_dev']:.4f} ms; kernel/SDPA events "
-              f"{t['ms'] / t['lib']:.2f}x, device "
-              f"{t['dev_ms'] / t['lib_dev']:.2f}x; bound {t['bm']:.5f} ms "
-              f"({t['by']}; {t['bound_tflops']:.1f} TFLOP/s at the bound); "
-              f"plain {t['plain']:.4f} ms")
+              f"({t['dev_tflops']:.1f} TFLOP/s); {lib}; bound "
+              f"{t['bm']:.5f} ms ({t['by']}; {t['bound_tflops']:.1f} TFLOP/s "
+              f"at the bound); plain {t['plain']:.4f} ms")
     sys.stdout.flush()
-    t, z = (next(x for x in timing if x["arch"] == a and x["s"] == 2048)
-            for a in timed)
+    t, z, mv, gk = (
+        next(x for x in timing if x["arch"] == a and x["s"] == 2048)
+        for a in timed + (grok[0],))
+
+    def row(x, shape):
+        return dict(shape=shape, ms=x["ms"], plain_ms=x["plain"],
+                    bound_ms=x["bm"], bound_by=x["by"], library_ms=x["lib"])
+
     # ms and library_ms at S = 2048 are CUDA-event ms per call, as in every
     # other row; the profiler's device time is in the [B5] lines above;
-    # zamba2's shared block (H = KV = 32, D = 80) beside llama's
+    # zamba2's shared block (H = KV = 32, D = 80), maverick's (H 40, KV 8)
+    # and grok-1's (H 48, KV 8, cap 30; no library call) beside llama's
     return dict(name="flash_attn", route="cuda",
                 source="src/repro_torch/kernels/flash_attn/csrc/"
                        "flash_attn_sm90.cu",
@@ -1233,9 +1282,10 @@ def phase_b5(dev):
                 launches=None, max_abs_err=errs[torch.bfloat16],
                 ms=t["ms"], plain_ms=t["plain"], bound_ms=t["bm"],
                 bound_by=t["by"], library_ms=t["lib"],
-                zamba2=dict(shape="(1, 2048, 32, 80) bf16 causal",
-                            ms=z["ms"], plain_ms=z["plain"], bound_ms=z["bm"],
-                            bound_by=z["by"], library_ms=z["lib"]))
+                zamba2=row(z, "(1, 2048, 32, 80) bf16 causal"),
+                maverick=row(mv, "(1, 2048, 40, 128), KV 8, bf16 causal"),
+                grok=row(gk, "(1, 2048, 48, 128), KV 8, bf16 causal, "
+                             "logit cap 30"))
 
 
 def _to_cpu(tree):
@@ -1292,6 +1342,11 @@ def phase_serve_w(dev):
     sys.stdout.flush()
     del params, cpu_params, on_card, on_cpu
     torch.cuda.empty_cache()
+
+
+def stamp(what: str, t_start: float) -> None:
+    print(f"[time] {what} done at {time.time() - t_start:.1f} s")
+    sys.stdout.flush()
 
 
 def wall_ms(fn, n: int) -> float:
@@ -1793,12 +1848,13 @@ def phase_serve_mw(dev):
 
 
 def phase_fwd_z(dev, params, cfg):
-    """zamba2-2.7b at full width and depth through `lm.forward`, B = 1,
+    """zamba2-2.7b at full width through `lm.forward`, B = 1,
     L = 2048: one B7 launch a mamba2 layer, one B5 launch an application
     of the shared block, and no B6; the wall, tokens/s and the device's
     busy share.  Returns the launch counts."""
     import torch
 
+    import repro_torch.configs as configs
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.models import lm
@@ -1824,7 +1880,8 @@ def phase_fwd_z(dev, params, cfg):
 
     wall = wall_ms(fwd, 2)
     _, busy, top_dev, _ = profile_device(fwd, 1)
-    print(f"[fwd-z] {cfg.name} full width and depth ({cfg.n_layers} mamba2 "
+    print(f"[fwd-z] {cfg.name} full width, {cfg.n_layers} of its "
+          f"{configs.get(cfg.name).n_layers} layers ({cfg.n_layers} mamba2 "
           f"layers in {n_super} super-blocks of {cfg.shared_attn_period}, "
           f"the shared block after each; d_model {cfg.d_model}, d_inner "
           f"{cfg.d_inner}, {cfg.d_inner // cfg.ssm_head_dim} ssm heads of "
@@ -1873,9 +1930,9 @@ def hybrid_run(params, toks, steps, cfg, dev) -> tuple[dict, list]:
     trace, apply_block = [], lm._apply_block
 
     def traced(*args, **kwargs):
-        x = apply_block(*args, **kwargs)
+        x, aux = apply_block(*args, **kwargs)
         trace.append(x.float().cpu())
-        return x
+        return x, aux
 
     lm._apply_block = traced
     try:
@@ -1978,6 +2035,339 @@ def phase_serve_zw(dev):
     sys.stdout.flush()
     del params, cpu_params, on_card, on_cpu
     torch.cuda.empty_cache()
+
+
+def moe_desc(cfg) -> str:
+    """A MoE decoder's widths, for the phase lines."""
+    shared = (f", a shared expert of {cfg.d_ff * cfg.n_shared_experts}"
+              if cfg.n_shared_experts else "")
+    every = ("every layer" if cfg.moe_layer_period == 1
+             else f"every {cfg.moe_layer_period}nd layer")
+    cap = (f", logit cap {cfg.attn_logit_softcap:g}"
+           if cfg.attn_logit_softcap else "")
+    return (f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.head_dim}{cap}, {cfg.n_experts} experts of d_ff "
+            f"{cfg.d_ff}, top-{cfg.n_experts_active}{shared}, MoE {every}, "
+            f"vocab {cfg.vocab_size:,}")
+
+
+def param_gb(params) -> float:
+    def walk(t):
+        if isinstance(t, dict):
+            return sum(walk(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(walk(v) for v in t)
+        return t.numel() * t.element_size()
+    return walk(params) / 1e9
+
+
+def phase_fwd_moe(dev, tag, params, cfg):
+    """A MoE decoder at full width through `lm.forward`, B = 1, L = 2048:
+    one B5 launch a layer (every layer has attention); finite logits;
+    each super-block's expert load summing to k (so their mean does); lb
+    and zl finite; the router's f32 product with TF32 off; the wall,
+    tokens/s and the device's busy share.  Returns the B5 launches."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm, moe
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          f"{tag} TF32 is on: the MoE router's f32 product would round its "
+          f"inputs")
+    g = torch.Generator().manual_seed(SEED + 16)
+    toks = torch.randint(0, cfg.vocab_size, (1, 2048), generator=g).to(dev)
+    groups = moe.n_groups(2048, cfg)
+    fa_ops.reset_launches()
+    out = lm.forward(params, toks, cfg)
+    counts = dict(fa_ops.LAUNCHES)
+    check(counts == {"flash_attn": cfg.n_layers},
+          f"{tag} forward launched {counts}, expected {cfg.n_layers} B5")
+    aux = out.aux
+    load = float(aux.expert_load.sum())
+    check(out.logits.shape == (1, 2048, cfg.vocab_size)
+          and bool(torch.isfinite(out.logits).all()),
+          f"{tag} forward logits misshapen or non-finite")
+    check(aux.expert_load.shape == (cfg.n_experts,)
+          and abs(load - cfg.n_experts_active) < 1e-5
+          and bool(torch.isfinite(aux.load_balance_loss))
+          and bool(torch.isfinite(aux.router_z_loss)),
+          f"{tag} aux: expert load sums to {load} (k = "
+          f"{cfg.n_experts_active}), lb {float(aux.load_balance_loss)}, zl "
+          f"{float(aux.router_z_loss)}")
+    del out
+
+    def fwd():
+        return lm.forward(params, toks, cfg)
+
+    wall = wall_ms(fwd, 2)
+    _, busy, top_dev, _ = profile_device(fwd, 1)
+    print(f"{tag} {cfg.name} full width ({moe_desc(cfg)}), depth cut to "
+          f"{cfg.n_layers} layers ({param_gb(params):.1f} GB of bf16 "
+          f"weights), B=1, L=2048 ({groups} dispatch group, capacity "
+          f"{moe._capacity(2048 // groups, cfg)}): {counts['flash_attn']} B5 "
+          f"launches; TF32 off; expert load sums to {load:.6f}, lb "
+          f"{float(aux.load_balance_loss):.4f}, zl "
+          f"{float(aux.router_z_loss):.4f}; wall {wall:.1f} ms "
+          f"({2048e3 / wall:.0f} tokens/s), device busy {fmt_ms(busy)} "
+          f"(torch.profiler), idle share "
+          + (f"{1 - busy / wall:.3f}" if busy > 0 else "not measured")
+          + f"; top device ops (ms): {fmt_top(top_dev)}")
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    return counts["flash_attn"]
+
+
+def moe_run(params, toks, steps, cfg, dev) -> tuple[dict, list]:
+    """forward + prefill (cache_len 512) and len(steps) decode steps: the
+    logits of each and every K/V cache after each, on the CPU; and the
+    routes of every MoE call in order (`moe.Routes` on the CPU)."""
+    from repro_torch.models import lm, moe
+
+    routes, route = [], moe._route
+
+    def traced(*args, **kwargs):
+        out = route(*args, **kwargs)
+        routes.append(moe.Routes(*(x.cpu() for x in out[0])))
+        return out
+
+    moe._route = traced
+    try:
+        out = lm.forward(params, toks.to(dev), cfg, return_caches=True,
+                         cache_len=512)
+        seen = {"logits prefill": out.logits.cpu()}
+        st = out.caches
+
+        def fields(tag):
+            for j, c in enumerate(st.caches):
+                seen[f"k{j} {tag}"] = c.k.cpu().clone()
+                seen[f"v{j} {tag}"] = c.v.cpu().clone()
+
+        fields("prefill")
+        for t, tok in enumerate(steps):
+            lg, st = lm.decode_step(params, tok.to(dev), st, cfg)
+            seen[f"logits decode {t}"] = lg.cpu()
+            fields(f"decode {t}")
+    finally:
+        moe._route = route
+    return seen, routes
+
+
+def route_check(card, cpu, drift):
+    """The card's routes against the CPU's, call by call: the expert
+    choices that differ, each with the CPU's probability margin between
+    the expert it chose and the one the card chose; and the positions,
+    equal wherever the choice is equal and no earlier (slot-major) route
+    that differs touches that expert.  ``drift`` per call: the witness's
+    largest router-probability drift, or None where it was not run.
+    Returns (routes, differing choices, positions moved by them, worst
+    margin / drift) and fails on a position that differs otherwise or on a
+    differing choice whose margin exceeds twice the drift (the gap that
+    two probabilities, each moved by the drift, can close)."""
+    n = flips = moved = 0
+    worst = 0.0
+    for i, (c, p) in enumerate(zip(card, cpu)):
+        g, t, _ = p.probs.shape
+        n += c.expert.numel()
+        for gi in range(g):
+            ce, pe = c.expert[gi].tolist(), p.expert[gi].tolist()
+            cpos, ppos = c.pos[gi].tolist(), p.pos[gi].tolist()
+            touched = set()
+            for r, (a, b) in enumerate(zip(ce, pe)):
+                if a != b:
+                    flips += 1
+                    touched |= {a, b}
+                    tok = r % t
+                    margin = float(p.probs[gi, tok, b] - p.probs[gi, tok, a])
+                    check(drift[i] is not None and margin <= 2 * drift[i],
+                          f"a route differs on the card where the CPU's "
+                          f"margin {margin:.3e} is not a near-tie (call {i}, "
+                          f"token {tok}; witness drift {drift[i]})")
+                    if drift[i] > 0:
+                        worst = max(worst, margin / drift[i])
+                elif a in touched:
+                    moved += cpos[r] != ppos[r]
+                else:
+                    # keep is pos < cap on both sides
+                    check(cpos[r] == ppos[r],
+                          f"a capacity position differs on the card with "
+                          f"the same choices (call {i}, route {r})")
+    return n, flips, moved, worst
+
+
+def routed_apart(a, b) -> list:
+    """The tokens (of group 0) whose routes differ between two runs of one
+    MoE call: an expert choice or a keep mask not equal."""
+    t = a.probs.shape[1]
+    apart = (a.expert[0] != b.expert[0]) | (a.keep[0] != b.keep[0])
+    return sorted({r % t for r in apart.nonzero().flatten().tolist()})
+
+
+def logits_apart(seen, ref, routes, ref_routes):
+    """Relative L2 of every field of ``seen`` against ``ref``, the logits
+    over the tokens whose routes agree: the model's one MoE layer is its
+    last, so a token's logits depend on its own routes alone.  MoE call 0
+    is the forward's, call 2 + t decode step t's.  Returns (errs, the
+    tokens left out per logits field)."""
+    errs, out = {}, {}
+    calls = {"logits prefill": 0}
+    calls.update({k: 2 + int(k.split()[-1]) for k in ref
+                  if k.startswith("logits decode")})
+    for k in ref:
+        a, b = seen[k], ref[k]
+        if k in calls:
+            apart = routed_apart(routes[calls[k]], ref_routes[calls[k]])
+            keep = [i for i in range(b.shape[1]) if i not in apart]
+            out[k] = apart
+            if not keep:
+                continue
+            a, b = a[:, keep], b[:, keep]
+        errs[k] = rel_l2(a, b)
+    return errs, out
+
+
+def phase_serve_moe_w(dev, tag, params, cfg):
+    """A MoE decoder at full width, cut to one super-block whose MoE layer
+    is its last: forward + prefill of a 300-token prompt and 2 decode steps
+    on the card (B5) against the same parameters on the CPU (plain).  The
+    routes of every MoE call are compared (`route_check`): a differing
+    expert choice must be a near-tie.  The logits are held to relative L2
+    <= 1e-2 over the tokens whose routes agree (a token that routes apart
+    takes other experts' outputs, which no rounding bound covers; the
+    route check accounts for it), and every K/V cache over all tokens.
+    Where a route differs or the card misses 1e-2, the witness runs: the
+    CPU with the card's GEMM forms (bf16 products) against its own f32
+    ones; its router drift bounds the differing choices' margins, and on a
+    miss the bound becomes max(1e-2, 1.5 x its worst field, measured the
+    same way).  The free host memory is printed before the CPU copy."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+
+    pattern, n_super = lm.layer_pattern(cfg)
+    check(pattern[-1] == "moe" and n_super == 1
+          and pattern.count("moe") == 1,
+          f"{tag} the comparison needs one super-block ending in its one MoE "
+          f"layer, not {pattern} x {n_super}")
+    with open("/proc/meminfo") as f:
+        mem = {line.split(":")[0]: int(line.split()[1]) / 1e6 for line in f}
+    gb = param_gb(params)
+    check(mem["MemAvailable"] > 1.2 * gb + 8,
+          f"{tag} the host has {mem['MemAvailable']:.1f} GB free, too little "
+          f"for a CPU copy of {gb:.1f} GB")
+    t0 = time.time()
+    cpu_params = _to_cpu(params)
+    t_copy = time.time() - t0
+    g = torch.Generator().manual_seed(SEED + 17)
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
+    t0 = time.time()
+    fa_ops.reset_launches()
+    on_card, r_card = moe_run(params, toks, steps, cfg, dev)
+    # forward and prefill: one B5 a layer each; decode none
+    check(fa_ops.LAUNCHES == {"flash_attn": 2 * cfg.n_layers},
+          f"{tag} forward + prefill + decode launched {fa_ops.LAUNCHES}, "
+          f"expected {2 * cfg.n_layers} B5")
+    for k, v in on_card.items():
+        check(bool(torch.isfinite(v.float()).all()),
+              f"{tag} non-finite {k} on the card")
+    t_card = time.time() - t0
+    t1 = time.time()
+    on_cpu, r_cpu = moe_run(cpu_params, toks, steps, cfg, "cpu")
+    t_cpu = time.time() - t1
+    errs, apart = logits_apart(on_card, on_cpu, r_card, r_cpu)
+    all_rows = {k: rel_l2(on_card[k], on_cpu[k]) for k in apart}
+    worst = max(errs, key=errs.get)
+    n_diff = sum(int((c.expert != p.expert).sum())
+                 for c, p in zip(r_card, r_cpu))
+    print(f"{tag} {cfg.name} full width ({moe_desc(cfg)}), {cfg.n_layers} "
+          f"layers ({gb:.1f} GB): forward + prefill of a 300-token prompt "
+          f"and 2 decode steps, card (B5, bf16 cuBLAS; "
+          f"{fa_ops.LAUNCHES['flash_attn']} B5 launches) vs CPU (plain) "
+          f"relative L2 worst {errs[worst]:.3e} ({worst}), all: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + "; tokens routed apart, left out of the logits: "
+          + ", ".join(f"{k} {v}" for k, v in apart.items())
+          + " (over all tokens: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in all_rows.items())
+          + f"); {len(r_cpu)} MoE calls, {n_diff} expert choices differ; "
+          f"host free {mem['MemAvailable']:.1f} of {mem['MemTotal']:.1f} GB "
+          f"before the CPU copy ({t_copy:.1f} s); card {t_card:.1f} s, CPU "
+          f"{t_cpu:.1f} s")
+    sys.stdout.flush()
+    bound = 1e-2
+    drift = [None] * len(r_cpu)
+    if n_diff or errs[worst] > bound:
+        t1 = time.time()
+        with card_gemms():
+            witness_run, r_w = moe_run(cpu_params, toks, steps, cfg, "cpu")
+        drift = [float((w.probs - p.probs).abs().max())
+                 for w, p in zip(r_w, r_cpu)]
+        w_errs, w_apart = logits_apart(witness_run, on_cpu, r_w, r_cpu)
+        w_worst = max(w_errs, key=w_errs.get)
+        if errs[worst] > bound:
+            bound = max(bound, 1.5 * w_errs[w_worst])
+        print(f"{tag} witness (CPU bf16 GEMMs vs f32, {time.time() - t1:.1f} "
+              f"s): worst {w_errs[w_worst]:.3e} ({w_worst}), all: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in w_errs.items())
+              + "; tokens routed apart: "
+              + ", ".join(f"{k} {v}" for k, v in w_apart.items())
+              + "; router probability drift per MoE call: "
+              + ", ".join(f"{d:.2e}" for d in drift)
+              + f"; bound {bound:.3e}")
+    n, flips, moved, ratio = route_check(r_card, r_cpu, drift)
+    check(errs[worst] <= bound, f"{tag} card and CPU differ: worst "
+                                f"{errs[worst]:.3e} ({worst}) > {bound:.3e}")
+    print(f"{tag} routes: {n} over {len(r_cpu)} MoE calls, {flips} expert "
+          f"choices differ on the card"
+          + (f" (each a near-tie: the CPU's margin at most {ratio:.2f} x the "
+             f"witness's drift), {moved} positions moved by them"
+             if flips else "")
+          + f", every other position and keep mask equal; card vs CPU worst "
+          f"{errs[worst]:.3e} within bound {bound:.3e}")
+    sys.stdout.flush()
+    del cpu_params, on_card, on_cpu
+    torch.cuda.empty_cache()
+
+def moe_paths(dev, t_start) -> int:
+    """The MoE decoders at full width, depth cut to fit one card: grok-1
+    at 4 of its 64 layers, llama4-maverick at one super-block (2 of its 48
+    layers); attention through B5, the experts through bf16 cuBLAS; each
+    model freed before the next is built.  Returns the B5 launches of the
+    forward and serving paths."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+
+    launches = 0
+    for arch, n_layers, fwd_tag, w_tag, s_tag in (
+            ("grok-1-314b", 4, "[fwd-g]", "[serve-gw]", "[serve-g]"),
+            ("llama4-maverick-400b-a17b", 2, "[fwd-l]", "[serve-lw]",
+             "[serve-l]")):
+        cfg = dataclasses.replace(configs.get(arch), n_layers=n_layers)
+        t0 = time.time()
+        params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED),
+                            cfg)
+        torch.cuda.synchronize()
+        t_init = time.time() - t0
+        launches += phase_fwd_moe(dev, fwd_tag, params, cfg)
+        # card against CPU on the model's first super-block (grok-1: its
+        # first layer, 13.1 GB; maverick: the whole 2-layer model)
+        period = len(lm.layer_pattern(cfg)[0])
+        phase_serve_moe_w(
+            dev, w_tag, {**params, "blocks": [[pos[0]] for pos in
+                                              params["blocks"]]},
+            dataclasses.replace(cfg, n_layers=period))
+        launches += serve_main(
+            dev, s_tag, cfg, params, t_init,
+            [(fa_ops, "flash_attn", "B5", cfg.n_layers)])["B5"]
+        del params
+        torch.cuda.empty_cache()
+        stamp(cfg.name, t_start)
+    return launches
 
 
 def main() -> int:
@@ -2410,23 +2800,25 @@ def main() -> int:
     swp = phase_sweep(dev)
     # ---- the named fault and placement scenarios through sweep
     scen = phase_scen(dev)
+    stamp("the NoC paths", t_start)
 
     # ---- the fleet path (B4) and the serving path (B5)
     b4 = phase_b4(dev)
     b5 = phase_b5(dev)
     phase_serve_w(dev)
     b5["launches"] = phase_serve(dev)
+    stamp("llama3.2-3b", t_start)
 
     # ---- the mamba paths: forward through B6, serving through B7, on
-    # falcon-mamba-7b at full width, depth cut to 32 of its 64 layers to
-    # keep the script well inside its time limit (llama's weights are freed)
+    # falcon-mamba-7b at full width, depth cut to 16 of its 64 layers to
+    # keep the script inside its time limit (llama's weights are freed)
     import repro_torch.configs as configs
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.models import lm
 
     b6 = phase_b6(dev)
     b7 = phase_b7(dev)
-    cfg_m = dataclasses.replace(configs.get("falcon-mamba-7b"), n_layers=32)
+    cfg_m = dataclasses.replace(configs.get("falcon-mamba-7b"), n_layers=16)
     t0 = time.time()
     params_m = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_m)
     torch.cuda.synchronize()
@@ -2438,12 +2830,14 @@ def main() -> int:
         [(ms_ops, "mamba_fused", "B7", cfg_m.n_layers)])["B7"]
     del params_m
     torch.cuda.empty_cache()
+    stamp("falcon-mamba-7b", t_start)
 
-    # ---- the hybrid: zamba2-2.7b at full width and depth, its SSD scan
-    # through B7 (S = 64) and its shared attention block through B5
+    # ---- the hybrid: zamba2-2.7b at full width, depth cut to 24 of its 54
+    # layers (4 super-blocks) to keep the script inside its time limit, its
+    # SSD scan through B7 (S = 64) and its shared attention block through B5
     from repro_torch.kernels.flash_attn import ops as fa_ops
 
-    cfg_z = configs.get("zamba2-2.7b")
+    cfg_z = dataclasses.replace(configs.get("zamba2-2.7b"), n_layers=24)
     t0 = time.time()
     params_z = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_z)
     torch.cuda.synchronize()
@@ -2459,6 +2853,10 @@ def main() -> int:
     b7["launches"] += fwd_z["mamba_fused"] + serve_z["B7"]
     del params_z
     torch.cuda.empty_cache()
+    stamp("the hybrid", t_start)
+
+    # ---- the MoE decoders: grok-1 and llama4-maverick, attention via B5
+    b5["launches"] += moe_paths(dev, t_start)
 
     # ---- phase 6: the kernels line
     nb2, op2 = b2_bound(d, 500)

@@ -132,7 +132,8 @@ def lm_params(tree, cfg: ModelConfig, device="cpu") -> dict:
     of arrays, each pattern position's blocks stacked over n_super; the
     hybrid's one ``shared_attn`` block unstacked) -> the port's tree
     (`lm.make_lm`'s layout: a list of per-layer dicts per pattern
-    position).  Leaf types are kept, except that a mamba mixer's leaves
+    position).  Leaf types are kept (a moe block's router stays float32,
+    its experts in the parameter dtype), except that a mamba mixer's leaves
     are cast as the port's `make_mamba1` / `make_mamba2` make them:
     `MAMBA1_F32` / `MAMBA2_F32` in float32, the rest in the parameter
     dtype."""

@@ -4,10 +4,13 @@
         --mode kf --requests 48 [--device cpu]
 
 Runs the reduced (smoke) config of a dense decoder arch, of
-falcon-mamba-7b or of zamba2-2.7b (``--arch zamba2-2.7b``: mamba2 layers
-and the shared attention block) with the bursty synthetic workload and
-prints the latency/throughput summary (virtual clock) for the chosen
-arbitration mode (rr | static | kf).  The model runs on the CUDA device unless ``--device``
+falcon-mamba-7b, of zamba2-2.7b (``--arch zamba2-2.7b``: mamba2 layers
+and the shared attention block) or of a MoE decoder (``--arch
+grok-1-314b``: 8 experts at full size, top-2; ``--arch
+llama4-maverick-400b-a17b``: 128 experts, top-1, a shared expert, MoE
+every second layer) with the bursty synthetic workload and prints the
+latency/throughput summary (virtual clock) for the chosen arbitration
+mode (rr | static | kf).  The model runs on the CUDA device unless ``--device``
 names another.
 """
 from __future__ import annotations
@@ -45,8 +48,9 @@ def run(arch: str, mode: str, n_requests: int = 48, seed: int = 0,
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-3b",
-                    help="a decoder arch: a dense one, falcon-mamba-7b or "
-                         "zamba2-2.7b (its smoke config runs)")
+                    help="a decoder arch: a dense one, falcon-mamba-7b, "
+                         "zamba2-2.7b, grok-1-314b or "
+                         "llama4-maverick-400b-a17b (its smoke config runs)")
     ap.add_argument("--mode", default="kf", choices=["rr", "static", "kf"])
     ap.add_argument("--requests", type=int, default=48)
     ap.add_argument("--seed", type=int, default=0)

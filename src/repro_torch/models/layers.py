@@ -25,7 +25,7 @@ def truncated_normal(gen: torch.Generator, shape, scale, dtype) -> Tensor:
     [-2, 2], times ``scale``, then cast; on ``gen``'s device."""
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)   # in place: one f32 copy at a time
 
 
 def dense_init(gen: torch.Generator, in_dim: int, shape, dtype) -> Tensor:

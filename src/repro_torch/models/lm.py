@@ -9,37 +9,43 @@ stacked layout, ``caches[j].k`` of shape (n_super, B, Smax, KV, D) or
 ``caches[j].ssm`` of shape (n_super, B, di, ds), and a layer works on its
 slice.
 
-The port runs the dense kind ([attn + mlp], P = 1), the mamba1 kind
-([mamba1], P = 1: falcon-mamba) and zamba2's hybrid ([mamba2 x 6], then
-ONE shared attn + mlp block whose weights every super-block reuses,
-``params["shared_attn"]``; its caches are ``DecodeState.shared_kv``, one
-stacked KVCache entry per application).  The other kinds raise
-NotImplementedError naming the ROADMAP item that brings them: `moe`
-(grok-1, llama4), encoder-decoder (seamless-m4t) and the modality
-frontends (internvl2).  `lm_loss` belongs to the training slice.
+The port runs the dense kind ([attn + mlp], P = 1), the moe kind
+([attn + moe]: grok-1 with P = 1, llama4-maverick with P = 2, [attn +
+mlp, attn + moe]; `forward` sums the MoE aux losses over the layers and
+averages the per-super-block expert load, as the reference's scan
+carry does), the mamba1 kind ([mamba1], P = 1: falcon-mamba) and
+zamba2's hybrid ([mamba2 x 6], then ONE shared attn + mlp block whose
+weights every super-block reuses, ``params["shared_attn"]``; its caches
+are ``DecodeState.shared_kv``, one stacked KVCache entry per
+application).  The other kinds raise NotImplementedError naming the
+ROADMAP item that brings them: encoder-decoder (seamless-m4t) and the
+modality frontends (internvl2).  `lm_loss` belongs to the training
+slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch._util import resolve_device
-from repro_torch.models import attention, layers, mamba
+from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import MoEAux
 
 Tensor = torch.Tensor
 
 ACT_DTYPE = torch.bfloat16
 
 _LATER = {
-    "moe": "ROADMAP queue A 'MoE (grok-1, llama4)'",
     "encdec": "ROADMAP queue A 'encoder-decoder and frontends'",
     "frontend": "ROADMAP queue A 'encoder-decoder and frontends'",
 }
-_PORTED = ("dense", "mamba1", "mamba2")
+_PORTED = ("dense", "moe", "mamba1", "mamba2")
 
 
 class _MambaKind(NamedTuple):
@@ -104,12 +110,16 @@ def _make_block(gen: torch.Generator, kind: str, cfg: ModelConfig,
     if kind in _MAMBA:
         return {"ln": layers.make_norm(cfg.d_model, cfg.norm, dev),
                 "mixer": _MAMBA[kind].make(gen, cfg, dtype)}
-    return {
+    p = {
         "ln1": layers.make_norm(cfg.d_model, cfg.norm, dev),
         "ln2": layers.make_norm(cfg.d_model, cfg.norm, dev),
         "attn": attention.make_attention(gen, cfg, dtype),
-        "mlp": layers.make_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if kind == "moe":
+        p["moe"] = moe.make_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = layers.make_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def make_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -143,33 +153,41 @@ def _final_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
 # Forward (inference)
 # --------------------------------------------------------------------------
 
-class MoEAux(NamedTuple):
-    """The reference's MoE auxiliary outputs (zero for the ported kinds)."""
-
-    load_balance_loss: Tensor
-    router_z_loss: Tensor
-    expert_load: Tensor
-
-
 class ForwardOut(NamedTuple):
     logits: Tensor
     aux: MoEAux
     caches: Any  # a DecodeState when return_caches, else None
 
 
+def _ffn(p, kind: str, h: Tensor, cfg: ModelConfig
+         ) -> tuple[Tensor, Optional[MoEAux]]:
+    """The block's MLP, or its MoE layer and that layer's aux."""
+    if kind == "moe":
+        return moe.apply_moe(p["moe"], h, cfg)
+    return layers.apply_mlp(p["mlp"], h, cfg.act), None
+
+
 def _apply_block(p, kind: str, x: Tensor, cfg: ModelConfig,
-                 positions: Tensor, *, use_kernel: bool) -> Tensor:
+                 positions: Tensor, *, use_kernel: bool
+                 ) -> tuple[Tensor, Optional[MoEAux]]:
+    """x after the block, and the block's MoE aux (None but for moe)."""
     if kind == "mamba1":
         h = layers.apply_norm(p["ln"], x, cfg.norm)
         return x + mamba.apply_mamba1(p["mixer"], h, cfg,
-                                      use_kernel=use_kernel)
+                                      use_kernel=use_kernel), None
     if kind == "mamba2":
         h = layers.apply_norm(p["ln"], x, cfg.norm)
-        return x + mamba.apply_mamba2(p["mixer"], h, cfg)
+        return x + mamba.apply_mamba2(p["mixer"], h, cfg), None
     h = layers.apply_norm(p["ln1"], x, cfg.norm)
     x = x + attention.self_attention(p["attn"], h, cfg, positions)
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
-    return x + layers.apply_mlp(p["mlp"], h, cfg.act)
+    h, aux = _ffn(p, kind, h, cfg)
+    return x + h, aux
+
+
+def _sum(terms) -> Tensor:
+    """The terms added left to right, as the reference's carry adds them."""
+    return functools.reduce(operator.add, terms)
 
 
 def forward(
@@ -177,9 +195,12 @@ def forward(
     use_kernel: bool = False, return_caches: bool = False,
     cache_len: Optional[int] = None,
 ) -> ForwardOut:
-    """tokens: (B, S) int -> logits (B, S, V) f32, zero MoE aux, and the
-    prefilled caches when ``return_caches`` (a re-run through
-    `prefill_caches`, as the reference does).
+    """tokens: (B, S) int -> logits (B, S, V) f32, the MoE aux (zero for
+    the kinds without experts; else lb and zl summed over the MoE layers,
+    and the expert load summed over a super-block's MoE layers and
+    averaged over the super-blocks, (E,)), and the prefilled caches when
+    ``return_caches`` (a re-run through `prefill_caches`, as the
+    reference does).
 
     ``use_kernel`` picks the mamba1 scan (B6 when L % chunk == 0, else B7;
     without it B7); the mamba2 scan is B7 either way; dense attention, the
@@ -191,17 +212,27 @@ def forward(
     dev = tokens.device
     x = layers.embed(params["embed"], tokens, ACT_DTYPE)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    per_super = []   # each super-block's MoE aux, its layers' summed
     for i in range(n_super):
+        auxes = []
         for j, kind in enumerate(pattern):
-            x = _apply_block(params["blocks"][j][i], kind, x, cfg, positions,
-                             use_kernel=use_kernel)
+            x, aux = _apply_block(params["blocks"][j][i], kind, x, cfg,
+                                  positions, use_kernel=use_kernel)
+            if aux is not None:
+                auxes.append(aux)
         if cfg.is_hybrid:
-            x = _apply_block(params["shared_attn"], "dense", x, cfg,
-                             positions, use_kernel=use_kernel)
+            x, _ = _apply_block(params["shared_attn"], "dense", x, cfg,
+                                positions, use_kernel=use_kernel)
+        if auxes:
+            per_super.append(MoEAux(*(_sum(f) for f in zip(*auxes))))
     logits = _final_logits(params, x, cfg)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    aux = MoEAux(zero, zero, torch.zeros((1,), dtype=torch.float32,
-                                         device=dev))
+    if per_super:   # the reference's carry: x + 0 is x, so no zero terms
+        lb, zl, loads = zip(*per_super)
+        aux = MoEAux(_sum(lb), _sum(zl), torch.stack(loads).mean(dim=0))
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        aux = MoEAux(zero, zero, torch.zeros((1,), dtype=torch.float32,
+                                             device=dev))
     caches = (prefill_caches(params, tokens, cfg, cache_len or s)
               if return_caches else None)
     return ForwardOut(logits=logits, aux=aux, caches=caches)
@@ -270,7 +301,7 @@ def _decode_block(p, kind: str, x: Tensor, cfg: ModelConfig, cache,
                                            _layer_cache(cache, i))
     x = x + h
     h = layers.apply_norm(p["ln2"], x, cfg.norm)
-    return x + layers.apply_mlp(p["mlp"], h, cfg.act), c.length
+    return x + _ffn(p, kind, h, cfg)[0], c.length
 
 
 def _with_lengths(cache: KVCache, lengths: list) -> KVCache:
@@ -325,7 +356,7 @@ def _prefill_block(p, kind: str, x: Tensor, cfg: ModelConfig,
     s = k.shape[1]
     cache.k[i, :, :s] = k
     cache.v[i, :, :s] = v
-    return x + layers.apply_mlp(p["mlp"], h, cfg.act)
+    return x + _ffn(p, kind, h, cfg)[0]
 
 
 def prefill_caches(

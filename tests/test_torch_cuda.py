@@ -442,6 +442,9 @@ def test_kf_bank_kernel_matches_plain(n, m):
     (1, 700, 700, 32, 8, 80, True, 300, None, None),
     (2, 384, 384, 48, 8, 128, True, None, 30.0, None),
     (2, 256, 256, 8, 2, 128, False, None, None, 0),
+    # llama4-maverick (GQA groups of 5) and grok-1 (groups of 6, capped)
+    (1, 517, 517, 40, 8, 128, True, None, None, None),
+    (1, 300, 300, 48, 8, 128, True, None, 30.0, None),
 ])
 def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, d, causal,
                                     window, cap, kv_len):
@@ -728,3 +731,80 @@ def _to_cpu(tree):
     if isinstance(tree, list):
         return [_to_cpu(v) for v in tree]
     return tree.cpu()
+
+
+def _moe_cfg(arch):
+    """A narrow MoE decoder of ``arch``'s kind (head dim 64, which B5
+    takes; 8 or 16 experts)."""
+    import dataclasses
+
+    import repro_torch.configs as configs
+
+    return dataclasses.replace(
+        configs.smoke(arch), d_model=256, n_heads=4, n_kv_heads=2,
+        head_dim=64, d_ff=512, n_experts=8 if arch == "grok-1-314b" else 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_moe_layer_on_card_matches_cpu(arch):
+    """`apply_moe` on the card (bf16 cuBLAS expert products, index
+    dispatch on device tensors) against the same weights on the CPU on one
+    input: the routes equal (the router is f32 on both, TF32 off), the
+    aux within 1e-5, the output within relative L2 1e-2."""
+    _need_cuda()
+    from repro_torch.models import moe
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = _moe_cfg(arch)
+    p = moe.make_moe(torch.Generator(device="cuda").manual_seed(0), cfg,
+                     torch.bfloat16)
+    cpu_p = _to_cpu(p)
+    x = torch.randn((2, 150, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1)).bfloat16()
+    out, aux = moe.apply_moe(p, x.cuda(), cfg)
+    want, want_aux = moe.apply_moe(cpu_p, x, cfg)
+    cap = moe._capacity(300, cfg)
+    r = moe._route(p, x.cuda()[None].flatten(1, 2), cfg, cap)[0]
+    w = moe._route(cpu_p, x[None].flatten(1, 2), cfg, cap)[0]
+    for a, b in zip(r[1:], w[1:]):
+        if a.dtype == torch.float32:
+            torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)
+        else:
+            assert torch.equal(a.cpu(), b)
+    for a, b in zip(aux, want_aux):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=1e-5)
+    a, b = out.double().cpu(), want.double()
+    assert out.dtype == torch.bfloat16
+    assert float((a - b).norm() / b.norm()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_moe_forward_launches_b5_per_layer(arch):
+    """A narrow MoE decoder through lm.forward and prefill on the card: one
+    B5 launch a layer each; finite logits, the expert load summing to k;
+    decode steps finite."""
+    _need_cuda()
+    import dataclasses
+
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(_moe_cfg(arch), n_layers=4)
+    params = lm.make_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (1, 37),
+                         generator=torch.Generator().manual_seed(1)).cuda()
+    fa_ops.reset_launches()
+    out = lm.forward(params, toks, cfg, return_caches=True, cache_len=64)
+    assert fa_ops.LAUNCHES == {"flash_attn": 2 * 4}
+    assert bool(torch.isfinite(out.logits).all())
+    n_moe = sum(k == "moe" for k in lm.layer_pattern(cfg)[0])
+    assert abs(float(out.aux.expert_load.sum())
+               - n_moe * cfg.n_experts_active) < 1e-5
+    st = out.caches
+    for t in range(3):
+        lg, st = lm.decode_step(params, toks[:, t:t + 1], st, cfg)
+        assert lg.shape == (1, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(lg).all())
+    assert st.caches[0].length.tolist() == [[40]] * len(st.caches[0].length)

@@ -9,6 +9,7 @@ and unguarded arms part ways on TELEM_GLITCH and FLAP_DURING_SHIFT, so
 the comparison is not between equal columns."""
 import functools
 
+import jax
 import pytest
 
 from _torch_sim import POLICY, SIZE, JPolicyConfig, assert_tables_close
@@ -22,6 +23,10 @@ KW = {k: v for k, v in SIZE.items() if k != "n_epochs"}
 
 @functools.lru_cache(maxsize=None)
 def runs():
+    # the JAX driver counts its retraces of `simulate`; a sweep compiled
+    # earlier in this process (another file on the same worker) would
+    # make it read 0, so the driver starts from an empty jit cache
+    jax.clear_caches()
     want = jdrv.run(n_epochs=E, seeds=(0,),
                     policy=JPolicyConfig(*POLICY), **KW)
     got = tdrv.run(n_epochs=E, seeds=(0,), device="cpu",

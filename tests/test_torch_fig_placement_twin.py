@@ -11,6 +11,7 @@ apart (all three read the same, and the probed joint run moves no tile),
 so the grid also runs SHIFT_PATH_BFS, where the three arms part ways."""
 import functools
 
+import jax
 import numpy as np
 import pytest
 
@@ -28,6 +29,10 @@ SCENARIOS = ("SHIFT_PATH_BFS", "MIX_PATH_STO_BFS")
 
 @functools.lru_cache(maxsize=None)
 def runs():
+    # the JAX driver counts its retraces of `simulate`; a sweep compiled
+    # earlier in this process (another file on the same worker) would
+    # make it read 0, so the driver starts from an empty jit cache
+    jax.clear_caches()
     want = jdrv.run(n_epochs=E, seeds=(0,), scenarios=SCENARIOS,
                     policy=JPolicyConfig(*POLICY), **KW)
     got = tdrv.run(n_epochs=E, seeds=(0,), scenarios=SCENARIOS,

@@ -214,10 +214,7 @@ def test_forward_matches_jax(arch):
         np.testing.assert_array_equal(_np(g), _np(w))
 
 
-@pytest.mark.parametrize("arch", [
-    "grok-1-314b", "llama4-maverick-400b-a17b",
-    "seamless-m4t-large-v2", "internvl2-2b",
-])
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
 def test_non_dense_kinds_raise(arch):
     cfg = tconfigs.smoke(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -226,23 +223,46 @@ def test_non_dense_kinds_raise(arch):
         tlm.init_decode_state(2, 16, cfg, device="cpu")
 
 
+def _tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, list):
+        for i, x in enumerate(tree):
+            yield from _tree_leaves(x, f"{prefix}/{i}")
+    else:
+        yield prefix, tuple(tree.shape), tree.dtype
+
+
+def _made_and_carried(arch):
+    """The port's random init of ``arch``'s smoke config, and the
+    reference's init carried across."""
+    cfg_j, cfg_t = jconfigs.smoke(arch), tconfigs.smoke(arch)
+    jp, _ = jlm.make_lm(jax.random.PRNGKey(0), cfg_j)
+    tp = tlm.make_lm(torch.Generator().manual_seed(0), cfg_t)
+    return tp, interop.lm_params(jax.tree.map(np.asarray, jp), cfg_t)
+
+
 def test_make_lm_tree_matches_jax():
     """The port's random init has the reference's tree: names, shapes and
     types, per layer."""
-    cfg_j, cfg_t = jconfigs.smoke("stablelm-1.6b"), tconfigs.smoke(
-        "stablelm-1.6b")
-    jp, _ = jlm.make_lm(jax.random.PRNGKey(0), cfg_j)
-    tp = tlm.make_lm(torch.Generator().manual_seed(0), cfg_t)
-    carried = interop.lm_params(jax.tree.map(np.asarray, jp), cfg_t)
+    tp, carried = _made_and_carried("stablelm-1.6b")
+    assert list(_tree_leaves(tp)) == list(_tree_leaves(carried))
 
-    def leaves(tree, prefix=""):
-        if isinstance(tree, dict):
-            for k in sorted(tree):
-                yield from leaves(tree[k], f"{prefix}/{k}")
-        elif isinstance(tree, list):
-            for i, x in enumerate(tree):
-                yield from leaves(x, f"{prefix}/{i}")
-        else:
-            yield prefix, tuple(tree.shape), tree.dtype
 
-    assert list(leaves(tp)) == list(leaves(carried))
+@pytest.mark.parametrize("arch", ["grok-1-314b", "llama4-maverick-400b-a17b"])
+def test_moe_kinds_build(arch):
+    """The MoE kinds build, with the reference's tree (names, shapes and
+    types per layer), the router in float32, and a decode state of one
+    attention cache per pattern position."""
+    tp, carried = _made_and_carried(arch)
+    assert list(_tree_leaves(tp)) == list(_tree_leaves(carried))
+    moe_blocks = [b["moe"] for pos in tp["blocks"] for b in pos
+                  if "moe" in b]
+    assert moe_blocks and all(b["router"].dtype == torch.float32
+                              and b["wi"].dtype == torch.bfloat16
+                              for b in moe_blocks)
+    cfg = tconfigs.smoke(arch)
+    st = tlm.init_decode_state(2, 16, cfg, device="cpu")
+    assert [type(c) for c in st.caches] == [tattn.KVCache] * len(
+        tlm.layer_pattern(cfg)[0])
