@@ -180,6 +180,36 @@ build/repro_torch/), then runs, each phase failing the script on error:
      one super-block (2 layers, a dense and a MoE one; 37.1 GB): 2 B5
      launches per forward or prefill; [serve-lw] on the whole 2-layer
      model;
+  [B5b] the flash backward kernel (flash_attn_bwd: statistics, dK/dV and
+     dQ, three SIMT kernels in one call) against flash_attention_plain_bwd
+     at llama3.2-3b's shape (S = 48, 512, 2048, and B = 4 at S = 2048),
+     h2o-danube's window (S = 6144, window 4096), grok-1's cap (S = 512),
+     zamba2's D = 80 and maverick's groups of 5, bf16 and f32: relative L2
+     of dq, dk and dv <= 1e-5 (f32) and <= 1e-2 (bf16), two launches
+     bitwise equal; timed at the training shape (4, 2048, 24, 128) bf16 on
+     events and device time beside its bound (10 D flops a valid pair at
+     989 TFLOP/s), the plain version and torch's own flash backward
+     (aten._scaled_dot_product_flash_attention_backward, timing only);
+  [train-w] llama3.2-3b at full width cut to 2 layers, B = 1, S = 256, one
+     batch of make_dataset: the loss (1e-2 relative) and every gradient
+     leaf (relative L2 1e-2, or where a leaf misses, max(1e-2, 1.5 x the
+     CPU's own bf16-against-f32 GEMM witness for it)), card (B5, B5-bwd)
+     against CPU (plain);
+  [train] llama3.2-3b at full width and all 28 layers, remat "full", B =
+     4, S = 2048: one step of each variant from the same state and batch
+     (losses and the first leaf within 2e-2; 56 B5 and 28 B5-bwd launches
+     a balanced step, twice that a comm-priority step), then loop.run on
+     the launcher's KF scheduler for 10 steps (finite losses, the mean of
+     the last two below the first, exact launch counts), the wall per
+     step, tokens/s, a step alone profiled for the device's busy share,
+     the peak memory; then launch.train.main(["--arch", "llama3.2-3b",
+     "--size", "full", "--steps", "2"]) in-process on its defaults;
+  [train-s] the smoke config (widened to head dim 64, which B5 takes)
+     through loop.run with a checkpoint every 4 steps and a
+     SimulatedFailure at step 6: the restored state bitwise the state a
+     4-step run holds (bf16 as uint16 bits, no ml_dtypes needed), the
+     losses after the restore and the final state bitwise the
+     uninterrupted run's;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch (B1:
      per call of arbitrate_lanes, as the "arb" engine calls it), the plain
@@ -187,13 +217,15 @@ build/repro_torch/), then runs, each phase failing the script on error:
      PyTorch call computing the same function where there is one.
 
 The last two lines are the nvidia-smi name/power line and
-{"ok": true, "device": {...}}.  Without a CUDA device, or without the
+{"ok": true, "device": {...}}.  ``--only-train`` (development) runs phase
+1 and the training phases alone and prints no result line.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import re
 import statistics
@@ -547,7 +579,11 @@ def ptxas_usage(log: str) -> dict:
                 for n in (8, 16, 64) for w, wn in ((1, ""), (0, " narrow"))),
               *((f"flash_fwd_{k}kernelILi{d}E", f"B5 {n} D{d}")
                 for d in (64, 80, 128)
-                for k, n in (("sm90_", "bf16"), ("", "f32"))))
+                for k, n in (("sm90_", "bf16"), ("", "f32"))),
+              *((f"bwd_{part}_kernelI{t}Li{d}E", f"B5b {part} {tn} D{d}")
+                for part in ("stats", "dkdv", "dq")
+                for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
+                for d in (64, 80, 128)))
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -1867,7 +1903,7 @@ def phase_fwd_z(dev, params, cfg):
     logits = lm.forward(params, toks, cfg).logits
     counts = {**ms_ops.LAUNCHES, **fa_ops.LAUNCHES}
     want = {"mamba_scan": 0, "mamba_fused": cfg.n_layers,
-            "flash_attn": n_super}
+            "flash_attn": n_super, "flash_attn_bwd": 0}
     check(counts == want, f"[fwd-z] forward launched {counts}, expected "
                           f"{want}")
     check(logits.shape == (1, 2048, cfg.vocab_size)
@@ -1985,7 +2021,7 @@ def phase_serve_zw(dev):
     # forward and prefill: one B7 a layer and one B5 each; decode neither
     counts = {**ms_ops.LAUNCHES, **fa_ops.LAUNCHES}
     want = {"mamba_scan": 0, "mamba_fused": 2 * cfg.n_layers,
-            "flash_attn": 2}
+            "flash_attn": 2, "flash_attn_bwd": 0}
     check(counts == want, f"[serve-zw] forward + prefill + decode launched "
                           f"{counts}, expected {want}")
     for k, v in on_card.items():
@@ -2081,7 +2117,7 @@ def phase_fwd_moe(dev, tag, params, cfg):
     fa_ops.reset_launches()
     out = lm.forward(params, toks, cfg)
     counts = dict(fa_ops.LAUNCHES)
-    check(counts == {"flash_attn": cfg.n_layers},
+    check(counts == {"flash_attn": cfg.n_layers, "flash_attn_bwd": 0},
           f"{tag} forward launched {counts}, expected {cfg.n_layers} B5")
     aux = out.aux
     load = float(aux.expert_load.sum())
@@ -2266,7 +2302,8 @@ def phase_serve_moe_w(dev, tag, params, cfg):
     fa_ops.reset_launches()
     on_card, r_card = moe_run(params, toks, steps, cfg, dev)
     # forward and prefill: one B5 a layer each; decode none
-    check(fa_ops.LAUNCHES == {"flash_attn": 2 * cfg.n_layers},
+    check(fa_ops.LAUNCHES == {"flash_attn": 2 * cfg.n_layers,
+                              "flash_attn_bwd": 0},
           f"{tag} forward + prefill + decode launched {fa_ops.LAUNCHES}, "
           f"expected {2 * cfg.n_layers} B5")
     for k, v in on_card.items():
@@ -2370,6 +2407,495 @@ def moe_paths(dev, t_start) -> int:
     return launches
 
 
+# --------------------------------------------------------------------------
+# The training path: B5-bwd, llama3.2-3b through lm_loss, AdamW, the two
+# step variants, the KF-scheduled loop and checkpoint restart
+# --------------------------------------------------------------------------
+
+def flash_bwd_bound(b, h, kv, s, d, causal, window, dtype):
+    """Least time of one B5-bwd call: q, k, v, o and dO read once, dq, dk
+    and dv written once; 10 * D flops per valid (q, k) pair and query head
+    (QK^T, dO V^T, P^T dO, dS^T Q, dS K) at the peak rate of the input
+    type (bf16 tensor cores; f32 outside them)."""
+    import numpy as np
+    import torch
+
+    qp = np.arange(s)[:, None]
+    kp = np.arange(s)[None, :]
+    valid = np.ones((s, s), bool)
+    if causal:
+        valid &= qp >= kp
+    if window is not None:
+        valid &= qp - kp < window
+    flops = 10 * d * h * b * int(valid.sum())
+    elem = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (4 * b * s * h * d + 4 * b * s * kv * d) * elem
+    rate = PEAK_BF16_FLOP_S if dtype == torch.bfloat16 else PEAK_F32_FLOP_S
+    return bound_ms(nbytes, flops, rate), flops
+
+
+def library_flash_bwd(q, k, v, do):
+    """torch's own flash-attention backward (timing only; the port never
+    calls it) on the same causal problem, in its (B, H, S, D) layout with
+    K/V repeated to the query heads: a closure running the backward, or
+    None (with the reason printed) where this torch build lacks it."""
+    import torch
+
+    try:
+        rep = q.shape[2] // k.shape[2]
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(rep, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        dot = do.transpose(1, 2).contiguous()
+        fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True, False)
+        out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
+
+        def run():
+            return torch.ops.aten._scaled_dot_product_flash_attention_backward(
+                dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed,
+                offset)
+
+        run()
+        torch.cuda.synchronize()
+        return run
+    except Exception as e:   # timing only: the yardstick may be missing
+        print(f"[B5b] no library time: {type(e).__name__}: {e}")
+        return None
+
+
+def phase_b5b(dev):
+    """B5-bwd against its plain version at the models' shapes in bf16 and
+    f32 (relative L2 of dq, dk and dv <= 1e-5 in f32, <= 1e-2 in bf16),
+    two launches bitwise equal, and its time at llama3.2-3b's training
+    shape (B = 4, S = 2048, bf16) beside the bound, the plain version and
+    torch's flash backward."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    llama = ("llama3.2-3b", 24, 8, 128)
+    cases = [(llama, 1, s, None, None) for s in (48, 512, 2048)] + [
+        (("h2o-danube-1.8b", 32, 8, 80), 1, 6144, 4096, None),
+        (("grok-1-314b", 48, 8, 128), 1, 512, None, 30.0),
+        (("zamba2-2.7b", 32, 32, 80), 1, 512, None, None),
+        (("llama4-maverick-400b-a17b", 40, 8, 128), 1, 512, None, None),
+        (llama, 4, 2048, None, None),   # the training shape, timed
+    ]
+    bounds = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    max_abs = 0.0
+    row = None
+    t0 = time.time()
+    for (arch, h, kv, d), b, s, window, cap in cases:
+        kw = dict(causal=True, window=window, logit_cap=cap)
+        base = [torch.randn(shape, generator=g, device=dev) for shape in (
+            (b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d))]
+        for dtype in (torch.bfloat16, torch.float32):
+            if b > 1 and dtype == torch.float32:
+                continue
+            q, k, v, do = (t.to(dtype) for t in base)
+            o = fa_kernel.flash_attn(q, k, v, kv_len=None, **kw)
+            got = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+            again = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+            want = fa_ops.flash_attention_plain_bwd(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
+            for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
+                check(x.dtype == dtype and x.shape == z.shape
+                      and torch.equal(x, y),
+                      f"[B5b] {arch} S={s} {dtype} {name}: misshapen, or "
+                      f"two launches differ")
+                err = rel_l2(x, z)
+                check(err <= bounds[dtype],
+                      f"[B5b] {arch} S={s} {dtype} {name}: relative L2 "
+                      f"{err:.3e} > {bounds[dtype]:g}")
+                worst[dtype] = max(worst[dtype], err)
+                if dtype == torch.bfloat16:
+                    max_abs = max(max_abs,
+                                  float((x.float() - z.float()).abs().max()))
+            if b == 4:
+                reps = 5
+
+                def kern():
+                    return fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+
+                ms = cuda_ms(kern, reps)
+                dev_ms = profile_device(kern, 3)[1]
+                plain = cuda_ms(lambda: fa_ops.flash_attention_plain_bwd(
+                    q, k, v, o, do, **kw), 2, warmup=1)
+                lib = library_flash_bwd(q, k, v, do)
+                lib_ms = cuda_ms(lib, reps) if lib is not None else None
+                (bm, by), flops = flash_bwd_bound(b, h, kv, s, d, True,
+                                                  window, dtype)
+                row = dict(ms=ms, dev_ms=dev_ms, plain=plain, lib=lib_ms,
+                           bm=bm, by=by, tflops=flops / ms / 1e9)
+            del q, k, v, do, o, got, again, want
+        del base
+        torch.cuda.empty_cache()
+    print(f"[B5b] flash_attn_bwd (three SIMT kernels: statistics, dK/dV, "
+          f"dQ) against flash_attention_plain_bwd at {len(cases)} shapes "
+          f"(llama3.2-3b S = 48, 512, 2048 and B = 4 x S = 2048, "
+          f"h2o-danube's 4096 window at S = 6144, grok-1's cap at S = 512, "
+          f"zamba2's D = 80, maverick's groups of 5): relative L2 worst "
+          f"f32 {worst[torch.float32]:.3e} (bound 1e-5), bf16 "
+          f"{worst[torch.bfloat16]:.3e} (bound 1e-2); two launches bitwise "
+          f"equal at every shape; {time.time() - t0:.1f} s")
+    lib = (f"torch flash backward {row['lib']:.3f} ms "
+           f"(kernel/library {row['ms'] / row['lib']:.2f}x)"
+           if row["lib"] is not None else "no library time")
+    print(f"[B5b] llama3.2-3b training shape B=4 S=2048 H=24 KV=8 D=128 "
+          f"causal bf16: kernel events {row['ms']:.3f} ms per call "
+          f"({row['tflops']:.1f} TFLOP/s at 10 D flops a valid pair), device "
+          f"{fmt_ms(row['dev_ms'])}; bound {row['bm']:.4f} ms ({row['by']}, "
+          f"10 D flops a valid pair at 989 TFLOP/s); plain "
+          f"{row['plain']:.3f} ms; {lib}")
+    sys.stdout.flush()
+    return dict(name="flash_attn_bwd", route="cuda",
+                source="src/repro_torch/kernels/flash_attn/csrc/"
+                       "flash_attn_bwd.cu",
+                replaces="none: the gradient of src/repro/kernels/"
+                         "flash_attn/kernel.py:31's function (the JAX "
+                         "package differentiates attend_ref, "
+                         "src/repro/models/attention.py:113, with XLA)",
+                launches=None, max_abs_err=max_abs, ms=row["ms"],
+                plain_ms=row["plain"], bound_ms=row["bm"],
+                bound_by=row["by"], library_ms=row["lib"],
+                shape="(4, 2048, 24, 128), KV 8, bf16 causal")
+
+
+def grad_leaves(params, batch, cfg) -> tuple[float, dict]:
+    """The loss and every gradient leaf ({path: tensor on the CPU})."""
+    from repro_torch._util import tree_leaves
+    from repro_torch.train import step as step_lib
+
+    m, g = step_lib.value_and_grad(step_lib.make_loss_fn(cfg), params,
+                                   batch)
+    return float(m["loss"]), {p: t.cpu() for p, t in tree_leaves(g)}
+
+
+def phase_train_w(dev):
+    """llama3.2-3b at full width cut to 2 layers, B = 1, S = 256, one
+    batch of make_dataset: the loss and every gradient leaf on the card
+    (B5, B5-bwd, bf16 cuBLAS, remat "full") against the same parameters
+    on the CPU (plain): loss within 1e-2 relative, each leaf within
+    relative L2 1e-2, or where a leaf misses, max(1e-2, 1.5 x the CPU's
+    own bf16-against-f32 GEMM witness for that leaf)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get("llama3.2-3b"), n_layers=2)
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    cpu_params = _to_cpu(params)
+    batch = synthetic.make_dataset(cfg, 256, 1, seed=SEED,
+                                   device=dev).batch(0)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.time()
+    fa_ops.reset_launches()
+    loss, grads = grad_leaves(params, batch, cfg)
+    check(fa_ops.LAUNCHES == {"flash_attn": 2 * cfg.n_layers,
+                              "flash_attn_bwd": cfg.n_layers},
+          f"[train-w] gradient launched {fa_ops.LAUNCHES}, expected "
+          f"{2 * cfg.n_layers} B5 (forward + remat) and {cfg.n_layers} "
+          f"B5-bwd")
+    t_card = time.time() - t0
+    t0 = time.time()
+    cpu_loss, cpu_grads = grad_leaves(cpu_params, cpu_batch, cfg)
+    t_cpu = time.time() - t0
+    check(abs(loss - cpu_loss) <= 1e-2 * abs(cpu_loss),
+          f"[train-w] loss card {loss} vs CPU {cpu_loss}")
+    errs = {p: rel_l2(grads[p], cpu_grads[p]) for p in cpu_grads}
+    bounds = {p: 1e-2 for p in errs}
+    missed = [p for p in errs if errs[p] > 1e-2]
+    if missed:
+        with card_gemms():
+            _, w_grads = grad_leaves(cpu_params, cpu_batch, cfg)
+        for p in missed:
+            w = rel_l2(w_grads[p], cpu_grads[p])
+            bounds[p] = max(1e-2, 1.5 * w)
+            print(f"[train-w] {'/'.join(map(str, p))}: card vs CPU "
+                  f"{errs[p]:.3e}, witness (CPU bf16 GEMMs vs f32) "
+                  f"{w:.3e}, bound {bounds[p]:.3e}")
+    worst = max(errs, key=errs.get)
+    bad = {p: errs[p] for p in errs if errs[p] > bounds[p]}
+    check(not bad, f"[train-w] gradient leaves beyond their bound: {bad}")
+    print(f"[train-w] llama3.2-3b full width (d_model 3072, 24/8 heads, "
+          f"d_ff 8192, vocab 128,256), 2 layers, B=1 S=256 from "
+          f"make_dataset: loss card {loss:.6f} vs CPU {cpu_loss:.6f} "
+          f"(rel {abs(loss - cpu_loss) / abs(cpu_loss):.2e}, bound 1e-2); "
+          f"{len(errs)} gradient leaves, relative L2 worst "
+          f"{errs[worst]:.3e} ({'/'.join(map(str, worst))}), "
+          f"{len(missed)} beyond 1e-2 held to their witness; card "
+          f"{t_card:.1f} s (4 B5, 2 B5-bwd), CPU {t_cpu:.1f} s")
+    sys.stdout.flush()
+    del params, cpu_params, grads, cpu_grads
+    torch.cuda.empty_cache()
+
+
+def step_launches(fn, *args):
+    """``fn(*args)`` with the flash counters reset before it; returns its
+    result, the launch counts and the wall seconds (ending in a sync)."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    fa_ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, dict(fa_ops.LAUNCHES), time.time() - t0
+
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 10
+
+
+def phase_train(dev) -> int:
+    """llama3.2-3b at full width and all 28 layers (remat "full"), B = 4,
+    S = 2048: one step of each variant from the same state and batch
+    (losses within 2e-2, the first leaf's parameters within 2e-2, exact
+    launch counts), then loop.run with the launcher's KF scheduler for
+    TRAIN_STEPS steps (finite losses, the mean of the last two below the
+    first, exact launch counts), its wall per step, tokens/s, the device's
+    busy share and the peak memory; then the launcher's main on its
+    defaults (--size full --steps 2).  Returns the B5-bwd calls of the
+    main path (the loop's run)."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch._util import map_tree, tree_leaves
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+
+    cfg = configs.get("llama3.2-3b")
+    L = cfg.n_layers
+    opt_cfg = opt_lib.OptimizerConfig(lr=3e-4, warmup_steps=2,
+                                      total_steps=100,
+                                      moment_dtype=cfg.optimizer_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = step_lib.init_train_state(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, opt_cfg)
+    params0 = map_tree(torch.clone, state.params)
+    ds = synthetic.make_dataset(cfg, TRAIN_S, TRAIN_B, seed=SEED,
+                                device=dev)
+    batch, _, t_data = step_launches(ds.batch, 0)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    steps = {v: step_lib.make_train_step(cfg, opt_cfg, variant=v)
+             for v in (step_lib.BALANCED, step_lib.COMM_PRIORITY)}
+    want = {0: {"flash_attn": 2 * L, "flash_attn_bwd": L},
+            1: {"flash_attn": 4 * L, "flash_attn_bwd": 2 * L}}
+    first = {}
+    for v in (step_lib.BALANCED, step_lib.COMM_PRIORITY):
+        if v == step_lib.COMM_PRIORITY:   # the same state: step 0's again
+            del state
+            torch.cuda.empty_cache()
+            state = step_lib.TrainState(params0,
+                                        opt_lib.init(opt_cfg, params0))
+        (state, m), counts, wall = step_launches(steps[v], state, batch)
+        check(counts == want[v], f"[train] variant {v} step launched "
+                                 f"{counts}, expected {want[v]}")
+        leaf = next(tree_leaves(state.params))
+        first[v] = (float(m["loss"]), leaf[1].float().cpu(), leaf[0], wall)
+    (l0, p0, path, w0), (l1, p1, _, w1) = first[0], first[1]
+    check(abs(l0 - l1) <= 2e-2 * abs(l0) and bool(torch.isfinite(
+        torch.tensor([l0, l1])).all()),
+          f"[train] variant losses {l0} vs {l1}")
+    check(bool(((p0 - p1).abs() <= 2e-2 + 2e-2 * p1.abs()).all()),
+          f"[train] the variants' first leaf {path} apart: max "
+          f"{float((p0 - p1).abs().max())}")
+    print(f"[train] llama3.2-3b full width, {L} layers, remat full, "
+          f"B={TRAIN_B} S={TRAIN_S}: init {t_init:.1f} s (one batch of "
+          f"make_dataset {t_data:.2f} s); one step of each variant from the "
+          f"same state: balanced loss {l0:.5f} ({w0:.2f} s, {2 * L} B5 + "
+          f"{L} B5-bwd), comm-priority loss {l1:.5f} ({w1:.2f} s, {4 * L} "
+          f"B5 + {2 * L} B5-bwd), first leaf {'/'.join(map(str, path))} "
+          f"within 2e-2 (max |diff| {float((p0 - p1).abs().max()):.2e})")
+    sys.stdout.flush()
+
+    # the loop on the launcher's KF scheduler, from the comm-priority
+    # step's state
+    sched = launch_train.make_scheduler()
+    walls = []
+    timed = {v: (lambda f: lambda s, b: _timed(f, s, b, walls))(f)
+             for v, f in steps.items()}
+    res, counts, wall = step_launches(
+        lambda: loop_lib.run(loop_lib.LoopConfig(
+            total_steps=TRAIN_STEPS, log_every=0), state, timed, ds.batch,
+            sched, log=lambda s: None))
+    del state
+    n = len(res.losses)
+    per_v = {v: res.variants.count(v) for v in (0, 1)}
+    want_counts = {k: per_v[0] * want[0][k] + per_v[1] * want[1][k]
+                   for k in want[0]}
+    check(n == TRAIN_STEPS and all(map(math.isfinite, res.losses)),
+          f"[train] loop losses {res.losses}")
+    check(sum(res.losses[-2:]) / 2 < res.losses[0],
+          f"[train] loss did not fall: {res.losses}")
+    check(counts == want_counts, f"[train] loop launched {counts}, "
+                                 f"expected {want_counts}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = res.state
+    step_s = statistics.median(walls[1:])
+    toks = TRAIN_B * TRAIN_S
+
+    extra = ds.batch(TRAIN_STEPS)
+
+    def one():
+        return steps[0](state, extra)
+
+    p_wall, busy, top_dev, _ = profile_device(one, 1)
+    print(f"[train] loop.run {n} steps (KF scheduler, launcher settings; "
+          f"variants {res.variants}): losses "
+          + ", ".join(f"{x:.4f}" for x in res.losses)
+          + f"; {counts['flash_attn']} B5 and {counts['flash_attn_bwd']} "
+          f"B5-bwd launches ({2 * L} + {L} a balanced step); wall "
+          f"{wall:.1f} s, step wall median {step_s:.3f} s ({toks / step_s:.0f}"
+          f" tokens/s; the prefetcher draws the next batch on its own "
+          f"stream meanwhile); one more step alone, profiled: wall "
+          f"{p_wall:.1f} ms ({toks / p_wall * 1e3:.0f} tokens/s), device "
+          f"busy {fmt_ms(busy)}, idle share "
+          + (f"{max(0.0, 1 - busy / p_wall):.3f}" if busy > 0
+             else "not measured")
+          + f"; top device ops (ms a step): {fmt_top(top_dev)}; peak device "
+          f"memory {peak:.1f} GB (torch.cuda.max_memory_allocated)")
+    sys.stdout.flush()
+    del state, res, params0, batch, extra
+    torch.cuda.empty_cache()
+
+    # the launcher as a user runs it, in-process, on its defaults
+    t0 = time.time()
+    out = launch_train.main(["--arch", "llama3.2-3b", "--size", "full",
+                             "--steps", "2"])
+    check(len(out.losses) == 2 and all(map(math.isfinite, out.losses)),
+          f"[train] launcher losses {out.losses}")
+    print(f"[train] python -m repro_torch.launch.train --arch llama3.2-3b "
+          f"--size full --steps 2 (B=8 S=128 defaults), in-process: losses "
+          f"{out.losses}, {time.time() - t0:.1f} s")
+    del out
+    torch.cuda.empty_cache()
+    sys.stdout.flush()
+    return counts["flash_attn_bwd"]
+
+
+def _timed(fn, state, batch, walls):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn(state, batch)
+    torch.cuda.synchronize()
+    walls.append(time.time() - t0)
+    return out
+
+
+def phase_train_s(dev):
+    """The smoke config (widened to head dim 64, which B5 takes) on the
+    card through loop.run with a checkpoint
+    every 4 steps: an uninterrupted run of 10 steps; a run that fails at
+    step 6 (SimulatedFailure); the checkpoint restored bitwise equal to
+    the state a run of 4 steps holds (bf16 through its uint16 bits, no
+    ml_dtypes); a run restored from it to step 10 whose losses and final
+    state equal the uninterrupted run's bit for bit."""
+    import importlib.util
+
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch._util import tree_leaves
+    from repro_torch.ckpt import io as ckpt_io
+    from repro_torch.data import synthetic
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+
+    # the smoke config's head dim (8) has no B5 instantiation: widened to
+    # the card test's narrow llama (head dim 64)
+    cfg = dataclasses.replace(configs.smoke("llama3.2-3b"), d_model=256,
+                              n_heads=4, n_kv_heads=2, head_dim=64,
+                              d_ff=512)
+    opt_cfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                      total_steps=10)
+
+    def fresh():
+        return (step_lib.init_train_state(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, opt_cfg),
+            {0: step_lib.make_train_step(cfg, opt_cfg)},
+            synthetic.make_dataset(cfg, 64, 4, seed=SEED, device=dev).batch)
+
+    def run(total, **kw):
+        state, steps, make = fresh()
+        fail_at = kw.pop("fail_at", None)
+        return loop_lib.run(loop_lib.LoopConfig(total_steps=total,
+                                                log_every=0, **kw),
+                            state, steps, make, fail_at=fail_at,
+                            log=lambda s: None)
+
+    t0 = time.time()
+    full = run(10)
+    four = run(4)
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(ckpt_dir=tmp, ckpt_every=4)
+        try:
+            run(10, fail_at=6, **kw)
+            fail("[train-s] the injected failure did not raise")
+        except loop_lib.SimulatedFailure:
+            pass
+        template = fresh()[0]
+        step, restored = ckpt_io.restore_latest(tmp, template)
+        with open(os.path.join(tmp, f"step_{step:08d}",
+                               "manifest.json")) as f:
+            dtypes = {m["dtype"] for m in json.load(f)["arrays"].values()}
+        resumed = run(10, **kw)
+    check(step == 4 and resumed.restored_from == 4,
+          f"[train-s] restored step {step}, resumed from "
+          f"{resumed.restored_from}")
+    diff = [p for (p, a), (_, b) in zip(tree_leaves(restored),
+                                        tree_leaves(four.state))
+            if not (a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b))]
+    check(not diff, f"[train-s] restored state differs from the saved one "
+                    f"at {diff[:3]}")
+    check("bfloat16" in dtypes, f"[train-s] no bf16 leaf in {dtypes}")
+    check(resumed.losses == full.losses[4:],
+          f"[train-s] losses after the restore {resumed.losses} differ "
+          f"from the uninterrupted run's {full.losses[4:]}")
+    diff = [p for (p, a), (_, b) in zip(tree_leaves(resumed.state),
+                                        tree_leaves(full.state))
+            if not torch.equal(a, b)]
+    check(not diff, f"[train-s] final state differs at {diff[:3]}")
+    print(f"[train-s] llama3.2-3b smoke (2 layers, d_model 256, 4/2 heads "
+          f"of 64, vocab 256) on the card, B=4 S=64: checkpoint "
+          f"every 4 steps, SimulatedFailure at step 6, restored step 4 "
+          f"bitwise equal to a 4-step run's state (bf16 stored as uint16 "
+          f"bits, manifest dtypes {sorted(dtypes)}, ml_dtypes "
+          f"{'present' if importlib.util.find_spec('ml_dtypes') else 'absent'}"
+          f"); losses 4..9 after the restore bitwise the uninterrupted "
+          f"run's ({', '.join(f'{x:.5f}' for x in resumed.losses)}); final "
+          f"state bitwise equal; {time.time() - t0:.1f} s")
+    sys.stdout.flush()
+
+
+def train_paths(dev, t_start) -> dict:
+    """[B5b], [train-w], [train], [train-s]; returns B5-bwd's kernels row
+    with its launches on the main path ([train]'s loop)."""
+    b5b = phase_b5b(dev)
+    phase_train_w(dev)
+    b5b["launches"] = phase_train(dev)
+    phase_train_s(dev)
+    stamp("the training path", t_start)
+    return b5b
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -2407,10 +2933,12 @@ def main() -> int:
     t0 = time.time()
     libs = [("noc_cycle", kernel.SOURCES), ("kf_bank", kf_kernel.SOURCES),
             ("flash_attn", fa_kernel.SOURCES),
+            ("flash_attn_bwd", fa_kernel.BWD_SOURCES),
             ("mamba_scan", ms_kernel.SOURCES)]
     _build.build_all(libs)              # one nvcc per source, in parallel
     for mod in (kernel, kf_kernel, fa_kernel, ms_kernel):
         mod.library()
+    fa_kernel.bwd_library()
     print(f"[1] kernel build + load: {time.time() - t0:.1f} s "
           f"({', '.join(src[0].name for _, src in libs)})")
     usage = {}
@@ -2421,6 +2949,8 @@ def main() -> int:
     want = ({"B1", "B2", "B3", "B2 clocked", "B4", "B6"}
             | {f"B5 {t} D{d}" for t in ("bf16", "f32")
                for d in fa_kernel.HEAD_DIMS}
+            | {f"B5b {p} {t} D{d}" for p in ("stats", "dkdv", "dq")
+               for t in ("bf16", "f32") for d in fa_kernel.HEAD_DIMS}
             | {f"B7 {t} S{n}{w}" for t in ("bf16", "f32")
                for n in ms_kernel.FUSED_STATES for w in ("", " narrow")})
     check(set(usage) == want,
@@ -2438,6 +2968,13 @@ def main() -> int:
     check(not b7_spill, f"a B7 instantiation has a stack or spills: "
                         f"{b7_spill}")
     sys.stdout.flush()
+
+    if "--only-train" in sys.argv[1:]:
+        # a development run of the training path alone (prints no result)
+        b5b = train_paths(dev, t_start)
+        print(json.dumps({"kernels": [b5b]}))
+        print(f"[dev] --only-train done at {time.time() - t_start:.1f} s")
+        return 1
 
     # The kernel checks of phases 2-3 and the live case of phase 4 share one
     # short run: kf with the guard and joint control, under a fault stream
@@ -2858,6 +3395,9 @@ def main() -> int:
     # ---- the MoE decoders: grok-1 and llama4-maverick, attention via B5
     b5["launches"] += moe_paths(dev, t_start)
 
+    # ---- the training path: llama3.2-3b through B5 and B5-bwd
+    b5b = train_paths(dev, t_start)
+
     # ---- phase 6: the kernels line
     nb2, op2 = b2_bound(d, 500)
     nb3, op3 = b3_bound(d, 500)
@@ -2885,7 +3425,7 @@ def main() -> int:
              ms=b3_ms,
              plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),
-        b4, b5, b6, b7,
+        b4, b5, b5b, b6, b7,
     ]
     print(f"[6] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

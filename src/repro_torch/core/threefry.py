@@ -1,8 +1,10 @@
 """JAX's threefry2x32 random numbers in torch, on any device.
 
 Reproduces, bit for bit, what jax 0.9.0 computes for ``PRNGKey``,
-``split``, ``random_bits`` (32-bit), ``uniform`` (float32) and ``randint``
-(int32) under both settings of ``jax_threefry_partitionable``:
+``split``, ``fold_in``, ``random_bits`` (32-bit), ``uniform``, ``gumbel``
+(float32, mode "low"), ``bernoulli``, ``categorical`` (with replacement)
+and ``randint`` (int32) under both settings of
+``jax_threefry_partitionable``:
 
 * the original scheme hashes ``iota(n)`` with the count split in halves
   (an odd count padded with one zero): output i < n/2 is the first word of
@@ -10,6 +12,15 @@ Reproduces, bit for bit, what jax 0.9.0 computes for ``PRNGKey``,
   ``iota(2 num)`` that way, and key i is words (2i, 2i + 1) of the result;
 * the partitionable scheme hashes a (hi, lo) = (0, i) counter pair per
   element: ``split`` keeps both words, 32-bit ``random_bits`` their xor.
+
+Under either scheme an element's bits are a function of its flat index
+(and of the draw's size), so `categorical` draws its (rows, V) Gumbel
+array a slice of rows at a time: at V = 128,256 the whole draw never
+lives at once.  `gumbel` takes its logarithm from `xla_log`, the Cephes
+polynomial XLA's CPU backend emits for ``log`` (torch's ``log`` differs
+from it in the last bit for about one value in seven), so the draws are
+the reference's bits on any device.  ``normal`` is not ported
+(`normal` raises).
 
 The partitionable scheme is jax 0.9.0's default and this module's;
 `threefry_partitionable` switches it for a block, as
@@ -99,12 +110,42 @@ def _hash_pairs(key: Tensor, n: int):
                     torch.zeros_like(lo), lo)
 
 
+def _bits_range(key: Tensor, n: int, start: int, stop: int) -> Tensor:
+    """Words [start, stop) of 32-bit ``random_bits`` over n elements under
+    one key (2,): what ``random_bits(key, (n,))[start:stop]`` gives,
+    computing only those words."""
+    i = torch.arange(start, stop, dtype=torch.int64, device=key.device)
+    k0, k1 = key[0], key[1]
+    if partitionable():
+        b1, b2 = hash2x32(k0, k1, torch.zeros_like(i), i)
+        return b1 ^ b2
+    # the original scheme: word i < half is the first word of
+    # hash(i, i + half), word i >= half the second of hash(i - half, i);
+    # an odd count's last pair is (half - 1, 0)
+    half = (n + 1) // 2
+    first = i < half
+    j = torch.where(first, i, i - half)
+    x1 = j + half
+    if n % 2:
+        x1 = torch.where(j == half - 1, torch.zeros_like(x1), x1)
+    o0, o1 = hash2x32(k0, k1, j, x1)
+    return torch.where(first, o0, o1)
+
+
 def split(key: Tensor, num: int = 2) -> Tensor:
     """``jax.random.split(key, num)``: (..., 2) -> (..., num, 2)."""
     if partitionable():
         b1, b2 = _hash_pairs(key, num)
         return torch.stack([b1, b2], dim=-1)
     return _hash_count(key, 2 * num).reshape((*key.shape[:-1], num, 2))
+
+
+def fold_in(key: Tensor, data: int) -> Tensor:
+    """``jax.random.fold_in(key, data)`` for an int32 ``data``: the hash of
+    the counter pair (0, data), under either scheme."""
+    d = torch.full_like(key[..., 0], int(data) & _M)
+    o0, o1 = hash2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    return torch.stack([o0, o1], dim=-1)
 
 
 def random_bits(key: Tensor, shape: tuple[int, ...] = ()) -> Tensor:
@@ -124,11 +165,112 @@ def uniform(key: Tensor, shape: tuple[int, ...] = (),
             minval: float = 0.0, maxval: float = 1.0) -> Tensor:
     """``jax.random.uniform(key, shape)`` in float32: 23 random mantissa
     bits under exponent 0 make [1, 2), shifted and scaled as JAX does."""
-    bits = random_bits(key, shape)
+    return _to_uniform(random_bits(key, shape), minval, maxval)
+
+
+def _to_uniform(bits: Tensor, minval: float, maxval: float) -> Tensor:
     one_two = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, (one_two - 1.0) * (hi - lo) + lo)
+
+
+F32_TINY = 1.1754943508222875e-38   # float32's smallest normal
+# the polynomial's coefficients, rounded to float32 as XLA holds them
+_LOG_P = torch.tensor((
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1), dtype=torch.float32).tolist()
+
+
+def _fma(a: Tensor, b, c) -> Tensor:
+    """a * b + c rounded once to float32 (float32 operands: the product is
+    exact in float64, the sum rounds there and then to float32)."""
+    return (a.double() * b + c).float()
+
+
+def xla_log(x: Tensor) -> Tensor:
+    """float32 log as XLA's CPU backend computes it for positive normal
+    inputs: the Cephes polynomial (Eigen's former plog), with the fused
+    multiply-adds LLVM forms.  Inputs below the smallest normal are
+    clamped to it, as there; zero, negative and non-finite inputs are not
+    handled (`gumbel` never makes them)."""
+    f32 = torch.float32
+    x = torch.clamp(x.to(f32), min=F32_TINY)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) & 0xFF).to(f32) - 126.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(f32)
+    small = m < 0.707106781186547524
+    t = m - 1.0
+    e = torch.where(small, e - 1.0, e)
+    t = torch.where(small, t + m, t)
+    t2 = t * t
+    t3 = t2 * t
+    p = _LOG_P
+    y = _fma(torch.full_like(t, p[0]), t, p[1])
+    y1 = _fma(torch.full_like(t, p[3]), t, p[4])
+    y2 = _fma(torch.full_like(t, p[6]), t, p[7])
+    y = _fma(y, t, p[2])
+    y1 = _fma(y1, t, p[5])
+    y2 = _fma(y2, t, p[8])
+    y = _fma(y, t3, y1)
+    y = _fma(y, t3, y2)
+    y = _fma(y, t3, e * -2.12194440e-4)
+    t = t - t2 * 0.5
+    t = t + y
+    return t + e * 0.693359375
+
+
+def gumbel(key: Tensor, shape: tuple[int, ...] = ()) -> Tensor:
+    """``jax.random.gumbel(key, shape)`` in float32, mode "low": -log(-log
+    u) of a uniform u on [tiny, 1), for one key (2,)."""
+    return _gumbel_of(random_bits(key, shape))
+
+
+def _gumbel_of(bits: Tensor) -> Tensor:
+    return -xla_log(-xla_log(_to_uniform(bits, F32_TINY, 1.0)))
+
+
+def bernoulli(key: Tensor, p: float, shape: tuple[int, ...]) -> Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float p (a
+    float32 mean), mode "low": uniform < p."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32,
+                                              device=key.device)
+
+
+CATEGORICAL_SLICE = 1 << 24   # Gumbel elements drawn at a time
+
+
+def categorical(key: Tensor, logits: Tensor,
+                shape: tuple[int, ...]) -> Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` for one key (2,)
+    and float32 logits (V,) over the last axis (with replacement): the
+    argmax over V of a (*shape, V) Gumbel draw plus the logits, the first
+    maximum on a tie.  The draw is taken whole rows at a time, at most
+    ``CATEGORICAL_SLICE`` elements each, each slice's bits being those its
+    flat indices have in the whole draw.  Returns int64 (*shape)."""
+    v = logits.shape[-1]
+    rows = math.prod(shape)
+    n = rows * v
+    if n >= 2**32 - 1:
+        raise ValueError("categorical draws fewer than 2^32 - 1 words")
+    logits = logits.to(torch.float32)
+    step = max(1, CATEGORICAL_SLICE // v)
+    out = []
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        g = _gumbel_of(_bits_range(key, n, r0 * v, r1 * v)).view(r1 - r0, v)
+        out.append(torch.argmax(g + logits, dim=-1))
+    if not out:
+        return torch.zeros(shape, dtype=torch.int64, device=key.device)
+    return torch.cat(out).view(shape)
+
+
+def normal(key: Tensor, shape: tuple[int, ...] = ()) -> Tensor:
+    """Not ported: only the modality frontends' ``embeds`` draw normals."""
+    raise NotImplementedError(
+        "threefry.normal is not ported yet (ROADMAP queue A, A7: the "
+        "encoder-decoder and modality frontends)")
 
 
 def randint(key: Tensor, shape: tuple[int, ...], minval: int,

@@ -2,8 +2,9 @@
 
 What crosses over: demand, fault and placement streams, recorded traces,
 simulator state, the flight-recorder carry and random streams (the NoC
-simulator has no weights), and a language model's parameter tree and decode
-state (the serving path).  Each converter takes any object with the right
+simulator has no weights), a language model's parameter tree and decode
+state (the serving path), and a training state (parameters and AdamW
+moments).  Each converter takes any object with the right
 field names whose leaves numpy can read (for example a NamedTuple of numpy
 arrays) and returns the port's structure of the same names on ``device``.
 uint16 injection stamps widen to the port's int32 stamps value for value;
@@ -27,6 +28,8 @@ from repro_torch.models import lm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.mamba import Mamba1State, Mamba2State
 from repro_torch.models.config import ModelConfig
+from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.step import TrainState
 
 
 def tensor(x, device="cpu", dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -141,28 +144,50 @@ def lm_params(tree, cfg: ModelConfig, device="cpu") -> dict:
     pdt = lm.param_dtype(cfg)
     f32_keys = {"mamba1": MAMBA1_F32, "mamba2": MAMBA2_F32}
 
-    def conv(node, i=None):
-        if isinstance(node, dict):
-            return {k: conv(v, i) for k, v in node.items()}
-        return tensor(node if i is None else np.asarray(node)[i], device)
-
     def cast(node, dtype):
         if isinstance(node, dict):
             return {k: cast(v, dtype) for k, v in node.items()}
         return node.to(dtype)
 
-    def block(j, kind, i):
-        out = conv(tree["blocks"][j], i)
-        if kind in f32_keys:
-            out["mixer"] = {
+    out = _unstack(tree, cfg, device)
+    for j, kind in enumerate(pattern):
+        if kind not in f32_keys:
+            continue
+        for blk in out["blocks"][j]:
+            blk["mixer"] = {
                 k: cast(v, torch.float32 if k in f32_keys[kind] else pdt)
-                for k, v in out["mixer"].items()}
-        return out
+                for k, v in blk["mixer"].items()}
+    return out
+
+
+def _unstack(tree, cfg: ModelConfig, device) -> dict:
+    """The reference's LM tree (each pattern position's blocks stacked
+    over n_super) in the port's layout, every leaf's type kept."""
+    pattern, n_super = lm.layer_pattern(cfg)
+
+    def conv(node, i=None):
+        if isinstance(node, dict):
+            return {k: conv(v, i) for k, v in node.items()}
+        return tensor(node if i is None else np.asarray(node)[i], device)
 
     out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [[block(j, kind, i) for i in range(n_super)]
-                     for j, kind in enumerate(pattern)]
+    out["blocks"] = [[conv(tree["blocks"][j], i) for i in range(n_super)]
+                     for j in range(len(pattern))]
     return out
+
+
+def train_state(obj, cfg: ModelConfig, device="cpu") -> TrainState:
+    """A training state (``params``; ``opt`` with ``step``, ``mu``, ``nu``,
+    as the reference's TrainState and OptState hold them) as the port's
+    `TrainState`: the parameters through `lm_params`, the moments laid
+    out the same way in their own type, the step an int32 scalar."""
+    opt = obj.opt
+    return TrainState(
+        params=lm_params(obj.params, cfg, device),
+        opt=opt_lib.OptState(
+            step=tensor(opt.step, device, torch.int32),
+            mu=_unstack(opt.mu, cfg, device),
+            nu=_unstack(opt.nu, cfg, device)))
 
 
 def decode_state(obj, device="cpu") -> lm.DecodeState:

@@ -1,5 +1,9 @@
-"""ctypes launcher for the CUDA kernels of B5, which replace
-repro/kernels/flash_attn/kernel.py::_flash_kernel: bfloat16 inputs launch
+"""ctypes launchers for the CUDA kernels of B5, which replace
+repro/kernels/flash_attn/kernel.py::_flash_kernel, and of its backward
+B5-bwd (csrc/flash_attn_bwd.cu, a library of its own; it replaces no TPU
+kernel: the JAX package differentiates its plain attention with XLA).
+
+B5: bfloat16 inputs launch
 the wgmma kernel fed by TMA in csrc/flash_attn_sm90.cu, float32 inputs the
 SIMT kernel in csrc/flash_attn.cu (a static dispatch on the type, one
 library, one entry point).  It checks device, dtype, shape and strides,
@@ -24,8 +28,9 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ops import LAUNCHES
 
-SOURCES = [Path(__file__).resolve().parent / "csrc" / name
-           for name in ("flash_attn.cu", "flash_attn_sm90.cu")]
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = [CSRC / name for name in ("flash_attn.cu", "flash_attn_sm90.cu")]
+BWD_SOURCES = [CSRC / "flash_attn_bwd.cu"]
 HEAD_DIMS = (64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_MISALIGNED = -1  # the library's code for bf16 inputs TMA cannot read
@@ -43,16 +48,21 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def flash_attn(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-    causal: bool, window: int | None, logit_cap: float | None,
-    kv_len: int | None,
-) -> torch.Tensor:
-    """B5 on q (B, Sq, H, D), k/v (B, Sk, KV, D) CUDA tensors of one type,
-    each with a unit stride on D (any strides on B, S and H)."""
+@functools.cache
+def bwd_library() -> ctypes.CDLL:
+    """Build (first call) and load the flash_attn_bwd library."""
+    lib = _build.load_library("flash_attn_bwd", BWD_SOURCES)
+    lib.flash_attn_bwd.argtypes = (
+        [_I, _I] + [_P] * 10 + [_L] * 24 + [_I] * 7 + [_F, _P])
+    lib.flash_attn_bwd.restype = _I
+    return lib
+
+
+def _check_qkv(q, k, v, window, logit_cap, extra=()):
+    """Device, type, layout and shape checks shared by both launchers."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v), *extra):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype != q.dtype:
@@ -65,12 +75,28 @@ def flash_attn(
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)} {tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)}")
+    for name, t in extra:
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} is not q's "
+                             f"{tuple(q.shape)}")
     if kvh == 0 or h % kvh:
         raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
     if logit_cap is not None and not logit_cap > 0:
         raise ValueError(f"logit_cap must be > 0, got {logit_cap}")
+
+
+def flash_attn(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool, window: int | None, logit_cap: float | None,
+    kv_len: int | None,
+) -> torch.Tensor:
+    """B5 on q (B, Sq, H, D), k/v (B, Sk, KV, D) CUDA tensors of one type,
+    each with a unit stride on D (any strides on B, S and H)."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    _check_qkv(q, k, v, window, logit_cap)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
@@ -96,6 +122,42 @@ def flash_attn(
         raise RuntimeError(f"flash_attn launch failed: CUDA error {rc}")
     LAUNCHES["flash_attn"] += 1
     return out
+
+
+def flash_attn_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, *, causal: bool, window: int | None,
+    logit_cap: float | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B5-bwd: dq (B, Sq, H, D), dk and dv (B, Sk, KV, D) of B5's function
+    (every key valid: no kv_len) at q, k, v, its output o and the output's
+    gradient do, all CUDA tensors of one type (float32 or bfloat16) with a
+    unit stride on D; the gradients come out contiguous in that type.  One
+    call launches the library's three kernels (statistics, dK/dV, dQ) and
+    counts one in LAUNCHES["flash_attn_bwd"]."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    _check_qkv(q, k, v, window, logit_cap, extra=(("o", o), ("do", do)))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or sk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    strides = [x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]]
+    rc = bwd_library().flash_attn_bwd(
+        DTYPES[q.dtype], d,
+        *(t.data_ptr() for t in (q, k, v, o, do, dq, dk, dv, lse, delta)),
+        *strides, b, h, kvh, sq, sk, int(causal),
+        0 if window is None else int(window),
+        0.0 if logit_cap is None else float(logit_cap), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_bwd launch failed: CUDA error {rc}")
+    LAUNCHES["flash_attn_bwd"] += 1
+    return dq, dk, dv
 
 
 def _strides(t: torch.Tensor) -> tuple[int, ...]:

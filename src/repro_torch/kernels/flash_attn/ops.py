@@ -16,18 +16,27 @@ tensors it runs `flash_attention_plain`.  There is no fallback: a CUDA
 tensor launches a kernel or raises.  Inputs that are not tensors go to ``device``, which
 defaults to the CUDA device.
 
-`LAUNCHES["flash_attn"]` counts kernel launches; the launcher in kernel.py
-adds one after each launch that succeeded and nowhere else (an empty
-output launches nothing and counts nothing).
+Gradients: on CUDA tensors the call goes through `FlashAttention`, an
+autograd.Function whose backward launches B5-bwd (csrc/flash_attn_bwd.cu,
+`kernel.flash_attn_bwd`), so q, k and v get their gradients through the
+kernels (a ``kv_len`` raises in the backward: training never passes
+one).  On CPU tensors autograd differentiates `flash_attention_plain`
+itself.  `flash_attention_plain_bwd` writes the same gradient out in
+PyTorch, for the tests and the card's comparison; no main path calls it.
+
+`LAUNCHES["flash_attn"]` counts B5 launches and
+`LAUNCHES["flash_attn_bwd"]` calls of B5-bwd (three kernels a call); the
+launchers in kernel.py add one after each launch that succeeded and
+nowhere else (an empty output launches nothing and counts nothing).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch._util import resolve_device
-from repro_torch.kernels.flash_attn.ref import attention_ref
+from repro_torch.kernels.flash_attn.ref import NEG_INF, attention_ref
 
-LAUNCHES = {"flash_attn": 0}
+LAUNCHES = {"flash_attn": 0, "flash_attn_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -45,6 +54,82 @@ def flash_attention_plain(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window, logit_cap=logit_cap, kv_len=kv_len)
     return out.transpose(1, 2)
+
+
+def flash_attention_plain_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    do: torch.Tensor, *, causal: bool = True, window: int | None = None,
+    logit_cap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """B5-bwd's function in dense form (model layout, f32 inside, every
+    key valid): P recomputed from q and k, delta = sum_d dO * O from the
+    given forward output, dS = P (dP - delta) times the cap's derivative,
+    dq = dS K / sqrt(D), dk = dS^T Q / sqrt(D) and dv = P^T dO, each summed
+    over a KV head's query group; returned in q's type."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    rep = h // kvh
+    f32 = torch.float32
+    qf, of, dof = (t.transpose(1, 2).to(f32) for t in (q, o, do))
+    kf, vf = (torch.repeat_interleave(t.transpose(1, 2).to(f32), rep, dim=1)
+              for t in (k, v))
+    x = torch.einsum("bhqd,bhkd->bhqk", qf, kf) / d ** 0.5
+    dcap = None
+    if logit_cap is not None:
+        t = torch.tanh(x / logit_cap)
+        x = logit_cap * t
+        dcap = 1 - t * t
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (q_pos >= k_pos)
+    if window is not None:
+        mask = mask & (q_pos - k_pos < window)
+    x = torch.where(mask, x, NEG_INF)
+    p = torch.softmax(x, dim=-1)
+    p = torch.where(mask.any(dim=-1)[:, None], p, 0.0)  # rows with no key
+    delta = (dof * of).sum(dim=-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vf) - delta)
+    if dcap is not None:
+        ds = ds * dcap
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) / d ** 0.5
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) / d ** 0.5
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+
+    def grouped(t):   # (B, H, Sk, D) -> (B, Sk, KV, D), summed over groups
+        return t.unflatten(1, (kvh, rep)).sum(dim=2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), grouped(dk).to(q.dtype),
+            grouped(dv).to(q.dtype))
+
+
+class FlashAttention(torch.autograd.Function):
+    """B5 forward, B5-bwd backward, on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_cap, kv_len):
+        from repro_torch.kernels.flash_attn import kernel
+
+        o = kernel.flash_attn(q, k, v, causal=causal, window=window,
+                              logit_cap=logit_cap, kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.kw = dict(causal=causal, window=window, logit_cap=logit_cap)
+        ctx.kv_len = kv_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        if ctx.kv_len is not None:
+            raise NotImplementedError(
+                "flash attention's backward takes no kv_len (training never "
+                "passes one)")
+        from repro_torch.kernels.flash_attn import kernel
+
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = kernel.flash_attn_bwd(q, k, v, o, do.contiguous(),
+                                           **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -65,7 +150,4 @@ def flash_attention(
     if not cuda.pop():
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_cap=logit_cap, kv_len=kv_len)
-    from repro_torch.kernels.flash_attn import kernel
-
-    return kernel.flash_attn(q, k, v, causal=causal, window=window,
-                             logit_cap=logit_cap, kv_len=kv_len)
+    return FlashAttention.apply(q, k, v, causal, window, logit_cap, kv_len)

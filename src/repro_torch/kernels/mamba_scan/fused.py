@@ -22,7 +22,9 @@ from zero; the model's scan passes one); ``chunk`` and ``block_d`` are
 kept for the reference's signature and change nothing on the card, where
 a few lanes walk the whole sequence of one (batch, d) channel, several
 states each (csrc/mamba_scan.cu's head note).  Launches count in
-`ops.LAUNCHES["mamba_fused"]`.
+`ops.LAUNCHES["mamba_fused"]`.  B7 has no backward kernel yet: on CUDA
+tensors that require a gradient, while gradients are recorded, it raises
+NotImplementedError naming ROADMAP A6b (`ops.refuse_grad`).
 """
 from __future__ import annotations
 
@@ -86,8 +88,9 @@ def fused_mamba_scan(
         raise ValueError("fused_mamba_scan inputs mix CUDA and CPU tensors")
     if not cuda.pop():
         return fused_mamba_scan_plain(dt, xc, b, c, a_mat, h0)
-    from repro_torch.kernels.mamba_scan import kernel
+    from repro_torch.kernels.mamba_scan import kernel, ops
 
+    ops.refuse_grad("fused_mamba_scan (B7)", ins)
     f32 = torch.float32
     return kernel.mamba_fused(
         dt.to(f32).contiguous(), xc.contiguous(), b.contiguous(),

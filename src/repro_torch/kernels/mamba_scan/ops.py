@@ -13,6 +13,12 @@ D % block_d == 0, each after `min()` with the shape), but ``chunk`` and
 sequence of one (batch, d, s) element, so there are no chunks and no
 channel blocks.
 
+B6 and B7 have no backward kernel yet (ROADMAP queue A, A6b): on CUDA
+tensors, while gradients are recorded and any input requires one, both
+entry points raise NotImplementedError (`refuse_grad`) rather than return
+an output detached from autograd.  On CPU tensors they run plain torch,
+which autograd differentiates.
+
 `LAUNCHES` counts kernel launches: "mamba_scan" (B6) and "mamba_fused"
 (B7, `fused.fused_mamba_scan`).  The launchers in kernel.py add one after
 each launch that succeeded and nowhere else (an empty input launches
@@ -30,6 +36,17 @@ LAUNCHES = {"mamba_scan": 0, "mamba_fused": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def refuse_grad(name: str, tensors) -> None:
+    """Raise if a CUDA launch of ``name`` would cut its inputs' gradient:
+    the kernel's output is written through a raw pointer, outside
+    autograd."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward kernel on the card yet (ROADMAP queue "
+            f"A, A6b); its CUDA output would be detached from autograd")
 
 
 def mamba_chunk_scan(
@@ -55,6 +72,7 @@ def mamba_chunk_scan(
         raise ValueError("mamba_chunk_scan inputs mix CUDA and CPU tensors")
     if not cuda.pop():
         return scan_ref(a, b, h0)
+    refuse_grad("mamba_chunk_scan (B6)", (a, b, h0))
     from repro_torch.kernels.mamba_scan import kernel
 
     return kernel.mamba_scan(a.contiguous(), b.contiguous(), h0.contiguous())

@@ -164,7 +164,9 @@ def attend(
     logit_cap: Optional[float] = None,
 ) -> Tensor:
     """Prefill/training attention through the flash entry point (B5 on a
-    CUDA tensor, its plain version on a CPU tensor).  (B, S, H, D) layout."""
+    CUDA tensor, with B5-bwd as its backward under autograd; its plain
+    version, which autograd differentiates, on a CPU tensor).  (B, S, H,
+    D) layout."""
     return flash_ops.flash_attention(
         q, k, v, causal=causal, window=window, logit_cap=logit_cap)
 

@@ -19,8 +19,11 @@ weights every super-block reuses, ``params["shared_attn"]``; its caches
 are ``DecodeState.shared_kv``, one stacked KVCache entry per
 application).  The other kinds raise NotImplementedError naming the
 ROADMAP item that brings them: encoder-decoder (seamless-m4t) and the
-modality frontends (internvl2).  `lm_loss` belongs to the training
-slice.
+modality frontends (internvl2).
+
+Training: `cross_entropy` and `lm_loss` are the reference's loss (the MoE
+aux terms added as there), and `forward` applies ``cfg.remat`` to each
+super-block when gradients are being recorded (`_remat_wrap`).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import operator
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch._util import resolve_device
 from repro_torch.models import attention, layers, mamba, moe
@@ -150,7 +154,7 @@ def _final_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
 
 
 # --------------------------------------------------------------------------
-# Forward (inference)
+# Forward
 # --------------------------------------------------------------------------
 
 class ForwardOut(NamedTuple):
@@ -190,6 +194,41 @@ def _sum(terms) -> Tensor:
     return functools.reduce(operator.add, terms)
 
 
+# the matrix products "dots" keeps: products with no batch dims, as
+# jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims keeps them
+# (the model's 2-D weight products fold to mm; attention's batched
+# products, bmm, and the flash kernel are recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    """``fn`` under the config's activation-checkpoint policy: "none" keeps
+    every activation; "full" keeps only the super-block's inputs and
+    recomputes the rest in the backward (non-reentrant
+    `torch.utils.checkpoint`); "dots" keeps the outputs of the matrix
+    products as well (a selective checkpoint).  Only while gradients are
+    recorded: under no_grad there is nothing to keep.  Recomputing changes
+    no number."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
+
+
 def forward(
     params: dict, tokens: Tensor, cfg: ModelConfig, *,
     use_kernel: bool = False, return_caches: bool = False,
@@ -205,15 +244,17 @@ def forward(
     ``use_kernel`` picks the mamba1 scan (B6 when L % chunk == 0, else B7;
     without it B7); the mamba2 scan is B7 either way; dense attention, the
     hybrid's shared block included, always goes through the flash entry
-    point (B5 on the card).  The reference's ``remat`` is a training
-    policy and does not apply to this inference path."""
+    point (B5 on the card, with its backward kernel under autograd).
+    While gradients are recorded, each super-block runs under
+    ``cfg.remat`` (`_remat_wrap`), as the reference's scan body does; the
+    numbers do not change."""
     pattern, n_super = _require_ported(cfg)
     b, s = tokens.shape
     dev = tokens.device
     x = layers.embed(params["embed"], tokens, ACT_DTYPE)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
-    per_super = []   # each super-block's MoE aux, its layers' summed
-    for i in range(n_super):
+
+    def super_block(x, i):
         auxes = []
         for j, kind in enumerate(pattern):
             x, aux = _apply_block(params["blocks"][j][i], kind, x, cfg,
@@ -223,8 +264,15 @@ def forward(
         if cfg.is_hybrid:
             x, _ = _apply_block(params["shared_attn"], "dense", x, cfg,
                                 positions, use_kernel=use_kernel)
-        if auxes:
-            per_super.append(MoEAux(*(_sum(f) for f in zip(*auxes))))
+        return x, (MoEAux(*(_sum(f) for f in zip(*auxes))) if auxes
+                   else None)
+
+    body = _remat_wrap(super_block, cfg)
+    per_super = []   # each super-block's MoE aux, its layers' summed
+    for i in range(n_super):
+        x, aux = body(x, i)
+        if aux is not None:
+            per_super.append(aux)
     logits = _final_logits(params, x, cfg)
     if per_super:   # the reference's carry: x + 0 is x, so no zero terms
         lb, zl, loads = zip(*per_super)
@@ -236,6 +284,41 @@ def forward(
     caches = (prefill_caches(params, tokens, cfg, cache_len or s)
               if return_caches else None)
     return ForwardOut(logits=logits, aux=aux, caches=caches)
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def cross_entropy(logits: Tensor, labels: Tensor, mask: Tensor) -> Tensor:
+    """logits (B, S, V), labels (B, S) int, mask (B, S) {0, 1} -> the
+    masked mean of -log softmax(logits)[label], in float32."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = (lse - gold) * mask
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def lm_loss(
+    params: dict, batch: dict, cfg: ModelConfig, *,
+    use_kernel: bool = False, lb_coef: float = 0.01, z_coef: float = 1e-3,
+) -> tuple[Tensor, dict]:
+    """The next-token loss of ``batch`` ({tokens, labels, mask}) and its
+    metrics {ce[, lb_loss, z_loss], loss}; a MoE decoder adds lb_coef x
+    its load-balance loss and z_coef x its router z-loss, as the
+    reference does."""
+    out = forward(params, batch["tokens"], cfg, use_kernel=use_kernel)
+    ce = cross_entropy(out.logits, batch["labels"], batch["mask"])
+    loss = ce
+    metrics = {"ce": ce}
+    if cfg.is_moe:
+        loss = loss + lb_coef * out.aux.load_balance_loss \
+            + z_coef * out.aux.router_z_loss
+        metrics["lb_loss"] = out.aux.load_balance_loss
+        metrics["z_loss"] = out.aux.router_z_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # --------------------------------------------------------------------------

@@ -519,6 +519,149 @@ def test_flash_kernel_rejects_misaligned_strides():
     torch.testing.assert_close(out, want, atol=2e-5, rtol=1e-5)
 
 
+BWD_CASES = [
+    # b, s, h, kv, d, causal, window, cap
+    (2, 48, 6, 2, 64, True, None, None),
+    (1, 200, 24, 8, 128, True, None, None),
+    (1, 300, 32, 8, 80, True, 64, None),
+    (1, 130, 48, 8, 128, True, None, 30.0),
+    (1, 100, 8, 2, 128, False, None, None),
+    (1, 517, 40, 8, 128, True, None, None),
+    (1, 517, 32, 32, 80, True, None, None),
+]
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window,cap", BWD_CASES)
+def test_flash_bwd_kernel_matches_plain(dtype, b, s, h, kv, d, causal,
+                                        window, cap):
+    """B5-bwd against `flash_attention_plain_bwd` on the same inputs (o is
+    B5's own output): relative L2 of dq, dk and dv <= 1e-5 in f32 (f32
+    sums in another order; TF32 off) and <= 1e-2 in bf16 (both compute in
+    f32 from the same bf16 inputs and round the gradients to bf16 once).
+    Two launches give the same bits (no atomics)."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    q = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
+    k = torch.randn((b, s, kv, d), generator=g, device="cuda").to(dtype)
+    v = torch.randn((b, s, kv, d), generator=g, device="cuda").to(dtype)
+    do = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
+    kw = dict(causal=causal, window=window, logit_cap=cap)
+    o = fa_kernel.flash_attn(q, k, v, kv_len=None, **kw)
+    before = fa_ops.LAUNCHES["flash_attn_bwd"]
+    got = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+    again = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+    assert fa_ops.LAUNCHES["flash_attn_bwd"] == before + 2
+    want = fa_ops.flash_attention_plain_bwd(q, k, v, o, do, **kw)
+    bound = 1e-5 if dtype == torch.float32 else 1e-2
+    for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
+        assert x.dtype == dtype and x.shape == z.shape, name
+        assert torch.equal(x, y), f"{name} differs between two launches"
+        assert _rel_l2(x, z) <= bound, (name, _rel_l2(x, z))
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_reach_qkv_on_card():
+    """Under autograd on CUDA tensors, q, k and v get gradients through
+    FlashAttention: one B5 launch forward, one B5-bwd call backward, and
+    the gradients are B5-bwd's; a kv_len raises in the backward."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               .to(torch.bfloat16).requires_grad_()
+               for shape in ((2, 130, 24, 128), (2, 130, 8, 128),
+                             (2, 130, 8, 128)))
+    fa_ops.reset_launches()
+    o = fa_ops.flash_attention(q, k, v, causal=True)
+    assert o.requires_grad
+    do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+    o.backward(do)
+    assert fa_ops.LAUNCHES == {"flash_attn": 1, "flash_attn_bwd": 1}
+    want = fa_kernel.flash_attn_bwd(q.detach(), k.detach(), v.detach(),
+                                    o.detach(), do, causal=True, window=None,
+                                    logit_cap=None)
+    for t, w in zip((q, k, v), want):
+        assert t.grad is not None and torch.equal(t.grad, w)
+    o = fa_ops.flash_attention(q, k, v, causal=True, kv_len=100)
+    with pytest.raises(NotImplementedError, match="kv_len"):
+        o.sum().backward()
+
+
+@pytest.mark.cuda
+def test_mamba_kernels_refuse_grad_on_card():
+    """B6 and B7 have no backward kernel: on CUDA inputs that require a
+    gradient they raise, naming ROADMAP A6b, instead of returning an
+    output detached from autograd; under no_grad they launch."""
+    _need_cuda()
+    a = torch.full((1, 8, 16, 4), 0.5, device="cuda", requires_grad=True)
+    h0 = torch.zeros((1, 16, 4), device="cuda")
+    with pytest.raises(NotImplementedError, match="A6b"):
+        ms_ops.mamba_chunk_scan(a, a, h0)
+    dt, xc, b, c, a_mat, h = _fused_inputs(1, 9, 40, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="A6b"):
+        ms_fused.fused_mamba_scan(dt.requires_grad_(), xc, b, c, a_mat, h0=h)
+    ms_ops.reset_launches()
+    with torch.no_grad():
+        ms_ops.mamba_chunk_scan(a, a, h0)
+        ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=h)
+    assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 1}
+
+
+@pytest.mark.cuda
+def test_train_gradients_on_card_match_cpu():
+    """The loss and every gradient leaf of a narrow llama on the card (B5,
+    B5-bwd, bf16 cuBLAS, remat "full") against the same parameters and
+    batch on the CPU (plain attention, f32 products): loss within 1e-2
+    relative, each leaf within relative L2 2e-2 (bf16 products against
+    f32 ones, through two layers and the tied unembedding); 2 B5 launches
+    a layer (forward and remat recompute) and one B5-bwd call a layer."""
+    _need_cuda()
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch._util import map_tree
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.models import lm
+    from repro_torch.train import step as step_lib
+
+    cfg = dataclasses.replace(configs.smoke("llama3.2-3b"), d_model=256,
+                              n_heads=4, n_kv_heads=2, head_dim=64,
+                              d_ff=512)
+    params = lm.make_lm(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = synthetic.make_dataset(cfg, 64, 2, device="cuda").batch(0)
+    loss_fn = step_lib.make_loss_fn(cfg)
+    fa_ops.reset_launches()
+    m, grads = step_lib.value_and_grad(loss_fn, params, batch)
+    assert fa_ops.LAUNCHES == {"flash_attn": 2 * cfg.n_layers,
+                               "flash_attn_bwd": cfg.n_layers}
+    mc, gc = step_lib.value_and_grad(
+        loss_fn, map_tree(lambda t: t.cpu(), params),
+        {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(m["loss"]) - float(mc["loss"])) <= 1e-2 * float(
+        mc["loss"])
+    for (path, a), (_, b) in zip(_leaves(grads), _leaves(gc)):
+        assert a.dtype == b.dtype and _rel_l2(a.cpu(), b) <= 2e-2, path
+
+
+def _leaves(tree):
+    from repro_torch._util import tree_leaves
+
+    return list(tree_leaves(tree))
+
+
 def _scan_inputs(b, L, d, s):
     """B6's inputs as the JAX kernel test draws them, on the card."""
     rng = np.random.default_rng(2)
@@ -714,7 +857,7 @@ def test_hybrid_forward_launches_b7_per_layer_and_b5_per_super_block():
     out = lm.forward(params, toks.cuda(), cfg, return_caches=True,
                      cache_len=64)
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * 4}
-    assert fa_ops.LAUNCHES == {"flash_attn": 2 * 2}
+    assert fa_ops.LAUNCHES == {"flash_attn": 2 * 2, "flash_attn_bwd": 0}
     want = lm.forward(cpu_params, toks, cfg, return_caches=True, cache_len=64)
     a, b = out.logits.double().cpu(), want.logits.double()
     assert float((a - b).norm() / b.norm()) <= 1e-2
@@ -797,7 +940,7 @@ def test_moe_forward_launches_b5_per_layer(arch):
                          generator=torch.Generator().manual_seed(1)).cuda()
     fa_ops.reset_launches()
     out = lm.forward(params, toks, cfg, return_caches=True, cache_len=64)
-    assert fa_ops.LAUNCHES == {"flash_attn": 2 * 4}
+    assert fa_ops.LAUNCHES == {"flash_attn": 2 * 4, "flash_attn_bwd": 0}
     assert bool(torch.isfinite(out.logits).all())
     n_moe = sum(k == "moe" for k in lm.layer_pattern(cfg)[0])
     assert abs(float(out.aux.expert_load.sum())
