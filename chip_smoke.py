@@ -204,12 +204,15 @@ build/repro_torch/), then runs, each phase failing the script on error:
      step, tokens/s, a step alone profiled for the device's busy share,
      the peak memory; then launch.train.main(["--arch", "llama3.2-3b",
      "--size", "full", "--steps", "2"]) in-process on its defaults;
-  [train-s] the smoke config (widened to head dim 64, which B5 takes)
+  [train-s] the smoke config as the launcher takes it on the card
+     (`launch.train.smoke_config`: heads widened to 64, which B5 takes)
      through loop.run with a checkpoint every 4 steps and a
-     SimulatedFailure at step 6: the restored state bitwise the state a
-     4-step run holds (bf16 as uint16 bits, no ml_dtypes needed), the
-     losses after the restore and the final state bitwise the
-     uninterrupted run's;
+     SimulatedFailure at step 6: the restore writes into the template's
+     own tensors, the restored state bitwise the state a 4-step run holds
+     (bf16 as uint16 bits, no ml_dtypes needed), the losses after the
+     restore and the final state bitwise the uninterrupted run's; then
+     `python -m repro_torch.launch.train` on all its defaults (the smoke
+     config, 100 steps), in-process through main([]);
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch (B1:
      per call of arbitrate_lanes, as the "arb" engine calls it), the plain
@@ -217,8 +220,7 @@ build/repro_torch/), then runs, each phase failing the script on error:
      PyTorch call computing the same function where there is one.
 
 The last two lines are the nvidia-smi name/power line and
-{"ok": true, "device": {...}}.  ``--only-train`` (development) runs phase
-1 and the training phases alone and prints no result line.  Without a CUDA device, or without the
+{"ok": true, "device": {...}}.  Without a CUDA device, or without the
 package beside it, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -2471,6 +2473,7 @@ def phase_b5b(dev):
     shape (B = 4, S = 2048, bf16) beside the bound, the plain version and
     torch's flash backward."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import kernel as fa_kernel
     from repro_torch.kernels.flash_attn import ops as fa_ops
@@ -2531,6 +2534,22 @@ def phase_b5b(dev):
                                                   window, dtype)
                 row = dict(ms=ms, dev_ms=dev_ms, plain=plain, lib=lib_ms,
                            bm=bm, by=by, tflops=flops / ms / 1e9)
+
+                # B5's forward at the same shape (a training step's
+                # forward and remat recompute), beside SDPA
+                def fwd():
+                    return fa_kernel.flash_attn(q, k, v, kv_len=None, **kw)
+
+                qt, kt, vt = (t.transpose(1, 2).contiguous()
+                              for t in (q, k, v))
+                (fbm, fby), _ = flash_bound(b, h, kv, s, s, d, True,
+                                            window, None, dtype)
+                row["fwd"] = dict(
+                    ms=cuda_ms(fwd, reps), dev_ms=profile_device(fwd, 3)[1],
+                    sdpa=cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True), reps),
+                    bm=fbm, by=fby)
+                del qt, kt, vt
             del q, k, v, do, o, got, again, want
         del base
         torch.cuda.empty_cache()
@@ -2551,6 +2570,11 @@ def phase_b5b(dev):
           f"{fmt_ms(row['dev_ms'])}; bound {row['bm']:.4f} ms ({row['by']}, "
           f"10 D flops a valid pair at 989 TFLOP/s); plain "
           f"{row['plain']:.3f} ms; {lib}")
+    fw = row["fwd"]
+    print(f"[B5b] B5's forward at that shape (each layer's forward and its "
+          f"remat recompute): events {fw['ms']:.4f} ms per call, device "
+          f"{fmt_ms(fw['dev_ms'])}; bound {fw['bm']:.4f} ms ({fw['by']}); "
+          f"SDPA {fw['sdpa']:.4f} ms")
     sys.stdout.flush()
     return dict(name="flash_attn_bwd", route="cuda",
                 source="src/repro_torch/kernels/flash_attn/csrc/"
@@ -2663,8 +2687,8 @@ def phase_train(dev) -> int:
     TRAIN_STEPS steps (finite losses, the mean of the last two below the
     first, exact launch counts), its wall per step, tokens/s, the device's
     busy share and the peak memory; then the launcher's main on its
-    defaults (--size full --steps 2).  Returns the B5-bwd calls of the
-    main path (the loop's run)."""
+    defaults (--size full --steps 2).  Returns the B5 and B5-bwd launches
+    of the main path (the loop's run)."""
     import torch
 
     import repro_torch.configs as configs
@@ -2784,7 +2808,7 @@ def phase_train(dev) -> int:
     del out
     torch.cuda.empty_cache()
     sys.stdout.flush()
-    return counts["flash_attn_bwd"]
+    return counts
 
 
 def _timed(fn, state, batch, walls):
@@ -2799,30 +2823,27 @@ def _timed(fn, state, batch, walls):
 
 
 def phase_train_s(dev):
-    """The smoke config (widened to head dim 64, which B5 takes) on the
-    card through loop.run with a checkpoint
+    """The smoke config as the launcher takes it on the card (heads
+    widened to 64, which B5 takes) through loop.run with a checkpoint
     every 4 steps: an uninterrupted run of 10 steps; a run that fails at
-    step 6 (SimulatedFailure); the checkpoint restored bitwise equal to
-    the state a run of 4 steps holds (bf16 through its uint16 bits, no
-    ml_dtypes); a run restored from it to step 10 whose losses and final
-    state equal the uninterrupted run's bit for bit."""
+    step 6 (SimulatedFailure); the checkpoint restored into a template's
+    own tensors, bitwise equal to the state a run of 4 steps holds (bf16
+    through its uint16 bits, no ml_dtypes); a run restored from it to
+    step 10 whose losses and final state equal the uninterrupted run's
+    bit for bit.  Then the launcher on all its defaults."""
     import importlib.util
 
     import torch
 
-    import repro_torch.configs as configs
     from repro_torch._util import tree_leaves
     from repro_torch.ckpt import io as ckpt_io
     from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch_train
     from repro_torch.train import loop as loop_lib
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import step as step_lib
 
-    # the smoke config's head dim (8) has no B5 instantiation: widened to
-    # the card test's narrow llama (head dim 64)
-    cfg = dataclasses.replace(configs.smoke("llama3.2-3b"), d_model=256,
-                              n_heads=4, n_kv_heads=2, head_dim=64,
-                              d_ff=512)
+    cfg = launch_train.smoke_config("llama3.2-3b", dev)
     opt_cfg = opt_lib.OptimizerConfig(lr=1e-3, warmup_steps=2,
                                       total_steps=10)
 
@@ -2851,7 +2872,11 @@ def phase_train_s(dev):
         except loop_lib.SimulatedFailure:
             pass
         template = fresh()[0]
+        ptrs = [t.data_ptr() for _, t in tree_leaves(template)]
         step, restored = ckpt_io.restore_latest(tmp, template)
+        check(restored is template and ptrs == [
+            t.data_ptr() for _, t in tree_leaves(restored)],
+              "[train-s] the restore did not write into the template")
         with open(os.path.join(tmp, f"step_{step:08d}",
                                "manifest.json")) as f:
             dtypes = {m["dtype"] for m in json.load(f)["arrays"].values()}
@@ -2873,10 +2898,12 @@ def phase_train_s(dev):
                                         tree_leaves(full.state))
             if not torch.equal(a, b)]
     check(not diff, f"[train-s] final state differs at {diff[:3]}")
-    print(f"[train-s] llama3.2-3b smoke (2 layers, d_model 256, 4/2 heads "
-          f"of 64, vocab 256) on the card, B=4 S=64: checkpoint "
-          f"every 4 steps, SimulatedFailure at step 6, restored step 4 "
-          f"bitwise equal to a 4-step run's state (bf16 stored as uint16 "
+    print(f"[train-s] llama3.2-3b smoke ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}) on the card, B=4 S=64: "
+          f"checkpoint every 4 steps, SimulatedFailure at step 6, restored "
+          f"step 4 into the template's own tensors, bitwise equal to a "
+          f"4-step run's state (bf16 stored as uint16 "
           f"bits, manifest dtypes {sorted(dtypes)}, ml_dtypes "
           f"{'present' if importlib.util.find_spec('ml_dtypes') else 'absent'}"
           f"); losses 4..9 after the restore bitwise the uninterrupted "
@@ -2884,16 +2911,31 @@ def phase_train_s(dev):
           f"state bitwise equal; {time.time() - t0:.1f} s")
     sys.stdout.flush()
 
+    # python -m repro_torch.launch.train, as README gives it for the card
+    t0 = time.time()
+    out = launch_train.main([])
+    check(len(out.losses) == 100 and all(map(math.isfinite, out.losses))
+          and out.losses[-1] < out.losses[0],
+          f"[train-s] launcher defaults: losses {out.losses[:3]} .. "
+          f"{out.losses[-3:]}")
+    print(f"[train-s] python -m repro_torch.launch.train on its defaults "
+          f"(the smoke config, 100 steps, B=8 S=128), in-process: loss "
+          f"{out.losses[0]:.4f} -> {out.losses[-1]:.4f}, "
+          f"{time.time() - t0:.1f} s")
+    sys.stdout.flush()
 
-def train_paths(dev, t_start) -> dict:
+
+def train_paths(dev, t_start) -> tuple[dict, int]:
     """[B5b], [train-w], [train], [train-s]; returns B5-bwd's kernels row
-    with its launches on the main path ([train]'s loop)."""
+    with its launches on the main path ([train]'s loop) and that loop's B5
+    launches."""
     b5b = phase_b5b(dev)
     phase_train_w(dev)
-    b5b["launches"] = phase_train(dev)
+    counts = phase_train(dev)
+    b5b["launches"] = counts["flash_attn_bwd"]
     phase_train_s(dev)
     stamp("the training path", t_start)
-    return b5b
+    return b5b, counts["flash_attn"]
 
 
 def main() -> int:
@@ -2968,13 +3010,6 @@ def main() -> int:
     check(not b7_spill, f"a B7 instantiation has a stack or spills: "
                         f"{b7_spill}")
     sys.stdout.flush()
-
-    if "--only-train" in sys.argv[1:]:
-        # a development run of the training path alone (prints no result)
-        b5b = train_paths(dev, t_start)
-        print(json.dumps({"kernels": [b5b]}))
-        print(f"[dev] --only-train done at {time.time() - t_start:.1f} s")
-        return 1
 
     # The kernel checks of phases 2-3 and the live case of phase 4 share one
     # short run: kf with the guard and joint control, under a fault stream
@@ -3396,7 +3431,8 @@ def main() -> int:
     b5["launches"] += moe_paths(dev, t_start)
 
     # ---- the training path: llama3.2-3b through B5 and B5-bwd
-    b5b = train_paths(dev, t_start)
+    b5b, b5_train = train_paths(dev, t_start)
+    b5["launches"] += b5_train
 
     # ---- phase 6: the kernels line
     nb2, op2 = b2_bound(d, 500)

@@ -19,8 +19,11 @@ numpy has no bfloat16 of its own (only through the optional ml_dtypes
 package), so a bfloat16 tensor is stored as its uint16 bits with
 "bfloat16" as its manifest dtype, and restored through ``Tensor.view``:
 bit for bit, with or without ml_dtypes installed.
-`restore_latest` puts each array on its template leaf's device, in its
-type.  Restoring onto another mesh (the reference's ``shardings``) is
+`restore_latest` writes each array INTO its template leaf (``copy_``: the
+leaf's device and type, one array on the host at a time) and returns the
+template: the reference builds a new tree, but two llama3.2-3b training
+states (32.1 GB each) do not fit one 80 GB card beside a step.
+Restoring onto another mesh (the reference's ``shardings``) is
 multi-device (ROADMAP A9) and raises.
 """
 from __future__ import annotations
@@ -35,7 +38,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch._util import map_paths, tree_leaves
+from repro_torch._util import tree_leaves
 
 SEP = "/"
 BF16 = "bfloat16"
@@ -150,16 +153,19 @@ def _validate(path: str) -> Optional[dict]:
 
 def _tensor(a: np.ndarray, dtype: str) -> torch.Tensor:
     if dtype == BF16:
-        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def restore_latest(
     ckpt_dir: str, template: Any, *, shardings: Any = None
 ) -> Optional[tuple[int, Any]]:
-    """Restore the newest valid checkpoint into ``template``'s structure,
-    each leaf on its template leaf's device and in its type.  Corrupt or
-    partial checkpoints are skipped (newest-first scan)."""
+    """Restore the newest valid checkpoint into ``template``, a tree of
+    tensors, in place: each leaf keeps its device and type and is
+    overwritten with the saved array (``copy_``); returns (step,
+    template).  Corrupt or partial checkpoints, and those whose keys or
+    shapes do not fit the template, are skipped (newest-first scan)
+    before any leaf is written."""
     if shardings is not None:
         raise NotImplementedError(
             "restoring onto another mesh is multi-device (ROADMAP queue A, "
@@ -171,21 +177,19 @@ def restore_latest(
          if d.startswith("step_") and not d.endswith(".tmp")),
         reverse=True,
     )
-    keys = [_key(path) for path, _ in tree_leaves(template)]
+    leaves = {_key(path): leaf for path, leaf in tree_leaves(template)}
     for cand in candidates:
         path = os.path.join(ckpt_dir, cand)
         manifest = _validate(path)
         if manifest is None:
             continue
         meta = manifest["arrays"]
-        if any(k not in meta for k in keys):
+        if any(k not in meta or meta[k]["shape"] != list(leaf.shape)
+               for k, leaf in leaves.items()):
             continue
-        with np.load(os.path.join(path, "arrays.npz")) as z:
-            arrays = {k: _tensor(z[k], meta[k]["dtype"]) for k in keys}
-
-        def leaf(p, t):
-            t = torch.as_tensor(t)
-            return arrays[_key(p)].to(device=t.device, dtype=t.dtype)
-
-        return int(manifest["step"]), map_paths(leaf, template)
+        with np.load(os.path.join(path, "arrays.npz")) as z, \
+                torch.no_grad():
+            for k, leaf in leaves.items():
+                leaf.copy_(_tensor(z[k], meta[k]["dtype"]))
+        return int(manifest["step"]), template
     return None

@@ -3,9 +3,11 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --size smoke --steps 200 --kf --ckpt-dir CKPT_DIR [--device cpu]
 
-`--size smoke` trains the reduced config; `--size full` the published
-config on one card (llama3.2-3b: 3.21 B parameters, 38.6 GB of training
-state with f32 moments).  Both build the two step variants (balanced /
+`--size smoke` trains the reduced config (on the card with its attention
+heads widened to 64, the narrowest head dim B5 is built for: see
+`smoke_config`); `--size full` the published config on one card
+(llama3.2-3b: 3.21 B parameters, 38.6 GB of training state with f32
+moments).  Both build the two step variants (balanced /
 comm-priority) up front and let the KF scheduler dispatch between them —
 the paper's pre-defined configuration model.  The model trains on the
 CUDA device unless ``--device`` names another.
@@ -13,6 +15,7 @@ CUDA device unless ``--device`` names another.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 import torch
@@ -22,6 +25,8 @@ from repro_torch._util import resolve_device
 from repro_torch.data import synthetic
 from repro_torch.dist.kf_scheduler import KFScheduler, SchedulerConfig
 from repro_torch.dist.telemetry import StaticCosts, Telemetry
+from repro_torch.kernels.flash_attn.kernel import HEAD_DIMS
+from repro_torch.models.config import ModelConfig
 from repro_torch.train import loop as loop_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import step as step_lib
@@ -39,13 +44,25 @@ def make_scheduler() -> KFScheduler:
         revert_steps=60), telemetry)
 
 
+def smoke_config(arch: str, device: torch.device) -> ModelConfig:
+    """The arch's reduced config.  Its attention heads (8 wide for
+    llama3.2-3b) have no B5 instantiation, so on CUDA they are widened
+    to the narrowest head dim B5 is built for; elsewhere the config is
+    the reference's."""
+    cfg = configs.smoke(arch)
+    if (device.type == "cuda" and cfg.n_heads
+            and cfg.head_dim not in HEAD_DIMS):
+        cfg = dataclasses.replace(cfg, head_dim=min(HEAD_DIMS))
+    return cfg
+
+
 def build(arch: str, size: str, seq_len: int, global_batch: int,
           lr: float = 3e-4, total_steps: int = 1000, seed: int = 0,
           use_kf: bool = True, device: str | torch.device | None = None):
     """Returns (state, step_fns, make_batch, scheduler, cfg); the
     reference also returns its mesh, which one card does not have."""
     dev = resolve_device(device)
-    cfg = configs.smoke(arch) if size == "smoke" else configs.get(arch)
+    cfg = smoke_config(arch, dev) if size == "smoke" else configs.get(arch)
     opt_cfg = opt_lib.OptimizerConfig(
         lr=lr, total_steps=total_steps,
         moment_dtype=cfg.optimizer_dtype)
@@ -90,7 +107,10 @@ def main(argv=None):
     result = loop_lib.run(loop_cfg, state, step_fns, make_batch,
                           scheduler, fail_at=args.fail_at)
     losses = result.losses
-    print(f"[train] {args.arch} ({args.size}) {len(losses)} steps: "
+    widened = (f", heads widened to {cfg.head_dim} for B5"
+               if cfg.head_dim != configs.smoke(args.arch).head_dim
+               and args.size == "smoke" else "")
+    print(f"[train] {args.arch} ({args.size}{widened}) {len(losses)} steps: "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f} "
           f"(min {np.min(losses):.4f}); "
           f"stragglers={result.straggler_events}; "

@@ -16,7 +16,8 @@ Fault tolerance:
 ``float(metrics["loss"])`` is the one host sync a step, as in the
 reference.  The step functions update the state in place
 (`optimizer.update`); a checkpoint copies it to host memory before the
-next step runs.
+next step runs, and a restore writes into the state it is given, so one
+training state lives on the card throughout.
 """
 from __future__ import annotations
 

@@ -69,14 +69,22 @@ def value_and_grad(loss_fn, params: Any, batch: dict
                    ) -> tuple[dict, Any]:
     """(metrics, grads) of ``loss_fn(params, batch) -> (loss, metrics)``:
     the gradients a tree like ``params`` in each parameter's type, the
-    metrics detached."""
+    metrics detached.  Every parameter must reach the loss through
+    autograd: a leaf without a gradient (an output computed outside the
+    graph, such as a kernel's written through ctypes) raises, naming the
+    leaves, rather than training on zeros."""
     tracked = map_tree(lambda p: p.detach().requires_grad_(), params)
-    leaves = [leaf for _, leaf in tree_leaves(tracked)]
+    named = list(tree_leaves(tracked))
+    leaves = [leaf for _, leaf in named]
     with torch.enable_grad():
         loss, metrics = loss_fn(tracked, batch)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    by_leaf = {id(p): torch.zeros_like(p) if g is None else g
-               for p, g in zip(leaves, grads)}
+    unused = ["/".join(map(str, path))
+              for (path, _), g in zip(named, grads) if g is None]
+    if unused:
+        raise RuntimeError(f"no gradient reaches {len(unused)} parameter "
+                           f"leaves: {unused}")
+    by_leaf = {id(p): g for p, g in zip(leaves, grads)}
     del loss, grads
     return ({k: v.detach() for k, v in metrics.items()},
             map_tree(lambda p: by_leaf[id(p)], tracked))

@@ -656,6 +656,21 @@ def test_train_gradients_on_card_match_cpu():
         assert a.dtype == b.dtype and _rel_l2(a.cpu(), b) <= 2e-2, path
 
 
+@pytest.mark.cuda
+def test_train_launcher_runs_on_its_defaults():
+    """`python -m repro_torch.launch.train` without arguments on the card:
+    the smoke config with its heads widened for B5, losses finite; each
+    step launches B5 and B5-bwd."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.launch import train as launch_train
+
+    fa_ops.reset_launches()
+    res = launch_train.main(["--steps", "3"])
+    assert len(res.losses) == 3 and np.isfinite(res.losses).all()
+    assert fa_ops.LAUNCHES["flash_attn_bwd"] > 0
+
+
 def _leaves(tree):
     from repro_torch._util import tree_leaves
 

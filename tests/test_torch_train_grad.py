@@ -157,3 +157,36 @@ def test_scans_stay_differentiable_on_the_cpu():
                                   -torch.rand((4, 2), generator=g))
     y.sum().backward()
     assert dt.grad is not None and bool(torch.isfinite(dt.grad).all())
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "zamba2-2.7b",
+                                  "llama4-maverick-400b-a17b",
+                                  "falcon-mamba-7b"])
+def test_every_leaf_receives_a_gradient(arch):
+    """`value_and_grad` refuses a leaf without a gradient; on each
+    ported architecture's smoke config every leaf reaches the loss, so a
+    step takes no such leaf for granted."""
+    cfg = tconfigs.smoke(arch)
+    params = tlm.make_lm(torch.Generator().manual_seed(0), cfg)
+    batch = tsyn.make_dataset(cfg, 16, 2, device="cpu").batch(0)
+    metrics, grads = tstep.value_and_grad(tstep.make_loss_fn(cfg), params,
+                                          batch)
+    assert np.isfinite(float(metrics["loss"]))
+    for (p, g), (_, t) in zip(tree_leaves(grads), tree_leaves(params)):
+        assert g.shape == t.shape and g.dtype == t.dtype, p
+
+
+def test_a_leaf_without_gradient_raises():
+    """An output computed outside autograd (as a kernel's written through
+    ctypes would be) leaves the weights behind it without a gradient:
+    `value_and_grad` names them instead of training them on zeros."""
+    g = torch.Generator().manual_seed(0)
+    params = {"w": torch.randn((3, 4), generator=g),
+              "blocks": [{"v": torch.randn((4,), generator=g)}]}
+
+    def loss_fn(p, batch):
+        loss = (batch["x"] @ p["w"]).sum() + p["blocks"][0]["v"].detach().sum()
+        return loss, {"loss": loss}
+
+    with pytest.raises(RuntimeError, match="blocks/0/v"):
+        tstep.value_and_grad(loss_fn, params, {"x": torch.ones((2, 3))})

@@ -7,6 +7,7 @@ does, stragglers are detected) and the cases of tests/test_ckpt.py
 keep_last, the async saver), plus bf16 through a checkpoint without
 ml_dtypes and the launcher's `main`.  No JAX: these are the reference's
 behaviours, held on the port's own numbers."""
+import dataclasses
 import json
 import os
 import sys
@@ -159,6 +160,21 @@ def test_launcher_main_trains_on_the_cpu(capsys):
     assert "[train] llama3.2-3b (smoke) 3 steps" in capsys.readouterr().out
 
 
+def test_smoke_config_widens_heads_only_for_the_card():
+    """B5 has no instantiation for the smoke config's 8-wide heads: on a
+    CUDA device the launcher widens them to 64 and changes nothing else;
+    on the CPU, and for an arch without attention, the config is the
+    reference's."""
+    cpu = launch_train.smoke_config("llama3.2-3b", torch.device("cpu"))
+    card = launch_train.smoke_config("llama3.2-3b", torch.device("cuda"))
+    assert cpu == configs.smoke("llama3.2-3b") and cpu.head_dim == 8
+    assert card.head_dim == 64
+    assert dataclasses.replace(card, head_dim=cpu.head_dim) == cpu
+    mamba = configs.smoke("falcon-mamba-7b")
+    assert launch_train.smoke_config("falcon-mamba-7b",
+                                     torch.device("cuda")) == mamba
+
+
 # -------------------------------------------------------------- checkpoints
 
 def _tree(seed=0):
@@ -176,12 +192,19 @@ def _assert_equal(a, b):
         assert p == q and x.dtype == y.dtype and torch.equal(x, y), p
 
 
+def _zeros(tree, dtype=None):
+    """A template of zeros (restore writes into it in place)."""
+    return map_tree(lambda t: torch.zeros_like(
+        t, dtype=dtype if dtype and t.is_floating_point() else t.dtype),
+        tree)
+
+
 def test_save_restore_roundtrip(tmp_path, monkeypatch):
     """Bit for bit, bf16 included, with ml_dtypes made unimportable."""
     monkeypatch.setitem(sys.modules, "ml_dtypes", None)
     tree = _tree()
     ckpt_io.save(str(tmp_path), 7, tree)
-    step, restored = ckpt_io.restore_latest(str(tmp_path), tree)
+    step, restored = ckpt_io.restore_latest(str(tmp_path), _zeros(tree))
     assert step == 7
     _assert_equal(tree, restored)
     with open(os.path.join(str(tmp_path), "step_00000007",
@@ -201,7 +224,7 @@ def test_corrupt_checkpoint_skipped(tmp_path):
     with open(npz, "r+b") as f:
         f.seek(100)
         f.write(b"\x00" * 64)
-    step, restored = ckpt_io.restore_latest(str(tmp_path), tree)
+    step, restored = ckpt_io.restore_latest(str(tmp_path), _zeros(tree))
     assert step == 1  # fell back to the older valid checkpoint
     _assert_equal(tree, restored)
 
@@ -243,10 +266,37 @@ def test_async_saver(tmp_path):
 def test_restore_keeps_the_template_types_and_refuses_shardings(tmp_path):
     tree = _tree()
     ckpt_io.save(str(tmp_path), 4, tree)
-    template = map_tree(lambda t: t.double() if t.is_floating_point()
-                        else t, tree)
+    template = _zeros(tree, torch.float64)
     _, restored = ckpt_io.restore_latest(str(tmp_path), template)
     assert restored["a"].dtype == torch.float64
     assert torch.equal(restored["a"], tree["a"].double())
     with pytest.raises(NotImplementedError, match="A9"):
         ckpt_io.restore_latest(str(tmp_path), tree, shardings=tree)
+
+
+def test_restore_writes_into_the_template(tmp_path):
+    """One state on the device: the restored leaves are the template's
+    own tensors, overwritten."""
+    tree = _tree()
+    ckpt_io.save(str(tmp_path), 5, tree)
+    template = _zeros(tree)
+    ptrs = [t.data_ptr() for _, t in tree_leaves(template)]
+    step, restored = ckpt_io.restore_latest(str(tmp_path), template)
+    assert step == 5 and restored is template
+    assert [t.data_ptr() for _, t in tree_leaves(restored)] == ptrs
+    _assert_equal(tree, template)
+
+
+def test_restore_skips_checkpoints_that_do_not_fit(tmp_path):
+    """A newer checkpoint whose shapes differ from the template's is
+    skipped before any leaf is written; with none that fits, the
+    template is left as it was."""
+    tree = _tree()
+    ckpt_io.save(str(tmp_path), 1, tree)
+    ckpt_io.save(str(tmp_path), 2, {**tree, "a": torch.ones((4, 9))})
+    step, restored = ckpt_io.restore_latest(str(tmp_path), _zeros(tree))
+    assert step == 1
+    _assert_equal(tree, restored)
+    other = {**_zeros(tree), "a": torch.zeros((3, 8))}
+    assert ckpt_io.restore_latest(str(tmp_path), other) is None
+    _assert_equal(other, {**_zeros(tree), "a": torch.zeros((3, 8))})
