@@ -8,7 +8,8 @@ build/repro_torch/), then runs, each phase failing the script on error:
 
   1. the card's name and power limit (nvidia-smi), the kernel build time
      and ptxas's registers, stack and spill bytes per kernel (no B7
-     instantiation may have a stack or spill), and the card's floor for
+     instantiation and no bf16 B5-bwd kernel may have a stack or spill),
+     and the card's floor for
      one launch (a one-element torch op: events per call, device time);
   2. B1 (noc_arbitrate) against its plain torch version, bitwise, on (rows,
      L) lane rows sampled from a lane-engine run on the card and on seeded
@@ -30,7 +31,8 @@ build/repro_torch/), then runs, each phase failing the script on error:
      phases 2 and 3 take their inputs from sim's own per-epoch builders,
      under a fault stream and a placement stream built here, so that every
      link, router, MC and node-class mask is live;
-  4. engine congruence at the full grid for 6 epochs x 500 cycles through
+  4. engine congruence at the full grid for 6 epochs x 250 cycles (the
+     policy's warmup, hold and revert halved with them) through
      simulate_with_trace: "fused" (B3), "arb" (B1) and "ref" (plain dense
      torch) from one generator seed agree bitwise on counters,
      applied_config, kf_signal, gpu_vc_quota and every SimTrace channel
@@ -56,7 +58,7 @@ build/repro_torch/), then runs, each phase failing the script on error:
      gate scenario under the default scheme, its kf cell within 2e-6 of
      the reference's 0.735548; B2 at batch 60 (the ablation's epoch-0
      inputs) bitwise against its plain version on every LaneState field, 1
-     cycle from the zero state and 1 and 200 cycles from the state 500
+     cycle from the zero state and 1 and 40 cycles from the state 500
      cycles in; the ablation's wall and aggregate simulated cycles/s, B2's
      ms per launch at batch 60 beside batch 1, and the time to draw one
      paper run's streams;
@@ -180,16 +182,19 @@ build/repro_torch/), then runs, each phase failing the script on error:
      one super-block (2 layers, a dense and a MoE one; 37.1 GB): 2 B5
      launches per forward or prefill; [serve-lw] on the whole 2-layer
      model;
-  [B5b] the flash backward kernel (flash_attn_bwd: statistics, dK/dV and
-     dQ, three SIMT kernels in one call) against flash_attention_plain_bwd
+  [B5b] the flash backward kernels (flash_attn_bwd: delta, then dK/dV and
+     dQ, on wgmma fed by TMA in bf16 and SIMT in f32, one call; the
+     log-sum-exp from B5's forward) against flash_attention_plain_bwd
      at llama3.2-3b's shape (S = 48, 512, 2048, and B = 4 at S = 2048),
      h2o-danube's window (S = 6144, window 4096), grok-1's cap (S = 512),
      zamba2's D = 80 and maverick's groups of 5, bf16 and f32: relative L2
      of dq, dk and dv <= 1e-5 (f32) and <= 1e-2 (bf16), two launches
      bitwise equal; timed at the training shape (4, 2048, 24, 128) bf16 on
-     events and device time beside its bound (10 D flops a valid pair at
-     989 TFLOP/s), the plain version and torch's own flash backward
-     (aten._scaled_dot_product_flash_attention_backward, timing only);
+     events and device time (and each of the three kernels' device time)
+     beside its bound (10 D flops a valid pair at 989 TFLOP/s), the plain
+     version and torch's own flash backward
+     (aten._scaled_dot_product_flash_attention_backward, timing only); B5's
+     forward there with lse and without, beside SDPA;
   [train-w] llama3.2-3b at full width cut to 2 layers, B = 1, S = 256, one
      batch of make_dataset: the loss (1e-2 relative) and every gradient
      leaf (relative L2 1e-2, or where a leaf misses, max(1e-2, 1.5 x the
@@ -582,10 +587,12 @@ def ptxas_usage(log: str) -> dict:
               *((f"flash_fwd_{k}kernelILi{d}E", f"B5 {n} D{d}")
                 for d in (64, 80, 128)
                 for k, n in (("sm90_", "bf16"), ("", "f32"))),
-              *((f"bwd_{part}_kernelI{t}Li{d}E", f"B5b {part} {tn} D{d}")
-                for part in ("stats", "dkdv", "dq")
-                for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
-                for d in (64, 80, 128)))
+              *((f"bwd_{part}_kernelIfLi{d}E", f"B5b {part} f32 D{d}")
+                for part in ("dkdv", "dq") for d in (64, 80, 128)),
+              *((f"bwd_{part}_sm90_kernelILi{d}E", f"B5b {part} bf16 D{d}")
+                for part in ("dkdv", "dq") for d in (64, 80, 128)),
+              *((f"bwd_delta_kernelI{t}E", f"B5b delta {tn}")
+                for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))))
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
@@ -701,7 +708,7 @@ ABLATION_BENCH = "noc_ablation"
 ABL_KF_PARTITIONABLE = 0.735548
 ABL_TOL = 2e-6
 # cycles of B2 at batch 60 held against its plain version in [sweep] (d)
-B60_PLAIN_CYCLES = 200
+B60_PLAIN_CYCLES = 40
 
 
 def phase_sweep(dev) -> dict:
@@ -2500,9 +2507,10 @@ def phase_b5b(dev):
             if b > 1 and dtype == torch.float32:
                 continue
             q, k, v, do = (t.to(dtype) for t in base)
-            o = fa_kernel.flash_attn(q, k, v, kv_len=None, **kw)
-            got = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
-            again = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+            o, lse = fa_kernel.flash_attn(q, k, v, kv_len=None,
+                                          with_lse=True, **kw)
+            got = fa_kernel.flash_attn_bwd(q, k, v, o, do, lse, **kw)
+            again = fa_kernel.flash_attn_bwd(q, k, v, o, do, lse, **kw)
             want = fa_ops.flash_attention_plain_bwd(q, k, v, o, do, **kw)
             torch.cuda.synchronize()
             for name, x, y, z in zip(("dq", "dk", "dv"), got, again, want):
@@ -2522,10 +2530,14 @@ def phase_b5b(dev):
                 reps = 5
 
                 def kern():
-                    return fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+                    return fa_kernel.flash_attn_bwd(q, k, v, o, do, lse,
+                                                    **kw)
 
                 ms = cuda_ms(kern, reps)
-                dev_ms = profile_device(kern, 3)[1]
+                _, dev_ms, top_dev, _ = profile_device(kern, 5)
+                # each of the call's three kernels, by name
+                parts = {part: sum(t for n, t in top_dev if f"bwd_{part}" in n)
+                         for part in ("delta", "dkdv", "dq")}
                 plain = cuda_ms(lambda: fa_ops.flash_attention_plain_bwd(
                     q, k, v, o, do, **kw), 2, warmup=1)
                 lib = library_flash_bwd(q, k, v, do)
@@ -2533,11 +2545,17 @@ def phase_b5b(dev):
                 (bm, by), flops = flash_bwd_bound(b, h, kv, s, d, True,
                                                   window, dtype)
                 row = dict(ms=ms, dev_ms=dev_ms, plain=plain, lib=lib_ms,
-                           bm=bm, by=by, tflops=flops / ms / 1e9)
+                           bm=bm, by=by, tflops=flops / ms / 1e9,
+                           parts=parts)
 
                 # B5's forward at the same shape (a training step's
-                # forward and remat recompute), beside SDPA
+                # forward and remat recompute, which ask for lse), beside
+                # the same call without lse (serving's) and SDPA
                 def fwd():
+                    return fa_kernel.flash_attn(q, k, v, kv_len=None,
+                                                with_lse=True, **kw)
+
+                def fwd_no_lse():
                     return fa_kernel.flash_attn(q, k, v, kv_len=None, **kw)
 
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
@@ -2546,15 +2564,17 @@ def phase_b5b(dev):
                                             window, None, dtype)
                 row["fwd"] = dict(
                     ms=cuda_ms(fwd, reps), dev_ms=profile_device(fwd, 3)[1],
+                    no_lse=cuda_ms(fwd_no_lse, reps),
                     sdpa=cuda_ms(lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True), reps),
                     bm=fbm, by=fby)
                 del qt, kt, vt
-            del q, k, v, do, o, got, again, want
+            del q, k, v, do, o, lse, got, again, want
         del base
         torch.cuda.empty_cache()
-    print(f"[B5b] flash_attn_bwd (three SIMT kernels: statistics, dK/dV, "
-          f"dQ) against flash_attention_plain_bwd at {len(cases)} shapes "
+    print(f"[B5b] flash_attn_bwd (delta, then dK/dV and dQ: bf16 on wgmma "
+          f"fed by TMA, f32 SIMT; lse from B5's forward) against "
+          f"flash_attention_plain_bwd at {len(cases)} shapes "
           f"(llama3.2-3b S = 48, 512, 2048 and B = 4 x S = 2048, "
           f"h2o-danube's 4096 window at S = 6144, grok-1's cap at S = 512, "
           f"zamba2's D = 80, maverick's groups of 5): relative L2 worst "
@@ -2564,21 +2584,23 @@ def phase_b5b(dev):
     lib = (f"torch flash backward {row['lib']:.3f} ms "
            f"(kernel/library {row['ms'] / row['lib']:.2f}x)"
            if row["lib"] is not None else "no library time")
+    parts = "; ".join(f"{k} {fmt_ms(v)}" for k, v in row["parts"].items())
     print(f"[B5b] llama3.2-3b training shape B=4 S=2048 H=24 KV=8 D=128 "
-          f"causal bf16: kernel events {row['ms']:.3f} ms per call "
+          f"causal bf16: kernel events {row['ms']:.4f} ms per call "
           f"({row['tflops']:.1f} TFLOP/s at 10 D flops a valid pair), device "
-          f"{fmt_ms(row['dev_ms'])}; bound {row['bm']:.4f} ms ({row['by']}, "
-          f"10 D flops a valid pair at 989 TFLOP/s); plain "
-          f"{row['plain']:.3f} ms; {lib}")
+          f"{fmt_ms(row['dev_ms'])} ({parts}); bound {row['bm']:.4f} ms "
+          f"({row['by']}, 10 D flops a valid pair at 989 TFLOP/s; the "
+          f"kernels do 14 D); plain {row['plain']:.3f} ms; {lib}")
     fw = row["fwd"]
     print(f"[B5b] B5's forward at that shape (each layer's forward and its "
-          f"remat recompute): events {fw['ms']:.4f} ms per call, device "
-          f"{fmt_ms(fw['dev_ms'])}; bound {fw['bm']:.4f} ms ({fw['by']}); "
-          f"SDPA {fw['sdpa']:.4f} ms")
+          f"remat recompute, lse asked for): events {fw['ms']:.4f} ms per "
+          f"call, device {fmt_ms(fw['dev_ms'])}; without lse (serving's "
+          f"call) {fw['no_lse']:.4f} ms; bound {fw['bm']:.4f} ms "
+          f"({fw['by']}); SDPA {fw['sdpa']:.4f} ms")
     sys.stdout.flush()
     return dict(name="flash_attn_bwd", route="cuda",
                 source="src/repro_torch/kernels/flash_attn/csrc/"
-                       "flash_attn_bwd.cu",
+                       "flash_attn_bwd_sm90.cu",
                 replaces="none: the gradient of src/repro/kernels/"
                          "flash_attn/kernel.py:31's function (the JAX "
                          "package differentiates attend_ref, "
@@ -2586,7 +2608,9 @@ def phase_b5b(dev):
                 launches=None, max_abs_err=max_abs, ms=row["ms"],
                 plain_ms=row["plain"], bound_ms=row["bm"],
                 bound_by=row["by"], library_ms=row["lib"],
-                shape="(4, 2048, 24, 128), KV 8, bf16 causal")
+                shape="(4, 2048, 24, 128), KV 8, bf16 causal",
+                device_ms=row["dev_ms"],
+                parts_device_ms=row["parts"])
 
 
 def grad_leaves(params, batch, cfg) -> tuple[float, dict]:
@@ -2991,8 +3015,9 @@ def main() -> int:
     want = ({"B1", "B2", "B3", "B2 clocked", "B4", "B6"}
             | {f"B5 {t} D{d}" for t in ("bf16", "f32")
                for d in fa_kernel.HEAD_DIMS}
-            | {f"B5b {p} {t} D{d}" for p in ("stats", "dkdv", "dq")
+            | {f"B5b {p} {t} D{d}" for p in ("dkdv", "dq")
                for t in ("bf16", "f32") for d in fa_kernel.HEAD_DIMS}
+            | {f"B5b delta {t}" for t in ("bf16", "f32")}
             | {f"B7 {t} S{n}{w}" for t in ("bf16", "f32")
                for n in ms_kernel.FUSED_STATES for w in ("", " narrow")})
     check(set(usage) == want,
@@ -3009,6 +3034,11 @@ def main() -> int:
                 and v["stack"] + v["spill_stores"] + v["spill_loads"]}
     check(not b7_spill, f"a B7 instantiation has a stack or spills: "
                         f"{b7_spill}")
+    b5b_spill = {k: v for k, v in usage.items()
+                 if k.startswith("B5b") and "bf16" in k
+                 and v["stack"] + v["spill_stores"] + v["spill_loads"]}
+    check(not b5b_spill, f"a bf16 B5-bwd kernel has a stack or spills: "
+                         f"{b5b_spill}")
     sys.stdout.flush()
 
     # The kernel checks of phases 2-3 and the live case of phase 4 share one
@@ -3224,13 +3254,21 @@ def main() -> int:
           + "; per launch: " + "; ".join(f"{k} {v}" for k, v in once.items()))
     sys.stdout.flush()
 
-    # ---- phase 4: engine congruence at the full grid, 6 x 500 cycles, with
-    # the flight recorder on
+    stamp("phases 1-3", t_start)
+
+    # ---- phase 4: engine congruence at the full grid, 6 x 250 cycles, with
+    # the flight recorder on.  Epochs of 250 cycles (the policy's times
+    # halved with them) keep the script inside its time limit: the "arb"
+    # and "ref" engines take ~25-30 s each a case at 500.
     b1_launches = None
-    cases = (("kf", sim.NoCConfig(mode="kf", **short), "SHIFT_PATH_BFS"),
-             ("kf+guard+joint+faults+placement", live, "SHIFT_PATH_BFS"),
-             ("4subnet", sim.NoCConfig(mode="4subnet", **short), "STO"),
-             ("fair", sim.NoCConfig(mode="fair", **short), "STO"))
+    quick = dict(n_epochs=6, epoch_len=250,
+                 policy=PolicyConfig(warmup=500, hold=250, revert=750))
+    cases = (("kf", sim.NoCConfig(mode="kf", **quick), "SHIFT_PATH_BFS"),
+             ("kf+guard+joint+faults+placement",
+              dataclasses.replace(live, **quick), "SHIFT_PATH_BFS"),
+             ("4subnet", sim.NoCConfig(mode="4subnet", **quick), "STO"),
+             ("fair", sim.NoCConfig(mode="fair", **quick), "STO"))
+    cycles = quick["n_epochs"] * quick["epoch_len"]
     for label, cfg, wl in cases:
         res, trc, secs = {}, {}, {}
         for engine in ("fused", "arb", "ref"):
@@ -3245,7 +3283,7 @@ def main() -> int:
                       and ops.LAUNCHES["noc_fused_cycles"] == 0,
                       f"traced fused engine launched {ops.LAUNCHES}")
             if engine == "arb":
-                check(ops.LAUNCHES["noc_arbitrate"] == 3000,
+                check(ops.LAUNCHES["noc_arbitrate"] == cycles,
                       f"arb engine launched B1 {ops.LAUNCHES} times")
                 if label == "kf":
                     b1_launches = ops.LAUNCHES["noc_arbitrate"]
@@ -3263,7 +3301,7 @@ def main() -> int:
                   "kf run never changed its applied_config")
         tsum = summarize_trace(trc["fused"])
         print(f"[4] {label}/{wl}: fused == arb == ref bitwise (SimResult "
-              f"and SimTrace) over 6x500 cycles; applied_config "
+              f"and SimTrace) over 6x250 cycles; applied_config "
               f"{conf.tolist()}; trace digest grants "
               f"{tsum['arb_grant_total']}, denies {tsum['arb_deny_total']}, "
               f"rejects {tsum['kf_rejected_total']}, fault epochs "
@@ -3271,6 +3309,8 @@ def main() -> int:
               f"wall s "
               + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
         sys.stdout.flush()
+
+    stamp("phase 4", t_start)
 
     # ---- phase 5: the main path at full width through B2
     b2_launches = None
@@ -3368,6 +3408,7 @@ def main() -> int:
           f"untraced run")
     sys.stdout.flush()
 
+    stamp("phase 5", t_start)
     # ---- the paper sweep: simulate_batch / sweep through B2 at batch > 1
     swp = phase_sweep(dev)
     # ---- the named fault and placement scenarios through sweep

@@ -2,9 +2,9 @@
 
 Each library is compiled from the sources in the checkout into
 ``build/repro_torch/`` (listed in .gitignore) with a content hash of the
-sources and flags in its file name, so a stale library is never loaded
-(extra flags, such as -D values of a kernel's instantiation, go after the
-common ones and into the hash):
+sources, the headers beside them and the flags in its file name, so a
+stale library is never loaded (extra flags, such as -D values of a
+kernel's instantiation, go after the common ones and into the hash):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/lib<name>_<hash>.so <sources>
@@ -47,8 +47,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str, sources: list[Path], flags=()) -> Path:
+    """The hashed library of ``sources``; the hash covers the sources, the
+    headers (``*.cuh``) beside them and the flags."""
     h = hashlib.sha256()
-    for src in sources:
+    dirs = sorted({Path(src).parent for src in sources})
+    headers = [hdr for d in dirs for hdr in sorted(d.glob("*.cuh"))]
+    for src in (*sources, *headers):
         h.update(Path(src).read_bytes())
     h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"

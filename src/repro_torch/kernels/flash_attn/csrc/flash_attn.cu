@@ -30,6 +30,8 @@
 //    q - k < window.  A masked element contributes p = 0, so a row with no
 //    valid key keeps l = 0 and is written as 0, and a skipped tile is exact.
 //  * Ragged Sq and Sk are masked in the kernel; nothing is padded.
+//  * Asked for it (a non-null lse), each row's natural log-sum-exp
+//    m + ln l is written beside O for the backward (flash_attn_bwd.cu).
 //
 // Instantiated for D in {64, 80, 128}.
 #include <cuda_runtime.h>
@@ -46,6 +48,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, Sq) natural-log row statistics, or null
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh;
   int H, KV, Sq, Sk, kv_len, causal, window;
@@ -200,6 +203,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int qp = q0 + tr * 4 + i;
     if (qp >= a.Sq) continue;
+    // the row's log-sum-exp where asked: 0 for a row with no valid key
+    if (a.lse != nullptr && tc == 0)
+      a.lse[((long long)b * a.H + h) * a.Sq + qp] =
+          l[i] > 0.0f ? m[i] + logf(l[i]) : 0.0f;
     const float inv = l[i] == 0.0f ? 1.0f : l[i];  // fully masked rows -> 0
 #pragma unroll
     for (int cc = 0; cc < CW; ++cc)
@@ -226,7 +233,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 
 // The bfloat16 instantiation, in flash_attn_sm90.cu.
 int flash_attn_fwd_sm90(
-    int d, const void* q, const void* k, const void* v, void* o,
+    int d, const void* q, const void* k, const void* v, void* o, float* lse,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int B,
@@ -235,9 +242,12 @@ int flash_attn_fwd_sm90(
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements (batch, seq, head
 // of q, k, v, o); D has a unit stride.  window <= 0: none; cap <= 0: none.
+// lse: null, or f32 (B, H, Sq) that receives each row's natural log-sum-exp
+// of its valid capped, scaled logits (0 for a row with no valid key).
 // Returns 0, a CUDA error, or -1 for bf16 inputs that TMA cannot read.
 extern "C" int flash_attn_fwd(
     int dtype, int d, const void* q, const void* k, const void* v, void* o,
+    float* lse,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
     long long v_sh, long long o_sb, long long o_ss, long long o_sh, int B,
@@ -247,12 +257,12 @@ extern "C" int flash_attn_fwd(
       H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1)
-    return flash_attn_fwd_sm90(d, q, k, v, o, q_sb, q_ss, q_sh, k_sb, k_ss,
+    return flash_attn_fwd_sm90(d, q, k, v, o, lse, q_sb, q_ss, q_sh, k_sb, k_ss,
                                k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, B, H,
                                KV, Sq, Sk, kv_len, causal, window, cap,
                                stream);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  const Args a{q,    k,    v,    o,    q_sb, q_ss, q_sh,   k_sb,
+  const Args a{q,    k,    v,    o,    lse,  q_sb, q_ss, q_sh,   k_sb,
                k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss,   o_sh,
                H,    KV,   Sq,   Sk,   kv_len, causal, window, cap};
   switch (d) {

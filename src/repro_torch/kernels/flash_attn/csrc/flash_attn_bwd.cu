@@ -1,60 +1,59 @@
 // B5-bwd: the gradient of B5's function — dQ, dK and dV of causal /
 // sliding-window / GQA / logit-capped attention, from q, k, v, the forward
-// output O and its gradient dO.
+// output O, its row log-sum-exp and the output's gradient dO.
 //
 // Replaces no TPU kernel.  The JAX package trains with use_kernel=False and
 // differentiates its plain attention (models/attention.py::attend_ref)
 // with XLA's autodiff; the port routes every attention layer through B5
 // (flash_attn.cu / flash_attn_sm90.cu), so that B5's forward needs an
-// autograd.Function and its backward a kernel.  This is that kernel.
+// autograd.Function and its backward a kernel.
 //
-// Three kernels, launched back to back on the caller's stream by one call
-// of the entry point (LAUNCHES["flash_attn_bwd"] counts the call):
+// This file holds the library's entry point, the delta kernel of both types
+// and B5-bwd's float32 kernels; every bfloat16 call (the training path's)
+// goes to flash_attn_bwd_sm90.cu (wgmma fed by TMA).  One call of the
+// entry point (LAUNCHES["flash_attn_bwd"] counts it) launches, back to back
+// on the caller's stream:
 //
-//  1. stats: per query row, the log-sum-exp of its valid capped, scaled
-//     logits (an online max and sum over the key tiles, as B5's forward
-//     does) and delta = sum_d dO * O, both f32, into scratch (B, H, Sq).
-//     B5's forward outputs are not touched: the statistics are recomputed
-//     here rather than taken from it.
-//  2. dkdv: one block per (64-key tile, KV head, batch row) walks every
-//     query head of the KV head's group and every query tile that can see
-//     the key tile, recomputes P = exp(y - lse) and dS = P (dP - delta)
-//     (times the cap's derivative 1 - tanh^2(x / cap) where there is a
-//     cap), and accumulates dV += P^T dO and dK += dS^T Q in registers;
+//  1. delta: per query row, delta = sum_d dO * O (f32, one warp a row) into
+//     scratch (B, H, Sq).  The log-sum-exp is not recomputed: B5's forward
+//     wrote it (a non-null lse) from the row statistics it held.
+//  2. dkdv (f32): one block per (64-key tile, KV head, batch row) walks
+//     every query head of the KV head's group and every query tile that can
+//     see the key tile, recomputes P = exp(y - lse) and dS = P (dP -
+//     delta) (times the cap's derivative 1 - tanh^2(x / cap) where there is
+//     a cap), and accumulates dV += P^T dO and dK += dS^T Q in registers;
 //     it writes dK / sqrt(D) and dV once.
-//  3. dq: one block per (64-query tile, query head, batch row) walks the
-//     key tiles the tile can see and accumulates dQ += dS K; it writes
+//  3. dq (f32): one block per (64-query tile, query head, batch row) walks
+//     the key tiles the tile can see and accumulates dQ += dS K; it writes
 //     dQ / sqrt(D) once.
 //
 // Every sum has one fixed order and every output element one writer: no
-// atomics, so two launches on the same inputs give the same bits.  All
-// products and sums are f32 on the FMA units; bf16 inputs are widened as
-// they are staged in shared memory and the outputs rounded once.
+// atomics, so two launches on the same inputs give the same bits.
 //
-// Bound on an H100: operations.  The gradient needs 10 * D flops per valid
-// (q, k) pair (QK^T, dO V^T, P^T dO, dS^T Q and dS K; the library's flash
-// backward recomputes QK^T too), which at the llama3.2-3b shape (24 / 8
-// heads, D = 128, causal, S = 2048) is far above the bytes q, k, v, O, dO
-// and the three gradients take.  This simple SIMT design does 16 * D flops
-// per pair (QK^T thrice, dO V^T twice) at the f32 rate (67 TFLOP/s), a
-// long way from the bf16 tensor-core bound (989 TFLOP/s); a wgmma design
-// is later work (ROADMAP queue B).  Tiles of 64 x 64; 256 threads a block
-// each own 4 rows x 4 columns of the score tile and 4 rows x D/16 columns
-// of the accumulators; rows in shared memory are padded to D + 1 floats so
-// the column walks hit distinct banks.  KV tiles (or query tiles) that no
-// pair of the block can use are skipped; the tiles that run apply the
-// element mask q < Sq, k < Sk, q >= k (causal), q - k < window.
+// Bound on an H100: operations, 10 * D flops per valid (q, k) pair (QK^T,
+// dO V^T, P^T dO, dS^T Q and dS K) at the f32 rate (67 TFLOP/s) for this
+// instantiation; TF32 wgmma would not keep the 1e-5 agreement with the
+// plain version, so f32 stays on the FMA units, as B5's f32 forward does.
+// It serves the tests' tight checks; training runs bf16.  This SIMT design
+// does 14 * D flops per pair (QK^T and dO V^T in both kernels).  Tiles of
+// 64 x 64; 256 threads a block each own 4 rows x 4 columns of the score
+// tile and 4 rows x D/16 columns of the accumulators; rows in shared memory
+// are padded to D + 1 floats so the column walks hit distinct banks.  KV
+// tiles (or query tiles) that no pair of the block can use are skipped;
+// the tiles that run apply the element mask q < Sq, k < Sk, q >= k
+// (causal), q - k < window.
 //
-// Instantiated for D in {64, 80, 128}, float32 and bfloat16.
+// Instantiated for D in {64, 80, 128}; the delta kernel for float32 and
+// bfloat16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int BT = 64;           // rows of a query or key tile
-constexpr int NT_STATS = 128;    // stats: 16 row groups x 8 lanes
+constexpr int NT_DELTA = 256;    // delta: one warp a row
 constexpr int NT = 256;          // dkdv, dq: 16 row groups x 16 lanes
-constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Args {
   const void* q;
@@ -65,8 +64,8 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  float* lse;
-  float* delta;
+  const float* lse;
+  const float* delta;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
   long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
@@ -74,14 +73,20 @@ struct Args {
   float cap;
 };
 
+struct DeltaArgs {
+  const void* o;
+  const void* dO;
+  const float* lse;
+  float* out;
+  long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
+  int B, H, Sq, D, tiled;
+};
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even
-}
 
 // Stage rows [s0, s0 + BT) of one head (row stride rs) into dst with row
 // pitch D + 1, widened to f32; rows at or past lim are zero.
@@ -124,109 +129,42 @@ __device__ __forceinline__ float capped(const Args& a, float s, float scale,
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT_STATS) bwd_stats_kernel(Args a) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem[];
-  float* Qs = smem;           // BT x LD
-  float* Ks = Qs + BT * LD;   // BT x LD
-
-  const int tid = threadIdx.x;
-  const int tr = tid >> 3;    // rows tr*4 .. tr*4+3
-  const int tc = tid & 7;     // key columns tc + 8*j
-  const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (a.H / a.KV);
-  const T* qg = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* og = static_cast<const T*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const T* dog = static_cast<const T*>(a.dO) + b * a.do_sb + h * a.do_sh;
-  const long long row0 = ((long long)b * a.H + h) * a.Sq;
-
-  // delta = sum_d dO * O of each row: 8 lanes a row, then xor shuffles
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + tr * 4 + i;
-    float acc = 0.0f;
-    if (qp < a.Sq)
-      for (int d = tc; d < D; d += 8)
-        acc = fmaf(to_f(og[qp * a.o_ss + d]), to_f(dog[qp * a.do_ss + d]),
-                   acc);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-    if (tc == 0 && qp < a.Sq) a.delta[row0 + qp] = acc;
-  }
-
-  load_tile<T, D, NT_STATS>(Qs, qg, a.q_ss, q0, a.Sq);
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;
-  }
-  int kt_begin, kt_end;
-  key_tiles(a, q0, kt_begin, kt_end);
-  const float scale = sqrtf((float)D);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // Q staged; the previous tile is done with Ks
-    load_tile<T, D, NT_STATS>(Ks, kg, a.k_ss, k0, a.Sk);
-    __syncthreads();
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(tr * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(tc + 8 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + tr * 4 + i;
-      unsigned valid = 0;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float dcap;
-        const float x = capped(a, s[i][j], scale, dcap);
-        const bool ok = valid_pair(a, qp, k0 + tc + 8 * j);
-        valid |= (unsigned)ok << j;
-        s[i][j] = ok ? x : NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        sum += (valid >> j) & 1u ? expf(s[i][j] - m_new) : 0.0f;
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-      l[i] = l[i] * expf(m[i] - m_new) + sum;
-      m[i] = m_new;
-    }
+// delta = sum_d dO * O of each row (b, h, q): one warp a row, lanes over
+// D, then xor shuffles (one fixed order).  Plain: into out[(b H + h) Sq +
+// q].  Tiled (the bf16 kernels' layout): per (b, h) and 64-row query tile
+// one block of 128 floats, the tile's lse in log2 units and then its delta,
+// 0 for rows past Sq, so that one copy stages both for a tile.
+template <typename T>
+__global__ void __launch_bounds__(NT_DELTA) bwd_delta_kernel(DeltaArgs a) {
+  const int rows = a.tiled ? (a.Sq + BT - 1) / BT * BT : a.Sq;  // a head
+  const long long row = (long long)blockIdx.x * (NT_DELTA / 32) +
+                        (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)a.B * a.H * rows) return;
+  const int qp = (int)(row % rows);
+  const long long bh = row / rows;
+  const int h = (int)(bh % a.H);
+  const int b = (int)(bh / a.H);
+  float acc = 0.0f;
+  if (qp < a.Sq) {
+    const T* og = static_cast<const T*>(a.o) + b * a.o_sb + h * a.o_sh +
+                  qp * a.o_ss;
+    const T* dog = static_cast<const T*>(a.dO) + b * a.do_sb +
+                   h * a.do_sh + qp * a.do_ss;
+    for (int d = lane; d < a.D; d += 32)
+      acc = fmaf(to_f(og[d]), to_f(dog[d]), acc);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + tr * 4 + i;
-    // a row with no valid key gets 0: every one of its p is masked anyway
-    if (tc == 0 && qp < a.Sq)
-      a.lse[row0 + qp] = l[i] > 0.0f ? m[i] + logf(l[i]) : 0.0f;
+  for (int m = 16; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (lane != 0) return;
+  if (!a.tiled) {
+    a.out[row] = acc;
+    return;
   }
+  float* tile = a.out + (bh * (rows / BT) + qp / BT) * 2 * BT + qp % BT;
+  tile[0] = qp < a.Sq ? a.lse[bh * a.Sq + qp] * LOG2E : 0.0f;
+  tile[BT] = acc;
 }
 
 template <typename T, int D>
@@ -480,10 +418,6 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
 }
 
 template <int D>
-constexpr int stats_smem() {
-  return 2 * BT * (D + 1) * (int)sizeof(float);
-}
-template <int D>
 constexpr int dkdv_smem() {
   return (4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT) * (int)sizeof(float);
 }
@@ -496,11 +430,7 @@ template <typename T, int D>
 int launch(const Args& a, int B, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bwd_stats_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        stats_smem<D>());
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(bwd_dkdv_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(bwd_dkdv_kernel<T, D>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                dkdv_smem<D>());
     if (e == cudaSuccess)
@@ -512,38 +442,43 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   }
   const int q_tiles = (a.Sq + BT - 1) / BT;
   const int k_tiles = (a.Sk + BT - 1) / BT;
-  bwd_stats_kernel<T, D><<<dim3(q_tiles, a.H, B), NT_STATS, stats_smem<D>(),
-                           stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
   bwd_dkdv_kernel<T, D><<<dim3(k_tiles, a.KV, B), NT, dkdv_smem<D>(),
                           stream>>>(a);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   bwd_dq_kernel<T, D><<<dim3(q_tiles, a.H, B), NT, dq_smem<D>(), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int d, const Args& a, int B, cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch<T, 64>(a, B, stream);
-    case 80: return launch<T, 80>(a, B, stream);
-    case 128: return launch<T, 128>(a, B, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16 (q, k, v, o, dO and the three outputs all
-// of it).  Strides are in elements (batch, seq, head of q, k, v, o, dO,
-// dq, dk, dv); D has a unit stride.  lse and delta: f32 scratch of B*H*Sq
-// elements each.  window <= 0: none; cap <= 0: none.  Returns 0 or a CUDA
-// error.
-extern "C" int flash_attn_bwd(
-    int dtype, int d, const void* q, const void* k, const void* v,
-    const void* o, const void* dO, void* dq, void* dk, void* dv, float* lse,
+// delta = sum_d dO * O of each row for either type (dtype 0 float32, 1
+// bfloat16): plain, f32 (B, H, Sq); tiled, lse in log2 units and delta per
+// 64-row query tile, f32 (B, H, ceil(Sq / 64), 2, 64) (bwd_delta_kernel).
+// Also called by flash_attn_bwd_sm90.cu.
+int flash_attn_bwd_delta(int dtype, int d, const void* o, const void* dO,
+                         const float* lse, float* out, long long o_sb,
+                         long long o_ss, long long o_sh, long long do_sb,
+                         long long do_ss, long long do_sh, int B, int H,
+                         int Sq, int tiled, cudaStream_t stream) {
+  const DeltaArgs a{o,     dO,    lse, out, o_sb, o_ss, o_sh, do_sb,
+                    do_ss, do_sh, B,   H,   Sq,   d,    tiled};
+  const long long rows =
+      (long long)B * H * (tiled ? (Sq + BT - 1) / BT * BT : Sq);
+  const long long blocks = (rows + NT_DELTA / 32 - 1) / (NT_DELTA / 32);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    bwd_delta_kernel<float><<<(unsigned)blocks, NT_DELTA, 0, stream>>>(a);
+  else
+    bwd_delta_kernel<__nv_bfloat16><<<(unsigned)blocks, NT_DELTA, 0,
+                                      stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 instantiation, in flash_attn_bwd_sm90.cu.
+int flash_attn_bwd_sm90(
+    int d, const void* q, const void* k, const void* v, const void* o,
+    const void* dO, void* dq, void* dk, void* dv, const float* lse,
     float* delta, long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
@@ -551,17 +486,51 @@ extern "C" int flash_attn_bwd(
     long long dq_sb, long long dq_ss, long long dq_sh, long long dk_sb,
     long long dk_ss, long long dk_sh, long long dv_sb, long long dv_ss,
     long long dv_sh, int B, int H, int KV, int Sq, int Sk, int causal,
-    int window, float cap, cudaStream_t stream) {
+    int window, float cap, cudaStream_t stream);
+
+// dtype: 0 float32, 1 bfloat16 (q, k, v, o, dO and the three outputs all
+// of it).  Strides are in elements (batch, seq, head of q, k, v, o, dO,
+// dq, dk, dv); D has a unit stride.  lse: f32 (B, H, Sq), each row's
+// natural log-sum-exp as B5's forward writes it; delta: f32 scratch of
+// B*H*ceil(Sq/64)*128 elements.  window <= 0: none; cap <= 0: none.
+// Returns 0, a CUDA error, or -1 for bf16 inputs that TMA cannot read
+// (before any launch).
+extern "C" int flash_attn_bwd(
+    int dtype, int d, const void* q, const void* k, const void* v,
+    const void* o, const void* dO, void* dq, void* dk, void* dv,
+    const float* lse, float* delta, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, long long do_sb, long long do_ss,
+    long long do_sh, long long dq_sb, long long dq_ss, long long dq_sh,
+    long long dk_sb, long long dk_ss, long long dk_sh, long long dv_sb,
+    long long dv_ss, long long dv_sh, int B, int H, int KV, int Sq, int Sk,
+    int causal, int window, float cap, cudaStream_t stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk <= 0 ||
       H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1)
+    return flash_attn_bwd_sm90(
+        d, q, k, v, o, dO, dq, dk, dv, lse, delta, q_sb, q_ss, q_sh, k_sb,
+        k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, do_sb, do_ss, do_sh,
+        dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh, B, H,
+        KV, Sq, Sk, causal, window, cap, stream);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (d != 64 && d != 80 && d != 128) return (int)cudaErrorInvalidValue;
+  const int rc = flash_attn_bwd_delta(0, d, o, dO, lse, delta, o_sb, o_ss,
+                                      o_sh, do_sb, do_ss, do_sh, B, H, Sq, 0,
+                                      stream);
+  if (rc != 0) return rc;
   const Args a{q,     k,     v,     o,     dO,    dq,    dk,    dv,
                lse,   delta, q_sb,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,
                v_sb,  v_ss,  v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss,
                do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb,
                dv_ss, dv_sh, H,     KV,    Sq,    Sk,    causal, window,
                cap};
-  if (dtype == 0) return dispatch<float>(d, a, B, stream);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(d, a, B, stream);
-  return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return launch<float, 64>(a, B, stream);
+    case 80: return launch<float, 80>(a, B, stream);
+    case 128: return launch<float, 128>(a, B, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -17,17 +17,20 @@ tensor launches a kernel or raises.  Inputs that are not tensors go to ``device`
 defaults to the CUDA device.
 
 Gradients: on CUDA tensors the call goes through `FlashAttention`, an
-autograd.Function whose backward launches B5-bwd (csrc/flash_attn_bwd.cu,
-`kernel.flash_attn_bwd`), so q, k and v get their gradients through the
-kernels (a ``kv_len`` raises in the backward: training never passes
-one).  On CPU tensors autograd differentiates `flash_attention_plain`
-itself.  `flash_attention_plain_bwd` writes the same gradient out in
-PyTorch, for the tests and the card's comparison; no main path calls it.
+autograd.Function whose forward asks B5 for the rows' log-sum-exp too and
+saves it, and whose backward launches B5-bwd (`kernel.flash_attn_bwd`:
+bf16 csrc/flash_attn_bwd_sm90.cu, f32 csrc/flash_attn_bwd.cu) on it, so
+q, k and v get their gradients through the kernels (a ``kv_len`` raises
+in the backward: training never passes one).  On CPU tensors autograd
+differentiates `flash_attention_plain` itself.
+`flash_attention_plain_bwd` writes the same gradient out in PyTorch, for
+the tests and the card's comparison; no main path calls it.
 
 `LAUNCHES["flash_attn"]` counts B5 launches and
-`LAUNCHES["flash_attn_bwd"]` calls of B5-bwd (three kernels a call); the
-launchers in kernel.py add one after each launch that succeeded and
-nowhere else (an empty output launches nothing and counts nothing).
+`LAUNCHES["flash_attn_bwd"]` calls of B5-bwd (three kernels a call:
+delta, dK/dV, dQ); the launchers in kernel.py add one after each launch
+that succeeded and nowhere else (an empty output launches nothing and
+counts nothing).
 """
 from __future__ import annotations
 
@@ -48,12 +51,19 @@ def flash_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, window: int | None = None,
     logit_cap: float | None = None, kv_len: int | None = None,
-) -> torch.Tensor:
-    """The kernel's function in dense form, in the model layout."""
-    out = attention_ref(
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in dense form, in the model layout; with
+    ``return_lse``, (out, lse) with lse f32 (B, H, Sq), each row's natural
+    log-sum-exp of its valid capped, scaled logits (0 for a row with none),
+    the kernel's ``with_lse`` output."""
+    res = attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, logit_cap=logit_cap, kv_len=kv_len)
-    return out.transpose(1, 2)
+        causal=causal, window=window, logit_cap=logit_cap, kv_len=kv_len,
+        return_lse=return_lse)
+    if return_lse:
+        return res[0].transpose(1, 2), res[1]
+    return res.transpose(1, 2)
 
 
 def flash_attention_plain_bwd(
@@ -111,9 +121,10 @@ class FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, logit_cap, kv_len):
         from repro_torch.kernels.flash_attn import kernel
 
-        o = kernel.flash_attn(q, k, v, causal=causal, window=window,
-                              logit_cap=logit_cap, kv_len=kv_len)
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = kernel.flash_attn(q, k, v, causal=causal, window=window,
+                                   logit_cap=logit_cap, kv_len=kv_len,
+                                   with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = dict(causal=causal, window=window, logit_cap=logit_cap)
         ctx.kv_len = kv_len
         return o
@@ -126,8 +137,8 @@ class FlashAttention(torch.autograd.Function):
                 "passes one)")
         from repro_torch.kernels.flash_attn import kernel
 
-        q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = kernel.flash_attn_bwd(q, k, v, o, do.contiguous(),
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = kernel.flash_attn_bwd(q, k, v, o, do.contiguous(), lse,
                                            **ctx.kw)
         return dq, dk, dv, None, None, None, None
 

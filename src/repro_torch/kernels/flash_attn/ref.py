@@ -1,6 +1,8 @@
 """Plain torch oracle for the flash attention kernel ((B, H, S, D) layout):
 dense scores with K/V repeated per query head in f32, the masks, softmax,
-and fully masked rows zeroed, as the kernel does."""
+and fully masked rows zeroed, as the kernel does; on request also each
+row's natural log-sum-exp of its valid logits (0 for a row with none), as
+the kernel writes it for the backward."""
 from __future__ import annotations
 
 import torch
@@ -17,7 +19,8 @@ def attention_ref(
     window: int | None = None,
     logit_cap: float | None = None,
     kv_len: int | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     rep = h // kvh
@@ -39,4 +42,8 @@ def attention_ref(
     # fully-masked rows give uniform p; zero them like the kernel does
     any_valid = mask.any(dim=-1)                              # (Sq,)
     p = torch.where(any_valid[None, None, :, None], p, 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vr).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(any_valid, torch.logsumexp(s, dim=-1), 0.0)
+    return out, lse

@@ -528,6 +528,12 @@ BWD_CASES = [
     (1, 100, 8, 2, 128, False, None, None),
     (1, 517, 40, 8, 128, True, None, None),
     (1, 517, 32, 32, 80, True, None, None),
+    # the bf16 kernels' tiles (128 keys x 64 queries, 128 queries x 64
+    # keys) at each width with a window and the cap, groups of 1, 3 and 5,
+    # Sq off the tiles
+    (1, 333, 15, 5, 64, True, 100, 20.0),
+    (2, 190, 10, 2, 80, True, 48, 30.0),
+    (1, 250, 8, 8, 128, True, 70, 30.0),
 ]
 
 
@@ -541,11 +547,12 @@ def _rel_l2(a, b):
 @pytest.mark.parametrize("b,s,h,kv,d,causal,window,cap", BWD_CASES)
 def test_flash_bwd_kernel_matches_plain(dtype, b, s, h, kv, d, causal,
                                         window, cap):
-    """B5-bwd against `flash_attention_plain_bwd` on the same inputs (o is
-    B5's own output): relative L2 of dq, dk and dv <= 1e-5 in f32 (f32
-    sums in another order; TF32 off) and <= 1e-2 in bf16 (both compute in
-    f32 from the same bf16 inputs and round the gradients to bf16 once).
-    Two launches give the same bits (no atomics)."""
+    """B5-bwd against `flash_attention_plain_bwd` on the same inputs (o and
+    lse are B5's own outputs): relative L2 of dq, dk and dv <= 1e-5 in f32
+    (f32 sums in another order; TF32 off) and <= 1e-2 in bf16 (the wgmma
+    kernels round P and dS to bf16 for their products where the plain
+    version keeps f32, and both round the gradients to bf16 once).  Two
+    launches give the same bits (no atomics)."""
     _need_cuda()
     from repro_torch.kernels.flash_attn import kernel as fa_kernel
     from repro_torch.kernels.flash_attn import ops as fa_ops
@@ -556,10 +563,10 @@ def test_flash_bwd_kernel_matches_plain(dtype, b, s, h, kv, d, causal,
     v = torch.randn((b, s, kv, d), generator=g, device="cuda").to(dtype)
     do = torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype)
     kw = dict(causal=causal, window=window, logit_cap=cap)
-    o = fa_kernel.flash_attn(q, k, v, kv_len=None, **kw)
+    o, lse = fa_kernel.flash_attn(q, k, v, kv_len=None, with_lse=True, **kw)
     before = fa_ops.LAUNCHES["flash_attn_bwd"]
-    got = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
-    again = fa_kernel.flash_attn_bwd(q, k, v, o, do, **kw)
+    got = fa_kernel.flash_attn_bwd(q, k, v, o, do, lse, **kw)
+    again = fa_kernel.flash_attn_bwd(q, k, v, o, do, lse, **kw)
     assert fa_ops.LAUNCHES["flash_attn_bwd"] == before + 2
     want = fa_ops.flash_attention_plain_bwd(q, k, v, o, do, **kw)
     bound = 1e-5 if dtype == torch.float32 else 1e-2
@@ -567,6 +574,62 @@ def test_flash_bwd_kernel_matches_plain(dtype, b, s, h, kv, d, causal,
         assert x.dtype == dtype and x.shape == z.shape, name
         assert torch.equal(x, y), f"{name} differs between two launches"
         assert _rel_l2(x, z) <= bound, (name, _rel_l2(x, z))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,d,window,cap,kv_len", [
+    (2, 48, 6, 2, 64, None, None, None),
+    (1, 300, 24, 8, 128, None, 30.0, None),
+    (1, 517, 32, 8, 80, 64, None, None),
+    (1, 200, 8, 2, 128, 8, None, 20),     # rows 27.. see no key: lse 0
+])
+def test_flash_kernel_lse_matches_plain_and_keeps_o(dtype, b, s, h, kv, d,
+                                                   window, cap, kv_len):
+    """B5 asked for the rows' log-sum-exp: lse within 1e-5 of the plain
+    version's (abs, plus 1e-5 rel: the kernel's online max and sum, ex2 /
+    expf), 0 on rows with no valid key, and O bitwise the O of a launch
+    that writes no lse."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d)))
+    kw = dict(causal=True, window=window, logit_cap=cap, kv_len=kv_len)
+    plain_o = fa_kernel.flash_attn(q, k, v, **kw)
+    o, lse = fa_kernel.flash_attn(q, k, v, with_lse=True, **kw)
+    _, want = fa_ops.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    assert torch.equal(o, plain_o)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-5)
+    if kv_len is not None:
+        dead = torch.arange(s, device="cuda") - window + 1 >= kv_len
+        assert bool(dead.any()) and not bool(lse[..., dead].any())
+
+
+@pytest.mark.cuda
+def test_flash_bwd_rejects_what_it_cannot_take():
+    """bf16 dO whose strides TMA cannot read, and an lse of the wrong shape
+    or type, raise before any launch."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    q = torch.randn((1, 64, 4, 64), device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, 64, 2, 64), device="cuda").to(torch.bfloat16)
+    kw = dict(causal=True, window=None, logit_cap=None)
+    o, lse = fa_kernel.flash_attn(q, k, k, kv_len=None, with_lse=True, **kw)
+    do = torch.randn((1, 64, 4, 68), device="cuda").to(torch.bfloat16)
+    before = fa_ops.LAUNCHES["flash_attn_bwd"]
+    with pytest.raises(ValueError, match="not TMA-aligned"):
+        fa_kernel.flash_attn_bwd(q, k, k, o, do[..., :64], lse, **kw)
+    with pytest.raises(ValueError, match="lse"):
+        fa_kernel.flash_attn_bwd(q, k, k, o, o, lse[:, :2], **kw)
+    with pytest.raises(ValueError, match="lse"):
+        fa_kernel.flash_attn_bwd(q, k, k, o, o, lse.double(), **kw)
+    assert fa_ops.LAUNCHES["flash_attn_bwd"] == before
 
 
 @pytest.mark.cuda
@@ -589,9 +652,12 @@ def test_flash_attention_gradients_reach_qkv_on_card():
     do = torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
     o.backward(do)
     assert fa_ops.LAUNCHES == {"flash_attn": 1, "flash_attn_bwd": 1}
+    _, lse = fa_kernel.flash_attn(q.detach(), k.detach(), v.detach(),
+                                  causal=True, window=None, logit_cap=None,
+                                  kv_len=None, with_lse=True)
     want = fa_kernel.flash_attn_bwd(q.detach(), k.detach(), v.detach(),
-                                    o.detach(), do, causal=True, window=None,
-                                    logit_cap=None)
+                                    o.detach(), do, lse, causal=True,
+                                    window=None, logit_cap=None)
     for t, w in zip((q, k, v), want):
         assert t.grad is not None and torch.equal(t.grad, w)
     o = fa_ops.flash_attention(q, k, v, causal=True, kv_len=100)
