@@ -14,12 +14,14 @@
 // entry point (LAUNCHES["flash_attn_bwd"] counts it) launches, back to back
 // on the caller's stream:
 //
-//  1. delta: per query row, delta = sum_d dO * O (f32, one warp a row) into
-//     scratch (B, H, Sq).  The log-sum-exp is not recomputed: B5's forward
-//     wrote it (a non-null lse) from the row statistics it held.
+//  1. delta: per query row, delta = sum_d dO * O (f32, one warp a row),
+//     written with the row's log-sum-exp in log2 units into a scratch laid
+//     out per 64-row query tile, the layout of both types' kernels.  The
+//     log-sum-exp is not recomputed: B5's forward wrote it (a non-null lse)
+//     from the row statistics it held.
 //  2. dkdv (f32): one block per (64-key tile, KV head, batch row) walks
 //     every query head of the KV head's group and every query tile that can
-//     see the key tile, recomputes P = exp(y - lse) and dS = P (dP -
+//     see the key tile, recomputes P = 2^(y log2 e - lse2) and dS = P (dP -
 //     delta) (times the cap's derivative 1 - tanh^2(x / cap) where there is
 //     a cap), and accumulates dV += P^T dO and dK += dS^T Q in registers;
 //     it writes dK / sqrt(D) and dV once.
@@ -64,8 +66,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
-  const float* lse;
-  const float* delta;
+  const float* stats;  // bwd_delta_kernel's tiles: lse2, then delta
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
   long long dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss, dv_sh;
@@ -79,7 +80,7 @@ struct DeltaArgs {
   const float* lse;
   float* out;
   long long o_sb, o_ss, o_sh, do_sb, do_ss, do_sh;
-  int B, H, Sq, D, tiled;
+  int B, H, Sq, D;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -130,13 +131,13 @@ __device__ __forceinline__ float capped(const Args& a, float s, float scale,
 }
 
 // delta = sum_d dO * O of each row (b, h, q): one warp a row, lanes over
-// D, then xor shuffles (one fixed order).  Plain: into out[(b H + h) Sq +
-// q].  Tiled (the bf16 kernels' layout): per (b, h) and 64-row query tile
-// one block of 128 floats, the tile's lse in log2 units and then its delta,
-// 0 for rows past Sq, so that one copy stages both for a tile.
+// D, then xor shuffles (one fixed order).  Out: per (b, h) and 64-row query
+// tile one block of 128 floats, the tile's lse in log2 units and then its
+// delta, 0 for rows past Sq, so that one copy (or one read) stages both
+// for a tile.
 template <typename T>
 __global__ void __launch_bounds__(NT_DELTA) bwd_delta_kernel(DeltaArgs a) {
-  const int rows = a.tiled ? (a.Sq + BT - 1) / BT * BT : a.Sq;  // a head
+  const int rows = (a.Sq + BT - 1) / BT * BT;  // a head, padded to tiles
   const long long row = (long long)blockIdx.x * (NT_DELTA / 32) +
                         (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -158,10 +159,6 @@ __global__ void __launch_bounds__(NT_DELTA) bwd_delta_kernel(DeltaArgs a) {
   for (int m = 16; m > 0; m >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, m);
   if (lane != 0) return;
-  if (!a.tiled) {
-    a.out[row] = acc;
-    return;
-  }
   float* tile = a.out + (bh * (rows / BT) + qp / BT) * 2 * BT + qp % BT;
   tile[0] = qp < a.Sq ? a.lse[bh * a.Sq + qp] * LOG2E : 0.0f;
   tile[BT] = acc;
@@ -179,7 +176,7 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Args a) {
   float* dOs = Qs + BT * LD;     // BT x LD
   float* Ps = dOs + BT * LD;     // BT x LP: P^T (key row, query column)
   float* dSs = Ps + BT * LP;     // BT x LP: dS^T
-  float* lse_s = dSs + BT * LP;  // BT
+  float* lse_s = dSs + BT * LP;  // BT, in log2 units
   float* del_s = lse_s + BT;     // BT
 
   const int tid = threadIdx.x;
@@ -203,7 +200,8 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Args a) {
   // the query tiles that can see some key of this tile
   const int k_last = min(k0 + BT, a.Sk) - 1;
   const int qt_begin = a.causal ? k0 / BT : 0;
-  int qt_end = (a.Sq + BT - 1) / BT;
+  const int q_tiles = (a.Sq + BT - 1) / BT;
+  int qt_end = q_tiles;
   if (a.window > 0) qt_end = min(qt_end, (k_last + a.window - 1) / BT + 1);
   const float scale = sqrtf((float)D);
 
@@ -211,17 +209,13 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Args a) {
     const int h = kvh * rep + r;
     const T* qg = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
     const T* dog = static_cast<const T*>(a.dO) + b * a.do_sb + h * a.do_sh;
-    const long long row0 = ((long long)b * a.H + h) * a.Sq;
+    const float* st = a.stats + ((long long)b * a.H + h) * q_tiles * 2 * BT;
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * BT;
       __syncthreads();  // K, V staged; the previous tile's sums are done
       load_tile<T, D, NT>(Qs, qg, a.q_ss, q0, a.Sq);
       load_tile<T, D, NT>(dOs, dog, a.do_ss, q0, a.Sq);
-      if (tid < BT) {
-        const int qp = q0 + tid;
-        lse_s[tid] = qp < a.Sq ? a.lse[row0 + qp] : 0.0f;
-        del_s[tid] = qp < a.Sq ? a.delta[row0 + qp] : 0.0f;
-      }
+      if (tid < 2 * BT) lse_s[tid] = st[qt * 2 * BT + tid];  // and del_s
       __syncthreads();
 
       float s[4][4], dp[4][4];
@@ -259,7 +253,7 @@ __global__ void __launch_bounds__(NT) bwd_dkdv_kernel(Args a) {
           if (valid_pair(a, q0 + qc, k0 + kr)) {
             float dcap;
             const float y = capped(a, s[i][j], scale, dcap);
-            p = expf(y - lse_s[qc]);
+            p = exp2f(fmaf(y, LOG2E, -lse_s[qc]));
             ds = p * (dp[i][j] - del_s[qc]) * dcap;
           }
           Ps[kr * LP + qc] = p;
@@ -313,7 +307,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
   float* Ks = dOs + BT * LD;     // BT x LD, the current key tile
   float* Vs = Ks + BT * LD;      // BT x LD
   float* dSs = Vs + BT * LD;     // BT x LP: dS (query row, key column)
-  float* lse_s = dSs + BT * LP;  // BT
+  float* lse_s = dSs + BT * LP;  // BT, in log2 units
   float* del_s = lse_s + BT;     // BT
 
   const int tid = threadIdx.x;
@@ -327,14 +321,11 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
   const T* dog = static_cast<const T*>(a.dO) + b * a.do_sb + h * a.do_sh;
   const T* kg = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vg = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const long long row0 = ((long long)b * a.H + h) * a.Sq;
+  const float* st = a.stats + (((long long)b * a.H + h) * gridDim.x +
+                                blockIdx.x) * 2 * BT;
   load_tile<T, D, NT>(Qs, qg, a.q_ss, q0, a.Sq);
   load_tile<T, D, NT>(dOs, dog, a.do_ss, q0, a.Sq);
-  if (tid < BT) {
-    const int qp = q0 + tid;
-    lse_s[tid] = qp < a.Sq ? a.lse[row0 + qp] : 0.0f;
-    del_s[tid] = qp < a.Sq ? a.delta[row0 + qp] : 0.0f;
-  }
+  if (tid < 2 * BT) lse_s[tid] = st[tid];  // and del_s
 
   float dq[4][CW];
 #pragma unroll
@@ -386,7 +377,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
         if (valid_pair(a, q0 + qr, k0 + kc)) {
           float dcap;
           const float y = capped(a, s[i][j], scale, dcap);
-          const float p = expf(y - lse_s[qr]);
+          const float p = exp2f(fmaf(y, LOG2E, -lse_s[qr]));
           ds = p * (dp[i][j] - del_s[qr]) * dcap;
         }
         dSs[qr * LP + kc] = ds;
@@ -453,18 +444,17 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 }  // namespace
 
 // delta = sum_d dO * O of each row for either type (dtype 0 float32, 1
-// bfloat16): plain, f32 (B, H, Sq); tiled, lse in log2 units and delta per
-// 64-row query tile, f32 (B, H, ceil(Sq / 64), 2, 64) (bwd_delta_kernel).
-// Also called by flash_attn_bwd_sm90.cu.
+// bfloat16), with lse in log2 units, per 64-row query tile: f32 (B, H,
+// ceil(Sq / 64), 2, 64) (bwd_delta_kernel).  Also called by
+// flash_attn_bwd_sm90.cu.
 int flash_attn_bwd_delta(int dtype, int d, const void* o, const void* dO,
                          const float* lse, float* out, long long o_sb,
                          long long o_ss, long long o_sh, long long do_sb,
                          long long do_ss, long long do_sh, int B, int H,
-                         int Sq, int tiled, cudaStream_t stream) {
+                         int Sq, cudaStream_t stream) {
   const DeltaArgs a{o,     dO,    lse, out, o_sb, o_ss, o_sh, do_sb,
-                    do_ss, do_sh, B,   H,   Sq,   d,    tiled};
-  const long long rows =
-      (long long)B * H * (tiled ? (Sq + BT - 1) / BT * BT : Sq);
+                    do_ss, do_sh, B,   H,   Sq,   d};
+  const long long rows = (long long)B * H * ((Sq + BT - 1) / BT * BT);
   const long long blocks = (rows + NT_DELTA / 32 - 1) / (NT_DELTA / 32);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
@@ -518,15 +508,14 @@ extern "C" int flash_attn_bwd(
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   if (d != 64 && d != 80 && d != 128) return (int)cudaErrorInvalidValue;
   const int rc = flash_attn_bwd_delta(0, d, o, dO, lse, delta, o_sb, o_ss,
-                                      o_sh, do_sb, do_ss, do_sh, B, H, Sq, 0,
+                                      o_sh, do_sb, do_ss, do_sh, B, H, Sq,
                                       stream);
   if (rc != 0) return rc;
   const Args a{q,     k,     v,     o,     dO,    dq,    dk,    dv,
-               lse,   delta, q_sb,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,
-               v_sb,  v_ss,  v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss,
-               do_sh, dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb,
-               dv_ss, dv_sh, H,     KV,    Sq,    Sk,    causal, window,
-               cap};
+               delta, q_sb,  q_ss,  q_sh,  k_sb,  k_ss,  k_sh,  v_sb,
+               v_ss,  v_sh,  o_sb,  o_ss,  o_sh,  do_sb, do_ss, do_sh,
+               dq_sb, dq_ss, dq_sh, dk_sb, dk_ss, dk_sh, dv_sb, dv_ss,
+               dv_sh, H,     KV,    Sq,    Sk,    causal, window, cap};
   switch (d) {
     case 64: return launch<float, 64>(a, B, stream);
     case 80: return launch<float, 80>(a, B, stream);

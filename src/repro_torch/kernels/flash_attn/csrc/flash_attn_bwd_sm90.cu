@@ -634,7 +634,7 @@ int flash_attn_bwd_delta(int dtype, int d, const void* o, const void* dO,
                          const float* lse, float* out, long long o_sb,
                          long long o_ss, long long o_sh, long long do_sb,
                          long long do_ss, long long do_sh, int B, int H,
-                         int Sq, int tiled, cudaStream_t stream);
+                         int Sq, cudaStream_t stream);
 
 // The bf16 instantiation of flash_attn_bwd (flash_attn_bwd.cu), same
 // arguments without the dtype: the delta kernel (its tiled layout: each
@@ -677,7 +677,7 @@ int flash_attn_bwd_sm90(
   if (tiles > 0x7fffffffLL || !make_stats_map(&kv_maps[4], delta, tiles))
     return (int)cudaErrorInvalidValue;
   const int rc = flash_attn_bwd_delta(1, d, o, dO, lse, delta, o_sb, o_ss,
-                                      o_sh, do_sb, do_ss, do_sh, B, H, Sq, 1,
+                                      o_sh, do_sb, do_ss, do_sh, B, H, Sq,
                                       stream);
   if (rc != 0) return rc;
   const Params p{static_cast<__nv_bfloat16*>(dq),

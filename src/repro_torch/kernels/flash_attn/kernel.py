@@ -168,8 +168,8 @@ def flash_attn_bwd(
     dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0 or sk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # delta's scratch; the bf16 kernels lay it out per 64-row query tile,
-    # beside the tile's lse in log2 units (B, H, ceil(Sq / 64), 2, 64)
+    # delta's scratch, per 64-row query tile beside the tile's lse in log2
+    # units (B, H, ceil(Sq / 64), 2, 64), read by both types' kernels
     delta = torch.empty(b * h * -(-sq // 64) * 128, dtype=torch.float32,
                         device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -16,13 +16,15 @@ tensors it runs `flash_attention_plain`.  There is no fallback: a CUDA
 tensor launches a kernel or raises.  Inputs that are not tensors go to ``device``, which
 defaults to the CUDA device.
 
-Gradients: on CUDA tensors the call goes through `FlashAttention`, an
-autograd.Function whose forward asks B5 for the rows' log-sum-exp too and
-saves it, and whose backward launches B5-bwd (`kernel.flash_attn_bwd`:
-bf16 csrc/flash_attn_bwd_sm90.cu, f32 csrc/flash_attn_bwd.cu) on it, so
-q, k and v get their gradients through the kernels (a ``kv_len`` raises
-in the backward: training never passes one).  On CPU tensors autograd
-differentiates `flash_attention_plain` itself.
+Gradients: on CUDA tensors of which one needs a gradient (grad mode on),
+the call goes through `FlashAttention`, an autograd.Function whose forward
+asks B5 for the rows' log-sum-exp too and saves it, and whose backward
+launches B5-bwd (`kernel.flash_attn_bwd`: bf16 csrc/flash_attn_bwd_sm90.cu,
+f32 csrc/flash_attn_bwd.cu) on it, so q, k and v get their gradients
+through the kernels (a ``kv_len`` raises in the backward: training never
+passes one).  Every other CUDA call (serving, no_grad, the first pass of a
+reentrant checkpoint) launches B5 alone, with no lse.  On CPU tensors
+autograd differentiates `flash_attention_plain` itself.
 `flash_attention_plain_bwd` writes the same gradient out in PyTorch, for
 the tests and the card's comparison; no main path calls it.
 
@@ -161,4 +163,10 @@ def flash_attention(
     if not cuda.pop():
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      logit_cap=logit_cap, kv_len=kv_len)
-    return FlashAttention.apply(q, k, v, causal, window, logit_cap, kv_len)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, logit_cap,
+                                    kv_len)
+    from repro_torch.kernels.flash_attn import kernel
+
+    return kernel.flash_attn(q, k, v, causal=causal, window=window,
+                             logit_cap=logit_cap, kv_len=kv_len)

@@ -666,6 +666,40 @@ def test_flash_attention_gradients_reach_qkv_on_card():
 
 
 @pytest.mark.cuda
+def test_flash_attention_asks_lse_only_for_gradients(monkeypatch):
+    """B5 writes the rows' log-sum-exp only where a backward will read it:
+    a call under no_grad, or on inputs that need no gradient, launches B5
+    with no lse and builds no graph; a call that needs a gradient asks for
+    it.  O's bits are the same on both routes."""
+    _need_cuda()
+    from repro_torch.kernels.flash_attn import kernel as fa_kernel
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+
+    asked = []
+    launch = fa_kernel.flash_attn
+
+    def spy(*args, with_lse=False, **kw):
+        asked.append(with_lse)
+        return launch(*args, with_lse=with_lse, **kw)
+
+    monkeypatch.setattr(fa_kernel, "flash_attn", spy)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               .to(torch.bfloat16)
+               for shape in ((1, 200, 24, 128), (1, 200, 8, 128),
+                             (1, 200, 8, 128)))
+    fa_ops.reset_launches()
+    served = fa_ops.flash_attention(q, k, v, causal=True)
+    with torch.no_grad():
+        fa_ops.flash_attention(q.requires_grad_(), k, v, causal=True)
+    trained = fa_ops.flash_attention(q, k, v, causal=True)
+    assert asked == [False, False, True]
+    assert served.grad_fn is None and trained.grad_fn is not None
+    assert torch.equal(served, trained.detach())
+    assert fa_ops.LAUNCHES == {"flash_attn": 3, "flash_attn_bwd": 0}
+
+
+@pytest.mark.cuda
 def test_mamba_kernels_refuse_grad_on_card():
     """B6 and B7 have no backward kernel: on CUDA inputs that require a
     gradient they raise, naming ROADMAP A6b, instead of returning an
