@@ -290,14 +290,21 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return statistics.median(reps)
 
 
-def profile_device(fn, n: int, attempts: int = 3):
+def profile_device(fn, n: int, attempts: int = 3, whole: bool = False):
     """``fn`` run n times under torch.profiler, ending in a sync: the host
     wall ms per call under the profiler, the device's busy ms per call (the
     summed durations of the kernels, copies and sets it records on the
-    card; 0 if it records none), the top device ops and the top host ops by
-    self time, each as (name, ms per call).  A session that records no
-    device activity at all is profiled again, up to ``attempts`` times
-    (the card's tracing has been seen to drop a whole session)."""
+    card), the top device ops and the top host ops by self time, each as
+    (name, ms per call), and a note of the launches recorded.  The card's
+    tracing has been seen to drop a whole session's device records, or
+    some of them: a session that records nothing on the card is profiled
+    again, up to ``attempts`` times, and so is one that records fewer
+    device kernels than the host made launch calls where ``whole`` is
+    asked for (a kernel's own time, where a dropped launch would read as a
+    faster kernel).  If no session is good enough the device side is not
+    measured: busy 0 and no top device ops, and the caller prints "not
+    measured".  Otherwise the note is empty for a whole session and names
+    the share recorded for a partial one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -312,12 +319,15 @@ def profile_device(fn, n: int, attempts: int = 3):
                 fn()
             torch.cuda.synchronize()
             wall = (time.time() - t0) * 1e3 / n
-        if any(e.device_type == DeviceType.CUDA for e in prof.events()):
+        launches, kernels, records = launch_records(prof.events())
+        complete = kernels >= launches
+        good = bool(records) and (complete or not whole)
+        if good:
             break
     device, host = {}, {}
     for e in prof.events():
         us = e.time_range.elapsed_us()
-        if e.device_type == DeviceType.CUDA:
+        if good and e.device_type == DeviceType.CUDA:
             device[e.name] = device.get(e.name, 0.0) + us
     for e in prof.key_averages():
         if e.device_type == DeviceType.CPU:
@@ -327,7 +337,25 @@ def profile_device(fn, n: int, attempts: int = 3):
         return [(k[:48], v / 1e3 / n)
                 for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:5]]
 
-    return wall, sum(device.values()) / 1e3 / n, top(device), top(host)
+    note = ("" if not good or complete else
+            f" ({kernels} of {launches} launches recorded)")
+    return wall, sum(device.values()) / 1e3 / n, top(device), top(host), note
+
+
+def launch_records(events):
+    """The kernel launch calls the host made in a profiled session
+    (cudaLaunchKernel, cuLaunchKernelEx and the like, on the CPU side), how
+    many device kernels it recorded (its copies and sets left out), and
+    every device record, as (name, ms) pairs."""
+    from torch.autograd import DeviceType
+
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU
+                   and "LaunchKernel" in e.name)
+    records = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
+               if e.device_type == DeviceType.CUDA]
+    kernels = sum(1 for name, _ in records
+                  if not name.startswith(("Memcpy", "Memset")))
+    return launches, kernels, records
 
 
 def fmt_ms(ms: float) -> str:
@@ -477,14 +505,12 @@ def recast(args):
 
 def device_launches(fn, n: int, attempts: int = 3):
     """``n`` calls of ``fn`` under torch.profiler, ending in a sync: the
-    kernel launches the host made (the runtime's and driver's launch calls
-    it records on the CPU side) and the device kernels it recorded, as
-    (name, ms) pairs.  The card's tracing can drop device records (seen in
-    long runs; the host's launch calls are all there): a session that
-    records fewer kernels than launches is run again, up to ``attempts``
-    times."""
+    kernel launches the host made and the device records (kernels, copies,
+    sets) it recorded, as (name, ms) pairs (`launch_records`).  The card's
+    tracing can drop device records (seen in long runs; the host's launch
+    calls are all there): a session that records fewer kernels than
+    launches is run again, up to ``attempts`` times."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -495,25 +521,28 @@ def device_launches(fn, n: int, attempts: int = 3):
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        events = prof.events()
-        launches = sum(1 for e in events if e.device_type == DeviceType.CPU
-                       and "LaunchKernel" in e.name)
-        kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in events
-                   if e.device_type == DeviceType.CUDA]
-        if len(kernels) >= launches:
+        launches, kernels, records = launch_records(prof.events())
+        if kernels >= launches:
             break
-    return launches, kernels
+    return launches, records
 
 
 def one_kernel_each(fn, n: int, kernel: str, what: str) -> float:
-    """Fail unless ``n`` calls of ``fn`` launch exactly ``n`` kernels and
-    every device kernel recorded is ``kernel``; returns the mean device ms
-    of the recorded launches."""
+    """Fail unless ``n`` calls of ``fn`` make exactly ``n`` kernel launches
+    and every device kernel recorded is ``kernel``; returns the mean device
+    ms of the recorded launches, or 0 (not measured) where the tracing
+    dropped every device record of every session: the launch count, taken
+    on the host, is then the whole check, and a line says so."""
     launches, kernels = device_launches(fn, n)
     names = sorted({k for k, _ in kernels})
-    check(launches == n and kernels and all(kernel in k for k in names),
+    check(launches == n and all(kernel in k for k in names),
           f"{what}: {n} calls launched {launches} kernels (recorded "
           f"{len(kernels)}: {names}), expected one {kernel} each")
+    if not kernels:
+        print(f"[profiler] {what}: {n} calls made {n} launches; the tracing "
+              f"recorded no device kernel, so their names and device time "
+              f"are not measured")
+        return 0.0
     return statistics.mean(ms for _, ms in kernels)
 
 
@@ -1155,9 +1184,9 @@ def phase_b4(dev):
           f"{bm:.5f} ({by}); at n=1,048,576: kernel {big:.4f} ms "
           f"({nbytes / big / 1e6:.0f} GB/s on events), plain "
           f"{times[1_048_576][1]:.4f} ms; device time per launch "
-          f"(torch.profiler, one kernel a call) {times[65_536][2]:.4f} ms at "
-          f"n=65,536, {big_dev:.4f} ms at n=1,048,576 "
-          f"({nbytes / big_dev / 1e6:.0f} GB/s)")
+          f"(torch.profiler, one kernel a call) {fmt_ms(times[65_536][2])} "
+          f"at n=65,536, {fmt_ms(big_dev)} at n=1,048,576"
+          + (f" ({nbytes / big_dev / 1e6:.0f} GB/s)" if big_dev > 0 else ""))
 
     # the fleet path: 200 epochs of FleetKF(65,536), one B4 launch each,
     # and the same epochs through the plain version on the card
@@ -1194,7 +1223,7 @@ def phase_b4(dev):
           f"one device kernel an epoch; wall {wall:.3f} s "
           f"({wall / epochs * 1e3:.4f} ms per epoch); an epoch timed alone "
           f"{epoch_ms:.4f} ms per call (events), device "
-          f"{epoch_dev:.4f} ms; x, p and every epoch's signals bitwise "
+          f"{fmt_ms(epoch_dev)}; x, p and every epoch's signals bitwise "
           f"equal to the plain path; last epoch boosts {boost:.3f} of the "
           f"links")
     sys.stdout.flush()
@@ -1271,21 +1300,21 @@ def phase_b5(dev):
                         qt, kt, vt, is_causal=True, enable_gqa=True)
 
                 ms = cuda_ms(kern, reps)
-                dev_ms = profile_device(kern, 20)[1]
+                dev_ms = profile_device(kern, 20, whole=True)[1]
                 lib = cuda_ms(sdpa, reps) if lib_too else None
-                lib_dev = profile_device(sdpa, 20)[1] if lib_too else None
+                lib_dev = (profile_device(sdpa, 20, whole=True)[1] if lib_too
+                           else None)
                 plain = cuda_ms(lambda: fa_ops.flash_attention_plain(
                     q, k, v, **kw), 5)
                 (bm, by), pairs = flash_bound(1, h, kv, s, s, d, causal,
                                               window, kv_len, dtype)
-                check(dev_ms > 0 and (not lib_too or lib_dev > 0),
-                      "torch.profiler recorded no device time for B5 or SDPA")
+                # a device time the tracing dropped is "not measured" (0)
                 flops = 4 * d * h * pairs
                 timing.append(dict(
                     arch=arch, h=h, kv=kv, d=d, cap=cap,
                     s=s, ms=ms, dev_ms=dev_ms, lib=lib, lib_dev=lib_dev,
                     plain=plain, bm=bm, by=by, blocks=h * -(-s // 128),
-                    tflops=flops / ms / 1e9, dev_tflops=flops / dev_ms / 1e9,
+                    tflops=flops / ms / 1e9, flops=flops,
                     bound_tflops=flops / bm / 1e9))
         del base, q, k, v, out, want
         torch.cuda.empty_cache()
@@ -1294,18 +1323,23 @@ def phase_b5(dev):
           f"err bf16 {errs[torch.bfloat16]:.3g} (atol 8e-3 + 2^-7 rel), f32 "
           f"{errs[torch.float32]:.3g} (atol 2e-5 + 1e-5 rel)")
     for t in timing:
-        lib = (f"SDPA events {t['lib']:.4f} ms, device {t['lib_dev']:.4f} ms; "
-               f"kernel/SDPA events {t['ms'] / t['lib']:.2f}x, device "
-               f"{t['dev_ms'] / t['lib_dev']:.2f}x" if t["lib"] is not None
+        both = t["dev_ms"] > 0 and bool(t["lib_dev"])
+        lib = (f"SDPA events {t['lib']:.4f} ms, device "
+               f"{fmt_ms(t['lib_dev'])}; kernel/SDPA events "
+               f"{t['ms'] / t['lib']:.2f}x, device "
+               + (f"{t['dev_ms'] / t['lib_dev']:.2f}x" if both
+                  else "not measured") if t["lib"] is not None
                else "no SDPA time (SDPA has no logit cap)")
+        dev = (f"{t['dev_ms']:.4f} ms "
+               f"({t['flops'] / t['dev_ms'] / 1e9:.1f} TFLOP/s)"
+               if t["dev_ms"] > 0 else "not measured")
         print(f"[B5] {t['arch']} bf16 B=1 H={t['h']} KV={t['kv']} D={t['d']} "
               f"S={t['s']} causal"
               + (f", logit cap {t['cap']:g}" if t["cap"] else "")
               + f" ({t['blocks']} blocks of 384 threads on "
               f"{torch.cuda.get_device_properties(0).multi_processor_count}"
               f" SMs): kernel events {t['ms']:.4f} ms per call "
-              f"({t['tflops']:.1f} TFLOP/s), device {t['dev_ms']:.4f} ms "
-              f"({t['dev_tflops']:.1f} TFLOP/s); {lib}; bound "
+              f"({t['tflops']:.1f} TFLOP/s), device {dev}; {lib}; bound "
               f"{t['bm']:.5f} ms ({t['by']}; {t['bound_tflops']:.1f} TFLOP/s "
               f"at the bound); plain {t['plain']:.4f} ms")
     sys.stdout.flush()
@@ -1504,19 +1538,20 @@ def serve_main(dev, tag, cfg, params, t_init, kernels):
 
             d_wall = wall_ms(decode, 10)
             p_wall = wall_ms(prefill, 5)
-            _, d_busy, d_dev, d_host = profile_device(decode, 3)
-            _, p_busy, p_dev, _ = profile_device(prefill, 1)
+            _, d_busy, d_dev, d_host, d_note = profile_device(decode, 3)
+            _, p_busy, p_dev, _, p_note = profile_device(prefill, 1)
             prof_lines = [
                 f"{tag} decode step alone: wall {d_wall:.2f} ms "
                 f"({1e3 / d_wall:.1f} steps/s, 10 back-to-back steps), "
-                f"device busy {fmt_ms(d_busy)} (torch.profiler), idle share "
+                f"device busy {fmt_ms(d_busy)}{d_note} (torch.profiler), idle "
+                f"share "
                 + (f"{1 - d_busy / d_wall:.3f}" if d_busy > 0
                    else "not measured")
                 + f"; top device ops (ms per step): {fmt_top(d_dev)}; top "
                 f"host ops by self time: {fmt_top(d_host)}",
                 f"{tag} prefill of 512 tokens alone: wall {p_wall:.2f} ms "
                 f"({512e3 / p_wall:.0f} tokens/s, 5 back-to-back prefills), "
-                f"device busy {fmt_ms(p_busy)}; top device ops: "
+                f"device busy {fmt_ms(p_busy)}{p_note}; top device ops: "
                 f"{fmt_top(p_dev)}",
             ]
 
@@ -1768,17 +1803,20 @@ def phase_b7(dev):
           f"2048, 5120, 64) bf16, a ragged D = 5001 and an unaligned f32 "
           f"base through the element copies), bitwise at {bitwise} of them: "
           f"max abs err {err:.3g} (S = 64: {err64:.3g})")
+    def per_bound(dev_ms, bound):
+        return f"{dev_ms / bound:.2f}x" if dev_ms > 0 else "not measured"
+
     for (L, d, s), (ms, dev_ms, dev_n, plain, bm, by) in timing.items():
         extra = ""
         if s == 64:
             m2, m2_by = m2_bound(1, L, d // z_hd, z_hd, s, 2)
             extra = (f"; the mamba2 scan's own bound (one exponential a "
                      f"head) {m2:.4f} ms ({m2_by}; device/that bound "
-                     f"{dev_ms / m2:.2f}x)")
+                     f"{per_bound(dev_ms, m2)})")
         print(f"[B7] (1, {L}, {d}, {s}) bf16: kernel events {ms:.4f} ms per "
               f"call, device {fmt_ms(dev_ms)} per launch (torch.profiler, "
               f"mean of {dev_n} recorded of 20), bound {bm:.4f} ms ({by}; "
-              f"device/bound {dev_ms / bm:.2f}x)"
+              f"device/bound {per_bound(dev_ms, bm)})"
               + ("" if plain is None else f", plain {plain:.1f} ms") + extra)
     sys.stdout.flush()
     torch.cuda.empty_cache()
@@ -1925,7 +1963,7 @@ def phase_fwd_z(dev, params, cfg):
         return lm.forward(params, toks, cfg)
 
     wall = wall_ms(fwd, 2)
-    _, busy, top_dev, _ = profile_device(fwd, 1)
+    _, busy, top_dev, _, note = profile_device(fwd, 1)
     print(f"[fwd-z] {cfg.name} full width, {cfg.n_layers} of its "
           f"{configs.get(cfg.name).n_layers} layers ({cfg.n_layers} mamba2 "
           f"layers in {n_super} super-blocks of {cfg.shared_attn_period}, "
@@ -1935,7 +1973,7 @@ def phase_fwd_z(dev, params, cfg):
           f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab "
           f"{cfg.vocab_size:,}), B=1, L=2048: {counts['mamba_fused']} B7 and "
           f"{counts['flash_attn']} B5 launches; wall {wall:.1f} ms "
-          f"({2048e3 / wall:.0f} tokens/s), device busy {fmt_ms(busy)} "
+          f"({2048e3 / wall:.0f} tokens/s), device busy {fmt_ms(busy)}{note} "
           f"(torch.profiler), idle share "
           + (f"{1 - busy / wall:.3f}" if busy > 0 else "not measured")
           + f"; top device ops (ms): {fmt_top(top_dev)}")
@@ -2147,7 +2185,7 @@ def phase_fwd_moe(dev, tag, params, cfg):
         return lm.forward(params, toks, cfg)
 
     wall = wall_ms(fwd, 2)
-    _, busy, top_dev, _ = profile_device(fwd, 1)
+    _, busy, top_dev, _, note = profile_device(fwd, 1)
     print(f"{tag} {cfg.name} full width ({moe_desc(cfg)}), depth cut to "
           f"{cfg.n_layers} layers ({param_gb(params):.1f} GB of bf16 "
           f"weights), B=1, L=2048 ({groups} dispatch group, capacity "
@@ -2155,7 +2193,7 @@ def phase_fwd_moe(dev, tag, params, cfg):
           f"launches; TF32 off; expert load sums to {load:.6f}, lb "
           f"{float(aux.load_balance_loss):.4f}, zl "
           f"{float(aux.router_z_loss):.4f}; wall {wall:.1f} ms "
-          f"({2048e3 / wall:.0f} tokens/s), device busy {fmt_ms(busy)} "
+          f"({2048e3 / wall:.0f} tokens/s), device busy {fmt_ms(busy)}{note} "
           f"(torch.profiler), idle share "
           + (f"{1 - busy / wall:.3f}" if busy > 0 else "not measured")
           + f"; top device ops (ms): {fmt_top(top_dev)}")
@@ -2557,7 +2595,7 @@ def phase_b5b(dev):
                                                     **kw)
 
                 ms = cuda_ms(kern, reps)
-                _, dev_ms, top_dev, _ = profile_device(kern, 5)
+                _, dev_ms, top_dev, _, _ = profile_device(kern, 5, whole=True)
                 # each of the call's three kernels, by name
                 parts = {part: sum(t for n, t in top_dev if f"bwd_{part}" in n)
                          for part in ("delta", "dkdv", "dq")}
@@ -2586,7 +2624,8 @@ def phase_b5b(dev):
                 (fbm, fby), _ = flash_bound(b, h, kv, s, s, d, True,
                                             window, None, dtype)
                 row["fwd"] = dict(
-                    ms=cuda_ms(fwd, reps), dev_ms=profile_device(fwd, 3)[1],
+                    ms=cuda_ms(fwd, reps),
+                    dev_ms=profile_device(fwd, 3, whole=True)[1],
                     no_lse=cuda_ms(fwd_no_lse, reps),
                     sdpa=cuda_ms(lambda: F.scaled_dot_product_attention(
                         qt, kt, vt, is_causal=True, enable_gqa=True), reps),
@@ -2827,7 +2866,7 @@ def phase_train(dev) -> int:
     def one():
         return steps[0](state, extra)
 
-    p_wall, busy, top_dev, _ = profile_device(one, 1)
+    p_wall, busy, top_dev, _, note = profile_device(one, 1)
     print(f"[train] loop.run {n} steps (KF scheduler, launcher settings; "
           f"variants {res.variants}): losses "
           + ", ".join(f"{x:.4f}" for x in res.losses)
@@ -2837,7 +2876,7 @@ def phase_train(dev) -> int:
           f" tokens/s; the prefetcher draws the next batch on its own "
           f"stream meanwhile); one more step alone, profiled: wall "
           f"{p_wall:.1f} ms ({toks / p_wall * 1e3:.0f} tokens/s), device "
-          f"busy {fmt_ms(busy)}, idle share "
+          f"busy {fmt_ms(busy)}{note}, idle share "
           + (f"{max(0.0, 1 - busy / p_wall):.3f}" if busy > 0
              else "not measured")
           + f"; top device ops (ms a step): {fmt_top(top_dev)}; peak device "
@@ -3055,7 +3094,7 @@ def main() -> int:
     floor_dev_ms = one_kernel_each(lambda: one.add_(1), 50,
                                    "elementwise_kernel", "add_")
     print(f"[1] one-launch floor (one-element add_): events {floor_ms:.4f} "
-          f"ms per call, device {floor_dev_ms:.4f} ms per launch")
+          f"ms per call, device {fmt_ms(floor_dev_ms)} per launch")
     b7_spill = {k: v for k, v in usage.items() if k.startswith("B7")
                 and v["stack"] + v["spill_stores"] + v["spill_loads"]}
     check(not b7_spill, f"a B7 instantiation has a stack or spills: "
@@ -3204,24 +3243,29 @@ def main() -> int:
           f"recast; one device kernel per arbitrate_lanes / arbitrate_rows "
           f"call; ms per call at {args_t[0].shape[0]}x{args_t[0].shape[1]} "
           f"dense lanes: arbitrate_lanes {b1_ms:.4f} (events), raw launch "
-          f"{b1_raw_ms:.4f} (events), device {b1_dev_ms:.4f}; "
+          f"{b1_raw_ms:.4f} (events), device {fmt_ms(b1_dev_ms)}; "
           f"arbitrate_rows at L = {L} {b1_rows_ms:.4f}; plain "
           f"router.arbitrate {b1_plain_ms:.4f}; bound {bm1:.6f} ({by1})")
     sys.stdout.flush()
 
     # ---- phase 3: B2 against its plain version, on epoch 2's inputs (link
-    # down, router browned out, MC stalled, boosted masks and cls1 plan)
+    # down, router browned out, MC stalled, boosted masks and cls1 plan);
+    # the plain 500-cycle run is timed as it is checked, as B3's below
     st0, xi2, xf2, consts2 = epoch_starts[2]
     b2_err = 0
     for n in (1, 500):
         k = ops.fused_cycle_step(d, st0, xi2[:n], xf2[:n], *consts2)
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
         p = fused.cycle_steps_lanes(d, st0, xi2[:n], xf2[:n], *consts2)
+        b.record()
+        torch.cuda.synchronize()
+        b2_plain_ms = a.elapsed_time(b)
         err = max_diff(k, p)
         check(err == 0, f"B2 disagrees with {n} plain cycles (max abs err "
                         f"{err})")
         b2_err = max(b2_err, err)
-    b2_plain_ms = cuda_ms(lambda: fused.cycle_steps_lanes(
-        d, st0, xi2, xf2, *consts2), 1, warmup=1)
 
     # B3 on the same inputs from a non-zero flight-recorder carry; the
     # plain 500-cycle run is timed as it is checked
