@@ -8,7 +8,8 @@ build/repro_torch/), then runs, each phase failing the script on error:
 
   1. the card's name and power limit (nvidia-smi), the kernel build time
      and ptxas's registers, stack and spill bytes per kernel (no B7
-     instantiation and no bf16 B5-bwd kernel may have a stack or spill),
+     instantiation, no B7-bwd instantiation and no bf16 B5-bwd kernel may
+     have a stack or spill),
      and the card's floor for
      one launch (a one-element torch op: events per call, device time);
   2. B1 (noc_arbitrate) against its plain torch version, bitwise, on (rows,
@@ -31,12 +32,14 @@ build/repro_torch/), then runs, each phase failing the script on error:
      phases 2 and 3 take their inputs from sim's own per-epoch builders,
      under a fault stream and a placement stream built here, so that every
      link, router, MC and node-class mask is live;
-  4. engine congruence at the full grid for 6 epochs x 500 cycles through
-     simulate_with_trace: "fused" (B3), "arb" (B1) and "ref" (plain dense
-     torch) from one generator seed agree bitwise on counters,
-     applied_config, kf_signal, gpu_vc_quota and every SimTrace channel
-     (kf on SHIFT_PATH_BFS, kf with the guard and joint control under those
-     fault and placement streams, 4subnet and fair on STO);
+  4. engine congruence at the full grid for CONG_EPOCHS = 3 epochs x 500
+     cycles through simulate_with_trace: "fused" (B3), "arb" (B1, exactly
+     1500 launches) and "ref" (plain dense torch) from one generator seed
+     agree bitwise on counters, applied_config, kf_signal, gpu_vc_quota and
+     every SimTrace channel (kf on SHIFT_PATH_BFS, which must change its
+     applied_config; kf with the guard and joint control under fault and
+     placement streams built for 3 epochs, every mask kind and both
+     telemetry faults inside them; 4subnet and fair on STO);
   5. the main paths, 120 epochs x 500 cycles each: simulate(NoCConfig(
      mode="kf"), "SHIFT_PATH_BFS") and mode="fair" through B2 (exactly 120
      launches per run), with counter invariants and summarize(); then the
@@ -57,7 +60,7 @@ build/repro_torch/), then runs, each phase failing the script on error:
      gate scenario under the default scheme, its kf cell within 2e-6 of
      the reference's 0.735548; B2 at batch 60 (the ablation's epoch-0
      inputs) bitwise against its plain version on every LaneState field, 1
-     cycle from the zero state and 1 and 200 cycles from the state 500
+     cycle from the zero state and 1 and 100 cycles from the state 500
      cycles in; the ablation's wall and aggregate simulated cycles/s, B2's
      ms per launch at batch 60 beside batch 1, and the time to draw one
      paper run's streams;
@@ -219,6 +222,35 @@ build/repro_torch/), then runs, each phase failing the script on error:
      restore and the final state bitwise the uninterrupted run's; then
      `python -m repro_torch.launch.train` on all its defaults (the smoke
      config, 100 steps), in-process through main([]);
+  [B7b] the fused scan's backward (mamba_fused_bwd: the walk back from
+     B7's tile checkpoints, then the fixed-order sums of dB, dC and dA)
+     against fused_mamba_scan_plain_bwd at falcon-mamba's training shape
+     (4, 2048, 8192, 16) bf16, zamba2's channels (4, 2048, 5120, 64) bf16
+     from a nonzero h0 and g_hlast, a ragged L = 517 and an f32 case at
+     S = 8: each of the six gradients within relative L2 1e-5 where
+     returned in f32 and 1e-2 where returned in bf16, two calls bitwise
+     equal, B7's y and h_last bitwise the same with the checkpoints written
+     and without; timed at the two training shapes (events, device) beside
+     its bound and the plain version, with B7's forward with and without
+     checkpoints;
+  [B6b] the selective scan's backward (mamba_scan_bwd) bitwise against
+     scan_ref_bwd at (2, 64, 32, 8) and (1, 2048, 8192, 16), timed there
+     beside its bytes bound and the plain version;
+  [train-mw] falcon-mamba-7b at full width cut to 2 layers, B = 1, S = 256,
+     and [train-zw] zamba2-2.7b's one super-block (6 mamba2 layers and the
+     shared block), B = 1, S = 128: the loss and every gradient leaf card
+     (B7, B7-bwd; B5, B5-bwd) against CPU by [train-w]'s rule, a leaf that
+     misses its own witness bound held to its kin's largest witness (the
+     same parameter in the other layers); exact launch counts;
+  [train-m] falcon-mamba-7b at full width cut to 16 of 64 layers and
+     [train-z] zamba2-2.7b at full width and all 54 layers, remat "full",
+     B = 4, S = 2048, the launcher's lr and warmup: one step of each
+     variant from the same state and batch (as [train]), then loop.run
+     for 4 steps from the initial state (finite losses, the last below
+     the first, exact B7 / B7-bwd / B5 / B5-bwd counts), the wall per
+     step, tokens/s, a step alone profiled for the busy share, the peak
+     memory; then for falcon-mamba one balanced step with use_kernel=True
+     at B = 1 through B6 and B6-bwd;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch (B1:
      per call of arbitrate_lanes, as the "arb" engine calls it), the plain
@@ -232,6 +264,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -258,6 +291,9 @@ PEAK_F32_FLOP_S = 67e12
 # lanes per SM per clock x 1.98 GHz
 PEAK_EXP_S = 132 * 16 * 1.98e9
 SEED = 0
+# phase 4's epochs of 500 cycles (3, where 6 had its "arb" and "ref"
+# engines take 137-218 s of a run near its time limit)
+CONG_EPOCHS = 3
 
 
 def fail(msg: str) -> None:
@@ -376,11 +412,11 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def fault_stream(topo, n_epochs: int):
+def fault_stream(topo, n_epochs: int, telem_at: int = 4):
     """A fault stream built in the port with every mask kind live: the link
     from router 14 to its east neighbour down in even epochs, router 21
     browned out in epochs 1-2, the first MC stalled in epochs 1-3, and the
-    telemetry NaN in epoch 4 and spiked in epoch 5."""
+    telemetry NaN in epoch ``telem_at`` and spiked in the next."""
     from repro_torch.core.noc.faults import TELEM_NAN, TELEM_SPIKE, healthy_stream
     from repro_torch.core.noc.topology import OPPOSITE, PORT_E
 
@@ -394,9 +430,9 @@ def fault_stream(topo, n_epochs: int):
     mc = f.mc_ok.clone()
     mc[1:4, int(topo.mc_ids[0])] = False
     mode = f.telem_mode.clone()
-    mode[4], mode[5] = TELEM_NAN, TELEM_SPIKE
+    mode[telem_at], mode[telem_at + 1] = TELEM_NAN, TELEM_SPIKE
     mag = f.telem_mag.clone()
-    mag[5] = 0.5
+    mag[telem_at + 1] = 0.5
     return f._replace(link_ok=link, router_ok=router, mc_ok=mc,
                       telem_mode=mode, telem_mag=mag)
 
@@ -611,6 +647,12 @@ def ptxas_usage(log: str) -> dict:
               ("noc_fused_cycles_kernelILi4ELi4ELi4ELb0ELb1E", "B2 clocked"),
               ("kf_bank_kernel", "B4"),
               ("mamba_scan_kernel", "B6"),
+              ("mamba_scan_bwd_kernel", "B6b"),
+              *((f"mamba_fused_bwd_kernelI{t}Li{n}E", f"B7b {tn} S{n}")
+                for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
+                for n in (8, 16, 64)),
+              *((f"reduce_parts_kernelI{t}E", f"B7b sums {tn}")
+                for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))),
               *((f"mamba_fused_kernelI{t}Li{n}ELb{w}E", f"B7 {tn} S{n}{wn}")
                 for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
                 for n in (8, 16, 64) for w, wn in ((1, ""), (0, " narrow"))),
@@ -738,7 +780,9 @@ ABLATION_BENCH = "noc_ablation"
 ABL_KF_PARTITIONABLE = 0.735548
 ABL_TOL = 2e-6
 # cycles of B2 at batch 60 held against its plain version in [sweep] (d)
-B60_PLAIN_CYCLES = 200
+# (100, where 200 had the plain side take 93-135 s of a run near its time
+# limit; the 1-cycle checks from zero and from 500 cycles in stay)
+B60_PLAIN_CYCLES = 100
 
 
 def phase_sweep(dev) -> dict:
@@ -1705,6 +1749,34 @@ def m2_bound(b, L, nh, hd, s, elem):
     return t[by], by
 
 
+Z_HD = 64   # zamba2's ssm head dim: A is one value a head
+
+
+def b7_inputs(g, b, L, d, s, dtype, kind, h0):
+    """B7's inputs on ``g``'s device: dt in [0.001, 0.1), xc, B, C ~ N(0, 1)
+    in ``dtype``, A as falcon-mamba's (S4D-real), zamba2's (-(1 .. nh) a
+    head, over its channels) or the JAX test's, and h0 ~ N(0, 1) or None."""
+    import torch
+
+    dev = g.device
+    u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
+        shape, generator=g, device=dev)
+    dt = u((b, L, d), 0.001, 0.1)
+    xc, bm, cm = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                  for shape in ((b, L, d), (b, L, s), (b, L, s)))
+    if kind == "falcon":    # S4D-real A
+        a_mat = -torch.arange(1, s + 1, dtype=torch.float32,
+                              device=dev).repeat(d, 1)
+    elif kind == "zamba2":  # -(1 .. nh) a head, over its channels
+        a_mat = -(torch.arange(d, device=dev) // Z_HD + 1).to(
+            torch.float32)[:, None].expand(d, s).contiguous()
+    else:                   # the JAX test's A
+        a_mat = -torch.exp(0.3 * torch.randn((d, s), generator=g,
+                                             device=dev))
+    h = torch.randn((b, d, s), generator=g, device=dev) if h0 else None
+    return dt, xc, bm, cm, a_mat, h
+
+
 def phase_b7(dev):
     """B7 against its plain version within 1e-5 at the JAX kernel test's
     shapes (f32), falcon-mamba's (S = 16: bf16 xc/B/C, nonzero h0) and
@@ -1718,25 +1790,6 @@ def phase_b7(dev):
     from repro_torch.kernels.mamba_scan import sweep_b7
 
     g = torch.Generator(device=dev).manual_seed(SEED + 11)
-    z_hd = 64   # zamba2's ssm head dim: A is one value a head
-
-    def inputs(b, L, d, s, dtype, kind, h0):
-        u = lambda shape, lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
-            shape, generator=g, device=dev)
-        dt = u((b, L, d), 0.001, 0.1)
-        xc, bm, cm = (torch.randn(shape, generator=g, device=dev).to(dtype)
-                      for shape in ((b, L, d), (b, L, s), (b, L, s)))
-        if kind == "falcon":    # S4D-real A
-            a_mat = -torch.arange(1, s + 1, dtype=torch.float32,
-                                  device=dev).repeat(d, 1)
-        elif kind == "zamba2":  # -(1 .. nh) a head, over its channels
-            a_mat = -(torch.arange(d, device=dev) // z_hd + 1).to(
-                torch.float32)[:, None].expand(d, s).contiguous()
-        else:                   # the JAX test's A
-            a_mat = -torch.exp(0.3 * torch.randn((d, s), generator=g,
-                                                 device=dev))
-        h = torch.randn((b, d, s), generator=g, device=dev) if h0 else None
-        return dt, xc, bm, cm, a_mat, h
 
     def unaligned(t):
         """t's values in a view one element into its storage."""
@@ -1766,7 +1819,8 @@ def phase_b7(dev):
           f"steps per tile")
     err, err64, timing, bitwise = 0.0, 0.0, {}, 0
     for b, L, d, s, dtype, kind, with_h0, shift, timed in cases:
-        dt, xc, bm, cm, a_mat, h0 = inputs(b, L, d, s, dtype, kind, with_h0)
+        dt, xc, bm, cm, a_mat, h0 = b7_inputs(g, b, L, d, s, dtype, kind,
+                                              with_h0)
         if shift:
             dt, xc, bm, cm = (unaligned(t) for t in (dt, xc, bm, cm))
         y, hl = ms_fused.fused_mamba_scan(dt, xc, bm, cm, a_mat, h0=h0)
@@ -1809,7 +1863,7 @@ def phase_b7(dev):
     for (L, d, s), (ms, dev_ms, dev_n, plain, bm, by) in timing.items():
         extra = ""
         if s == 64:
-            m2, m2_by = m2_bound(1, L, d // z_hd, z_hd, s, 2)
+            m2, m2_by = m2_bound(1, L, d // Z_HD, Z_HD, s, 2)
             extra = (f"; the mamba2 scan's own bound (one exponential a "
                      f"head) {m2:.4f} ms ({m2_by}; device/that bound "
                      f"{per_bound(dev_ms, m2)})")
@@ -1849,8 +1903,11 @@ def phase_fwd_m(dev, params, cfg):
         outs[use_kernel] = lm.forward(params, toks, cfg,
                                       use_kernel=use_kernel).logits
         counts[use_kernel] = dict(ms_ops.LAUNCHES)
-    check(counts[True] == {"mamba_scan": cfg.n_layers, "mamba_fused": 0}
-          and counts[False] == {"mamba_scan": 0, "mamba_fused": cfg.n_layers},
+    bwd0 = {"mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+    check(counts[True] == {"mamba_scan": cfg.n_layers, "mamba_fused": 0,
+                           **bwd0}
+          and counts[False] == {"mamba_scan": 0, "mamba_fused": cfg.n_layers,
+                                **bwd0},
           f"forward launched {counts}, expected {cfg.n_layers} of B6 with "
           f"use_kernel and {cfg.n_layers} of B7 without")
     for lg in outs.values():
@@ -1898,7 +1955,8 @@ def phase_serve_mw(dev):
     ms_ops.reset_launches()
     on_card = lm.forward(params, toks.to(dev), cfg, return_caches=True,
                          cache_len=512)
-    check(ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * cfg.n_layers},
+    check(ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * cfg.n_layers,
+                              "mamba_scan_bwd": 0, "mamba_fused_bwd": 0},
           f"full-width forward + prefill launched {ms_ops.LAUNCHES}")
     on_cpu = lm.forward(cpu_params, toks, cfg, return_caches=True,
                         cache_len=512)
@@ -1950,8 +2008,7 @@ def phase_fwd_z(dev, params, cfg):
     fa_ops.reset_launches()
     logits = lm.forward(params, toks, cfg).logits
     counts = {**ms_ops.LAUNCHES, **fa_ops.LAUNCHES}
-    want = {"mamba_scan": 0, "mamba_fused": cfg.n_layers,
-            "flash_attn": n_super, "flash_attn_bwd": 0}
+    want = launches(mamba_fused=cfg.n_layers, flash_attn=n_super)
     check(counts == want, f"[fwd-z] forward launched {counts}, expected "
                           f"{want}")
     check(logits.shape == (1, 2048, cfg.vocab_size)
@@ -2068,8 +2125,7 @@ def phase_serve_zw(dev):
     on_card, tr_card = hybrid_run(params, toks, steps, cfg, dev)
     # forward and prefill: one B7 a layer and one B5 each; decode neither
     counts = {**ms_ops.LAUNCHES, **fa_ops.LAUNCHES}
-    want = {"mamba_scan": 0, "mamba_fused": 2 * cfg.n_layers,
-            "flash_attn": 2, "flash_attn_bwd": 0}
+    want = launches(mamba_fused=2 * cfg.n_layers, flash_attn=2)
     check(counts == want, f"[serve-zw] forward + prefill + decode launched "
                           f"{counts}, expected {want}")
     for k, v in on_card.items():
@@ -2688,84 +2744,152 @@ def grad_leaves(params, batch, cfg) -> tuple[float, dict]:
     return float(m["loss"]), {p: t.cpu() for p, t in tree_leaves(g)}
 
 
-def phase_train_w(dev):
-    """llama3.2-3b at full width cut to 2 layers, B = 1, S = 256, one
-    batch of make_dataset: the loss and every gradient leaf on the card
-    (B5, B5-bwd, bf16 cuBLAS, remat "full") against the same parameters
-    on the CPU (plain): loss within 1e-2 relative, each leaf within
-    relative L2 1e-2, or where a leaf misses, max(1e-2, 1.5 x the CPU's
-    own bf16-against-f32 GEMM witness for that leaf)."""
+def kin(p) -> tuple:
+    """A leaf's path with its layer indices blanked: the same parameter of
+    every layer."""
+    return tuple("*" if isinstance(x, int) else x for x in p)
+
+
+def train_card_vs_cpu(dev, tag, cfg, seq, want, desc, pool_kin=False,
+                      defer=False):
+    """The loss and every gradient leaf of ``cfg`` at B = 1, S = ``seq``
+    (one batch of make_dataset) on the card (hand-written kernels, bf16
+    cuBLAS, remat "full"), launching exactly ``want``, against the same
+    parameters on the CPU (plain): loss within 1e-2 relative, each leaf
+    within relative L2 1e-2, or where a leaf misses, max(1e-2, 1.5 x the
+    CPU's own bf16-against-f32 GEMM witness for that leaf).  With
+    ``pool_kin``, a leaf that misses its own witness bound is held to
+    max(1e-2, 1.5 x the largest witness of its kin, the same parameter in
+    the other layers): a small leaf's relative L2 (zamba2's a_log, 80
+    cancelling sums) is one noisy draw of the same drift, which swings
+    0.6-1.7x from layer to layer (PERF.md §6).  With ``defer`` the
+    card's part runs now and the CPU's part (with the comparison) is
+    returned as a function to run later."""
     import torch
 
-    import repro_torch.configs as configs
     from repro_torch.data import synthetic
-    from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.models import lm
 
-    cfg = dataclasses.replace(configs.get("llama3.2-3b"), n_layers=2)
     params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
     cpu_params = _to_cpu(params)
-    batch = synthetic.make_dataset(cfg, 256, 1, seed=SEED,
+    batch = synthetic.make_dataset(cfg, seq, 1, seed=SEED,
                                    device=dev).batch(0)
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     t0 = time.time()
-    fa_ops.reset_launches()
+    reset_counts()
     loss, grads = grad_leaves(params, batch, cfg)
-    check(fa_ops.LAUNCHES == {"flash_attn": 2 * cfg.n_layers,
-                              "flash_attn_bwd": cfg.n_layers},
-          f"[train-w] gradient launched {fa_ops.LAUNCHES}, expected "
-          f"{2 * cfg.n_layers} B5 (forward + remat) and {cfg.n_layers} "
-          f"B5-bwd")
+    check(counts() == want, f"{tag} gradient launched {counts()}, "
+                            f"expected {want}")
     t_card = time.time() - t0
+    del params, batch
+    torch.cuda.empty_cache()
+    cpu_side = functools.partial(_train_cpu_side, tag, cfg, seq, want,
+                                 desc, pool_kin, cpu_params, cpu_batch, loss,
+                                 grads, t_card)
+    if defer:
+        return cpu_side
+    cpu_side()
+
+
+def _train_cpu_side(tag, cfg, seq, want, desc, pool_kin, cpu_params,
+                    cpu_batch, loss, grads, t_card):
+    """`train_card_vs_cpu`'s CPU gradient, its witness where a leaf
+    misses 1e-2, and the comparison with the card's."""
     t0 = time.time()
     cpu_loss, cpu_grads = grad_leaves(cpu_params, cpu_batch, cfg)
     t_cpu = time.time() - t0
     check(abs(loss - cpu_loss) <= 1e-2 * abs(cpu_loss),
-          f"[train-w] loss card {loss} vs CPU {cpu_loss}")
+          f"{tag} loss card {loss} vs CPU {cpu_loss}")
     errs = {p: rel_l2(grads[p], cpu_grads[p]) for p in cpu_grads}
     bounds = {p: 1e-2 for p in errs}
     missed = [p for p in errs if errs[p] > 1e-2]
     if missed:
         with card_gemms():
             _, w_grads = grad_leaves(cpu_params, cpu_batch, cfg)
+        wit = {p: rel_l2(w_grads[p], cpu_grads[p]) for p in cpu_grads}
         for p in missed:
-            w = rel_l2(w_grads[p], cpu_grads[p])
-            bounds[p] = max(1e-2, 1.5 * w)
-            print(f"[train-w] {'/'.join(map(str, p))}: card vs CPU "
+            bounds[p] = max(1e-2, 1.5 * wit[p])
+            pooled = ""
+            if pool_kin and errs[p] > bounds[p]:
+                w_kin = max(wit[q] for q in wit if kin(q) == kin(p))
+                bounds[p] = max(1e-2, 1.5 * w_kin)
+                pooled = f", its kin's largest {w_kin:.3e}"
+            print(f"{tag} {'/'.join(map(str, p))}: card vs CPU "
                   f"{errs[p]:.3e}, witness (CPU bf16 GEMMs vs f32) "
-                  f"{w:.3e}, bound {bounds[p]:.3e}")
+                  f"{wit[p]:.3e}{pooled}, bound {bounds[p]:.3e}")
     worst = max(errs, key=errs.get)
     bad = {p: errs[p] for p in errs if errs[p] > bounds[p]}
-    check(not bad, f"[train-w] gradient leaves beyond their bound: {bad}")
-    print(f"[train-w] llama3.2-3b full width (d_model 3072, 24/8 heads, "
-          f"d_ff 8192, vocab 128,256), 2 layers, B=1 S=256 from "
-          f"make_dataset: loss card {loss:.6f} vs CPU {cpu_loss:.6f} "
-          f"(rel {abs(loss - cpu_loss) / abs(cpu_loss):.2e}, bound 1e-2); "
+    check(not bad, f"{tag} gradient leaves beyond their bound: {bad}")
+    launched = ", ".join(f"{n} {k}" for k, n in want.items() if n)
+    print(f"{tag} {desc}, B=1 S={seq} from make_dataset: loss card "
+          f"{loss:.6f} vs CPU {cpu_loss:.6f} (rel "
+          f"{abs(loss - cpu_loss) / abs(cpu_loss):.2e}, bound 1e-2); "
           f"{len(errs)} gradient leaves, relative L2 worst "
           f"{errs[worst]:.3e} ({'/'.join(map(str, worst))}), "
           f"{len(missed)} beyond 1e-2 held to their witness; card "
-          f"{t_card:.1f} s (4 B5, 2 B5-bwd), CPU {t_cpu:.1f} s")
+          f"{t_card:.1f} s ({launched}), CPU {t_cpu:.1f} s")
     sys.stdout.flush()
-    del params, cpu_params, grads, cpu_grads
-    torch.cuda.empty_cache()
+
+
+def phase_train_w(dev):
+    """llama3.2-3b at full width cut to 2 layers, B = 1, S = 256: card (B5,
+    B5-bwd) against CPU by `train_card_vs_cpu`'s rule."""
+    import repro_torch.configs as configs
+
+    cfg = dataclasses.replace(configs.get("llama3.2-3b"), n_layers=2)
+    train_card_vs_cpu(
+        dev, "[train-w]", cfg, 256,
+        launches(flash_attn=2 * cfg.n_layers, flash_attn_bwd=cfg.n_layers),
+        "llama3.2-3b full width (d_model 3072, 24/8 heads, d_ff 8192, vocab "
+        "128,256), 2 layers")
+
+
+def reset_counts() -> None:
+    """Every attention and scan kernel's launch count to 0."""
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+
+    fa_ops.reset_launches()
+    ms_ops.reset_launches()
+
+
+def counts() -> dict:
+    """The attention and scan kernels' launch counts."""
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.mamba_scan import ops as ms_ops
+
+    return {**fa_ops.LAUNCHES, **ms_ops.LAUNCHES}
+
+
+def launches(**kw) -> dict:
+    """A full launch-count dict: the counts named, every other one 0."""
+    full = dict.fromkeys(counts(), 0)
+    check(set(kw) <= set(full), f"unknown kernel counts {sorted(kw)}")
+    return {**full, **kw}
 
 
 def step_launches(fn, *args):
-    """``fn(*args)`` with the flash counters reset before it; returns its
-    result, the launch counts and the wall seconds (ending in a sync)."""
+    """``fn(*args)`` with the attention and scan counters reset before it;
+    returns its result, the launch counts and the wall seconds (ending in
+    a sync)."""
     import torch
 
-    from repro_torch.kernels.flash_attn import ops as fa_ops
-
-    fa_ops.reset_launches()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     out = fn(*args)
     torch.cuda.synchronize()
-    return out, dict(fa_ops.LAUNCHES), time.time() - t0
+    return out, counts(), time.time() - t0
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 10
+# falcon-mamba-7b's depth in [train-m] (of 64: 7.27 B parameters at 12
+# bytes each are ~87 GB of state), and [train-zw]'s sequence, half of
+# [train-w]'s: the CPU's reference scan keeps each doubling step's
+# (L, 80, 64, 64) f32 state for autograd (~2 GB a layer at 128 tokens),
+# and [serve-zw]'s CPU side alone took 44 s at 300 tokens
+TRAIN_M_LAYERS = 16
+ZW_SEQ = 128
 
 
 def phase_train(dev) -> int:
@@ -2805,8 +2929,8 @@ def phase_train(dev) -> int:
     t_init = time.time() - t0
     steps = {v: step_lib.make_train_step(cfg, opt_cfg, variant=v)
              for v in (step_lib.BALANCED, step_lib.COMM_PRIORITY)}
-    want = {0: {"flash_attn": 2 * L, "flash_attn_bwd": L},
-            1: {"flash_attn": 4 * L, "flash_attn_bwd": 2 * L}}
+    want = {0: launches(flash_attn=2 * L, flash_attn_bwd=L),
+            1: launches(flash_attn=4 * L, flash_attn_bwd=2 * L)}
     first = {}
     for v in (step_lib.BALANCED, step_lib.COMM_PRIORITY):
         if v == step_lib.COMM_PRIORITY:   # the same state: step 0's again
@@ -3027,6 +3151,415 @@ def train_paths(dev, t_start) -> tuple[dict, int]:
     return b5b, counts["flash_attn"]
 
 
+# --------------------------------------------------------------------------
+# the scans' backward kernels (B6-bwd, B7-bwd) and the SSM training paths
+# --------------------------------------------------------------------------
+
+def b7b_bound(b, L, d, s, elem, ghl):
+    """Least time of one B7-bwd call: dt, xc, gy (B, L, D), B, C, A, the
+    tile checkpoints (and g_hlast) read once, ddt, dxc, dB, dC, dA and dh0
+    written once; one exponential per (t, d, s) at the MUFU rate."""
+    n = b * L * d * s
+    ckpt = b * -(-L // 64) * d * s * 4
+    nbytes = (b * L * d * (4 + elem + 4) + 2 * b * L * s * elem + d * s * 4
+              + ckpt + (b * d * s * 4 if ghl else 0)
+              + b * L * d * (4 + elem) + 2 * b * L * s * elem + d * s * 4
+              + b * d * s * 4)
+    return bound_ms(nbytes, n, PEAK_EXP_S)
+
+
+def b6b_bound(b, L, d, s):
+    """Least time of one B6-bwd launch: g_hs, a and hs read and da, db
+    written once (B*L*D*S floats each), h0 and g_hlast read and dh0 written
+    once; 3 flops per element at the f32 rate."""
+    n = b * L * d * s
+    return bound_ms((5 * n + 3 * b * d * s) * 4, 3 * n, PEAK_F32_FLOP_S)
+
+
+def phase_b7b(dev):
+    """B7-bwd against `fused_mamba_scan_plain_bwd` at falcon-mamba's
+    training shape (4, 2048, 8192, 16) bf16, zamba2's channels (4, 2048,
+    5120, 64) bf16 from a nonzero h0 and g_hlast, a ragged L = 517 and an
+    f32 case at S = 8: each of the six gradients within relative L2 1e-5
+    where returned in f32 and 1e-2 where returned in bf16, two calls
+    bitwise equal, and B7's y and h_last bitwise the same with the tile
+    checkpoints written and without; timed at the two training shapes
+    beside the bound and the plain version, with B7's forward with and
+    without checkpoints.  Returns B7-bwd's kernels row."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import fused as ms_fused
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, b, L, d, s, dtype, A's kind, h0 and g_hlast, timed)
+    cases = [("falcon-mamba-7b", 4, 2048, 8192, 16, bf16, "falcon", False,
+              True),
+             ("zamba2-2.7b", 4, 2048, 5120, 64, bf16, "zamba2", True, True),
+             ("ragged L", 1, 517, 8192, 16, bf16, "falcon", True, False),
+             ("f32 S = 8", 2, 300, 1000, 8, f32, "jax", True, False)]
+    names = ("ddt", "dxc", "dB", "dC", "dA", "dh0")
+    worst = {f32: 0.0, bf16: 0.0}
+    max_abs, rows, t0 = 0.0, {}, time.time()
+    for label, b, L, d, s, dtype, kind, state, timed in cases:
+        dt, xc, bm, cm, a_mat, h0 = b7_inputs(g, b, L, d, s, dtype, kind,
+                                              state)
+        gy = torch.randn((b, L, d), generator=g, device=dev)
+        ghl = torch.randn((b, d, s), generator=g, device=dev) if state \
+            else None
+        y0, hl0 = ms_kernel.mamba_fused(dt, xc, bm, cm, a_mat, h0)
+        y1, hl1, ckpt = ms_kernel.mamba_fused(dt, xc, bm, cm, a_mat, h0,
+                                              checkpoints=True)
+        check(torch.equal(y0, y1) and torch.equal(hl0, hl1),
+              f"[B7b] {label}: B7's y or h_last differ with checkpoints")
+        del y0, hl0, y1, hl1
+        got = ms_kernel.mamba_fused_bwd(dt, xc, bm, cm, a_mat, ckpt, gy, ghl)
+        again = ms_kernel.mamba_fused_bwd(dt, xc, bm, cm, a_mat, ckpt, gy,
+                                          ghl)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = ms_fused.fused_mamba_scan_plain_bwd(dt, xc, bm, cm, a_mat, h0,
+                                                   gy, ghl)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain_ms = ev[0].elapsed_time(ev[1])
+        for name, x, y, w in zip(names, got, again, want):
+            check(x.dtype == w.dtype and x.shape == w.shape
+                  and torch.equal(x, y),
+                  f"[B7b] {label} {name}: misshapen, or two calls differ")
+            err = rel_l2(x, w)
+            bound = 1e-2 if x.dtype == bf16 else 1e-5
+            check(err <= bound, f"[B7b] {label} {name}: relative L2 "
+                                f"{err:.3e} > {bound:g}")
+            worst[x.dtype] = max(worst[x.dtype], err)
+            max_abs = max(max_abs, float((x.float() - w.float()).abs().max()))
+        del got, again, want
+        if timed:
+            def kern():
+                return ms_kernel.mamba_fused_bwd(dt, xc, bm, cm, a_mat, ckpt,
+                                                 gy, ghl)
+
+            ms = cuda_ms(kern, 3)
+            _, dev_ms, top_dev, _, _ = profile_device(kern, 3, whole=True)
+            walk = sum(t for n, t in top_dev if "mamba_fused_bwd" in n)
+            fwd = {ck: cuda_ms(lambda: ms_kernel.mamba_fused(
+                dt, xc, bm, cm, a_mat, h0, checkpoints=ck), 5)
+                for ck in (False, True)}
+            bm_, by = b7b_bound(b, L, d, s, 2, state)
+            rows[label] = dict(shape=(b, L, d, s), ms=ms, dev_ms=dev_ms,
+                               walk=walk, plain=plain_ms, bm=bm_, by=by,
+                               fwd=fwd, ckpt_mb=ckpt.numel() * 4 / 1e6)
+        del dt, xc, bm, cm, a_mat, h0, gy, ghl, ckpt
+        torch.cuda.empty_cache()
+    print(f"[B7b] mamba_fused_bwd (the walk back from B7's tile checkpoints,"
+          f" then the fixed-order sums of dB, dC and dA) against "
+          f"fused_mamba_scan_plain_bwd at {len(cases)} shapes "
+          f"({', '.join(c[0] for c in cases)}): relative L2 worst of the "
+          f"six gradients f32 {worst[f32]:.3e} (bound 1e-5), bf16 "
+          f"{worst[bf16]:.3e} (bound 1e-2), max abs err {max_abs:.3e}; two "
+          f"calls bitwise equal and B7's y and h_last bitwise the same with "
+          f"checkpoints and without at every shape; {time.time() - t0:.1f} s")
+    for label, r in rows.items():
+        print(f"[B7b] {label} {r['shape']} bf16: kernel events "
+              f"{r['ms']:.4f} ms per call, device {fmt_ms(r['dev_ms'])} (the "
+              f"walk {fmt_ms(r['walk'])}, the sums the rest); bound "
+              f"{r['bm']:.4f} ms ({r['by']}); plain {r['plain']:.1f} ms; "
+              f"B7's forward {r['fwd'][False]:.4f} ms, with checkpoints "
+              f"({r['ckpt_mb']:.0f} MB) {r['fwd'][True]:.4f} ms")
+    sys.stdout.flush()
+    r, z = rows["falcon-mamba-7b"], rows["zamba2-2.7b"]
+    return dict(name="mamba_fused_bwd", route="cuda",
+                source="src/repro_torch/kernels/mamba_scan/csrc/"
+                       "mamba_scan_bwd.cu",
+                replaces="none: the gradient of src/repro/kernels/"
+                         "mamba_scan/fused.py:28's function (the JAX package"
+                         " differentiates fused_chunked_scan_m1 / _m2, src/"
+                         "repro/models/mamba.py:89 and :128, with XLA)",
+                launches=None, max_abs_err=max_abs, ms=r["ms"],
+                plain_ms=r["plain"], bound_ms=r["bm"], bound_by=r["by"],
+                library_ms=None, shape="(4, 2048, 8192, 16) bf16",
+                device_ms=r["dev_ms"],
+                zamba2=dict(shape="(4, 2048, 5120, 64) bf16 from h0",
+                            ms=z["ms"], device_ms=z["dev_ms"],
+                            plain_ms=z["plain"], bound_ms=z["bm"],
+                            bound_by=z["by"], library_ms=None))
+
+
+def phase_b6b(dev):
+    """B6-bwd bitwise against `scan_ref_bwd` at a small shape and at the
+    forward shape (1, 2048, 8192, 16), from a nonzero h0 and g_hlast, two
+    launches bitwise equal; timed there beside its bound and the plain
+    version.  Returns B6-bwd's kernels row."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.kernels.mamba_scan.ref import scan_ref_bwd
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    shapes = [(2, 64, 32, 8), (1, 2048, 8192, 16)]
+    for b, L, d, s in shapes:
+        a, bb, h0 = scan_inputs(g, b, L, d, s)
+        hs, _ = ms_kernel.mamba_scan(a, bb, h0)
+        del bb
+        g_hs = torch.randn((b, L, d, s), generator=g, device=dev)
+        ghl = torch.randn((b, d, s), generator=g, device=dev)
+        got = ms_kernel.mamba_scan_bwd(a, hs, h0, g_hs, ghl)
+        again = ms_kernel.mamba_scan_bwd(a, hs, h0, g_hs, ghl)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = scan_ref_bwd(a, hs, h0, g_hs, ghl)
+        ev[1].record()
+        torch.cuda.synchronize()
+        plain = ev[0].elapsed_time(ev[1])
+        for name, x, y, w in zip(("da", "db", "dh0"), got, again, want):
+            check(torch.equal(x, w) and torch.equal(x, y),
+                  f"[B6b] {(b, L, d, s)} {name} differs from its plain "
+                  f"version or between two launches")
+        del got, again, want
+    ms = cuda_ms(lambda: ms_kernel.mamba_scan_bwd(a, hs, h0, g_hs, ghl), 5)
+    bm, by = b6b_bound(b, L, d, s)
+    gbs = (5 * b * L * d * s + 3 * b * d * s) * 4 / ms / 1e6
+    print(f"[B6b] mamba_scan_bwd bitwise equal to scan_ref_bwd at "
+          f"{shapes} (nonzero h0 and g_hlast), two launches bitwise equal; "
+          f"at {(b, L, d, s)}: kernel {ms:.4f} ms ({gbs:.0f} GB/s), plain "
+          f"{plain:.1f} ms, bound {bm:.4f} ms ({by})")
+    sys.stdout.flush()
+    del a, hs, h0, g_hs, ghl
+    torch.cuda.empty_cache()
+    return dict(name="mamba_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/mamba_scan/csrc/"
+                       "mamba_scan_bwd.cu",
+                replaces="none: the gradient of src/repro/kernels/"
+                         "mamba_scan/kernel.py:30's function (the JAX package"
+                         " differentiates chunked_scan, src/repro/models/"
+                         "mamba.py:61, with XLA; its Pallas kernel has no "
+                         "VJP)",
+                launches=None, max_abs_err=0.0, ms=ms, plain_ms=plain,
+                bound_ms=bm, bound_by=by, library_ms=None,
+                shape="(1, 2048, 8192, 16)")
+
+
+SSM_TRAIN_STEPS = 4
+
+
+def phase_train_ssm(dev, tag, cfg, want0, note, kernel_want=None) -> dict:
+    """``cfg`` at full width, remat "full", B = 4, S = 2048, on the
+    launcher's optimizer settings: one step of
+    each variant from the same state and batch (losses within 2e-2 of each
+    other and finite, the first leaf's parameters within 2e-2, exactly
+    ``want0`` launches a balanced step and twice that a comm-priority
+    step), then loop.run on the launcher's KF scheduler for
+    SSM_TRAIN_STEPS steps from the initial state again (made anew from the
+    seed: each loss is then on a batch the state has not been trained on;
+    finite losses, the last below the first, exact launch counts), its
+    wall per step, tokens/s, the device's busy share and the peak memory;
+    with ``kernel_want``, then one balanced step with use_kernel=True at
+    B = 1 launching exactly that.  Returns the launches of every step it
+    took."""
+    import torch
+
+    from repro_torch._util import map_tree, tree_leaves
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+
+    total = launches()
+
+    def add(c):
+        for k, v in c.items():
+            total[k] += v
+
+    # the launcher's lr (3e-4) and warmup (100 steps): with [train]'s
+    # 2-step warmup a random-init falcon-mamba's loss rose 9.93 -> 13.38
+    # within 4 steps (10.72 -> 12.13 at lr 1e-4), zamba2's 9.90 -> 15.71
+    opt_cfg = opt_lib.OptimizerConfig(total_steps=100,
+                                      moment_dtype=cfg.optimizer_dtype)
+
+    def init():
+        return step_lib.init_train_state(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, opt_cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = init()
+    n_params = sum(t.numel() for _, t in tree_leaves(state.params))
+    params0 = map_tree(torch.clone, state.params)
+    ds = synthetic.make_dataset(cfg, TRAIN_S, TRAIN_B, seed=SEED, device=dev)
+    batch = ds.batch(0)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    steps = {v: step_lib.make_train_step(cfg, opt_cfg, variant=v)
+             for v in (step_lib.BALANCED, step_lib.COMM_PRIORITY)}
+    want = {0: want0, 1: {k: 2 * v for k, v in want0.items()}}
+    first = {}
+    for v in (step_lib.BALANCED, step_lib.COMM_PRIORITY):
+        if v == step_lib.COMM_PRIORITY:   # the same state: step 0's again
+            del state
+            torch.cuda.empty_cache()
+            state = step_lib.TrainState(params0,
+                                        opt_lib.init(opt_cfg, params0))
+        (state, m), c, wall = step_launches(steps[v], state, batch)
+        check(c == want[v], f"{tag} variant {v} step launched {c}, "
+                            f"expected {want[v]}")
+        add(c)
+        leaf = next(tree_leaves(state.params))
+        first[v] = (float(m["loss"]), leaf[1].float().cpu(), leaf[0], wall)
+    (l0, p0, path, w0), (l1, p1, _, w1) = first[0], first[1]
+    check(abs(l0 - l1) <= 2e-2 * abs(l0) and all(map(math.isfinite,
+                                                      (l0, l1))),
+          f"{tag} variant losses {l0} vs {l1}")
+    check(bool(((p0 - p1).abs() <= 2e-2 + 2e-2 * p1.abs()).all()),
+          f"{tag} the variants' first leaf {path} apart: max "
+          f"{float((p0 - p1).abs().max())}")
+    per_step = ", ".join(f"{n} {k}" for k, n in want0.items() if n)
+    print(f"{tag} {cfg.name} full width, {note}, {n_params / 1e9:.2f} B "
+          f"parameters, remat full, B={TRAIN_B} S={TRAIN_S}: init "
+          f"{t_init:.1f} s; one step of each variant from the same state: "
+          f"balanced loss {l0:.5f} ({w0:.2f} s; {per_step}), comm-priority "
+          f"loss {l1:.5f} ({w1:.2f} s, twice the launches), first leaf "
+          f"{'/'.join(map(str, path))} within 2e-2 (max |diff| "
+          f"{float((p0 - p1).abs().max()):.2e})")
+    sys.stdout.flush()
+
+    del state, params0
+    torch.cuda.empty_cache()
+    state = init()
+    sched = launch_train.make_scheduler()
+    walls = []
+    timed = {v: (lambda f: lambda s, b: _timed(f, s, b, walls))(f)
+             for v, f in steps.items()}
+    res, c, wall = step_launches(
+        lambda: loop_lib.run(loop_lib.LoopConfig(
+            total_steps=SSM_TRAIN_STEPS, log_every=0), state, timed,
+            ds.batch, sched, log=lambda s: None))
+    del state
+    n = len(res.losses)
+    per_v = {v: res.variants.count(v) for v in (0, 1)}
+    want_c = {k: per_v[0] * want[0][k] + per_v[1] * want[1][k]
+              for k in want0}
+    check(n == SSM_TRAIN_STEPS and all(map(math.isfinite, res.losses)),
+          f"{tag} loop losses {res.losses}")
+    check(res.losses[-1] < res.losses[0],
+          f"{tag} loss did not fall: {res.losses}")
+    check(c == want_c, f"{tag} loop launched {c}, expected {want_c}")
+    add(c)
+    state = res.state
+    step_s = statistics.median(walls[1:])
+    toks = TRAIN_B * TRAIN_S
+    extra = ds.batch(SSM_TRAIN_STEPS)
+    reset_counts()
+    p_wall, busy, top_dev, _, p_note = profile_device(
+        lambda: steps[0](state, extra), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{tag} loop.run {n} steps from the initial state (KF "
+          f"scheduler; variants "
+          f"{res.variants}): losses "
+          + ", ".join(f"{x:.4f}" for x in res.losses)
+          + f"; launches {c}; wall {wall:.1f} s, step wall median "
+          f"{step_s:.3f} s ({toks / step_s:.0f} tokens/s); one more step "
+          f"alone, profiled: wall {p_wall:.1f} ms ({toks / p_wall * 1e3:.0f}"
+          f" tokens/s), device busy {fmt_ms(busy)}{p_note}, idle share "
+          + (f"{max(0.0, 1 - busy / p_wall):.3f}" if busy > 0
+             else "not measured")
+          + f"; top device ops (ms a step): {fmt_top(top_dev)}; peak device "
+          f"memory {peak:.1f} GB (torch.cuda.max_memory_allocated)")
+    sys.stdout.flush()
+    del res, batch, extra
+
+    if kernel_want is not None:
+        one = synthetic.make_dataset(cfg, TRAIN_S, 1, seed=SEED,
+                                     device=dev).batch(0)
+        step_k = step_lib.make_train_step(cfg, opt_cfg, use_kernel=True)
+        (state, m), c, wall = step_launches(step_k, state, one)
+        check(c == kernel_want and math.isfinite(float(m["loss"])),
+              f"{tag} use_kernel step launched {c} (expected "
+              f"{kernel_want}), loss {float(m['loss'])}")
+        add(c)
+        print(f"{tag} one balanced step with use_kernel=True at B=1 "
+              f"S={TRAIN_S}: loss {float(m['loss']):.5f}, "
+              + ", ".join(f"{n} {k}" for k, n in kernel_want.items() if n)
+              + f", {wall:.2f} s")
+        sys.stdout.flush()
+    del state
+    torch.cuda.empty_cache()
+    return total
+
+
+def ssm_train_paths(dev, t_start) -> tuple[dict, dict, dict]:
+    """[B7b], [B6b], [train-mw], [train-zw], [train-m], [train-z]; returns
+    B7-bwd's and B6-bwd's kernels rows, their launches counted on the
+    training paths, and every launch of the [train-m] / [train-z] steps.
+    [train-mw]'s and [train-zw]'s CPU sides (their CPU gradients and
+    witnesses, ~90 s of host work) run on a worker thread while the card
+    takes [train-m] and [train-z]'s steps; a failure on either side fails
+    the script (the thread is a daemon, so a failing main thread does not
+    wait for it)."""
+    import threading
+
+    import repro_torch.configs as configs
+
+    b7b = phase_b7b(dev)
+    b6b = phase_b6b(dev)
+    fm, zb = configs.get("falcon-mamba-7b"), configs.get("zamba2-2.7b")
+    cfg = dataclasses.replace(fm, n_layers=2)
+    cpu_sides = [train_card_vs_cpu(
+        dev, "[train-mw]", cfg, 256,
+        launches(mamba_fused=2 * cfg.n_layers, mamba_fused_bwd=cfg.n_layers),
+        "falcon-mamba-7b full width (d_model 4096, d_inner 8192, state 16, "
+        "vocab 65,024), 2 layers", pool_kin=True, defer=True)]
+    p = zb.shared_attn_period
+    cfg = dataclasses.replace(zb, n_layers=p)
+    cpu_sides.append(train_card_vs_cpu(
+        dev, "[train-zw]", cfg, ZW_SEQ,
+        launches(mamba_fused=2 * p, mamba_fused_bwd=p, flash_attn=2,
+                 flash_attn_bwd=1),
+        f"zamba2-2.7b full width (d_model 2560, d_inner 5120, state 64, "
+        f"32/32 heads of 80, vocab 32,000), one super-block ({p} mamba2 "
+        f"layers and the shared block)", pool_kin=True, defer=True))
+    errors = []
+
+    def cpu_work():
+        try:
+            for side in cpu_sides:
+                side()
+        except BaseException as e:   # re-raised on the main thread
+            errors.append(e)
+
+    worker = threading.Thread(target=cpu_work, daemon=True)
+    worker.start()
+    stamp("the SSM kernels and the card sides of [train-mw] / [train-zw]",
+          t_start)
+    cfg = dataclasses.replace(fm, n_layers=TRAIN_M_LAYERS)
+    total = phase_train_ssm(
+        dev, "[train-m]", cfg,
+        launches(mamba_fused=2 * TRAIN_M_LAYERS,
+                 mamba_fused_bwd=TRAIN_M_LAYERS),
+        f"{TRAIN_M_LAYERS} of its {fm.n_layers} layers (all 64: ~87 GB of "
+        f"state, more than one card holds)",
+        kernel_want=launches(mamba_scan=2 * TRAIN_M_LAYERS,
+                             mamba_scan_bwd=TRAIN_M_LAYERS))
+    n_super = zb.n_layers // p
+    z = phase_train_ssm(
+        dev, "[train-z]", zb,
+        launches(mamba_fused=2 * zb.n_layers, mamba_fused_bwd=zb.n_layers,
+                 flash_attn=2 * n_super, flash_attn_bwd=n_super),
+        f"all {zb.n_layers} layers ({n_super} super-blocks of {p} mamba2 "
+        f"layers and the shared block)")
+    for k, v in z.items():
+        total[k] += v
+    stamp("[train-m] and [train-z]", t_start)
+    worker.join()
+    if errors:
+        raise errors[0]
+    stamp("the SSM training path", t_start)
+    b7b["launches"] = total["mamba_fused_bwd"]
+    b6b["launches"] = total["mamba_scan_bwd"]
+    return b7b, b6b, total
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -3065,11 +3598,13 @@ def main() -> int:
     libs = [("noc_cycle", kernel.SOURCES), ("kf_bank", kf_kernel.SOURCES),
             ("flash_attn", fa_kernel.SOURCES),
             ("flash_attn_bwd", fa_kernel.BWD_SOURCES),
-            ("mamba_scan", ms_kernel.SOURCES)]
+            ("mamba_scan", ms_kernel.SOURCES),
+            ("mamba_scan_bwd", ms_kernel.BWD_SOURCES)]
     _build.build_all(libs)              # one nvcc per source, in parallel
     for mod in (kernel, kf_kernel, fa_kernel, ms_kernel):
         mod.library()
     fa_kernel.bwd_library()
+    ms_kernel.bwd_library()
     print(f"[1] kernel build + load: {time.time() - t0:.1f} s "
           f"({', '.join(src[0].name for _, src in libs)})")
     usage = {}
@@ -3084,7 +3619,10 @@ def main() -> int:
                for t in ("bf16", "f32") for d in fa_kernel.HEAD_DIMS}
             | {f"B5b delta {t}" for t in ("bf16", "f32")}
             | {f"B7 {t} S{n}{w}" for t in ("bf16", "f32")
-               for n in ms_kernel.FUSED_STATES for w in ("", " narrow")})
+               for n in ms_kernel.FUSED_STATES for w in ("", " narrow")}
+            | {"B6b"} | {f"B7b {t} S{n}" for t in ("bf16", "f32")
+                         for n in ms_kernel.FUSED_STATES}
+            | {f"B7b sums {t}" for t in ("bf16", "f32")})
     check(set(usage) == want,
           f"ptxas report lacks a kernel: {sorted(want - set(usage))}")
     print(f"[1] ptxas -v per thread: {json.dumps(usage, sort_keys=True)}")
@@ -3097,8 +3635,8 @@ def main() -> int:
           f"ms per call, device {fmt_ms(floor_dev_ms)} per launch")
     b7_spill = {k: v for k, v in usage.items() if k.startswith("B7")
                 and v["stack"] + v["spill_stores"] + v["spill_loads"]}
-    check(not b7_spill, f"a B7 instantiation has a stack or spills: "
-                        f"{b7_spill}")
+    check(not b7_spill, f"a B7 or B7-bwd instantiation has a stack or "
+                        f"spills: {b7_spill}")
     b5b_spill = {k: v for k, v in usage.items()
                  if k.startswith("B5b") and "bf16" in k
                  and v["stack"] + v["spill_stores"] + v["spill_loads"]}
@@ -3326,13 +3864,21 @@ def main() -> int:
 
     stamp("phases 1-3", t_start)
 
-    # ---- phase 4: engine congruence at the full grid, 6 x 500 cycles, with
-    # the flight recorder on
+    # ---- phase 4: engine congruence at the full grid, CONG_EPOCHS x 500
+    # cycles, with the flight recorder on; the live case's fault and
+    # placement streams built for CONG_EPOCHS epochs, every mask kind and
+    # both telemetry faults inside them
     b1_launches = None
-    cases = (("kf", sim.NoCConfig(mode="kf", **short), "SHIFT_PATH_BFS"),
-             ("kf+guard+joint+faults+placement", live, "SHIFT_PATH_BFS"),
-             ("4subnet", sim.NoCConfig(mode="4subnet", **short), "STO"),
-             ("fair", sim.NoCConfig(mode="fair", **short), "STO"))
+    cong = dict(short, n_epochs=CONG_EPOCHS)
+    live_c = dataclasses.replace(
+        live, n_epochs=CONG_EPOCHS,
+        faults=fault_stream(topo, CONG_EPOCHS, telem_at=CONG_EPOCHS - 2),
+        placement=placement_stream(topo, CONG_EPOCHS))
+    cases = (("kf", sim.NoCConfig(mode="kf", **cong), "SHIFT_PATH_BFS"),
+             ("kf+guard+joint+faults+placement", live_c, "SHIFT_PATH_BFS"),
+             ("4subnet", sim.NoCConfig(mode="4subnet", **cong), "STO"),
+             ("fair", sim.NoCConfig(mode="fair", **cong), "STO"))
+    n_cong = CONG_EPOCHS * short["epoch_len"]
     for label, cfg, wl in cases:
         res, trc, secs = {}, {}, {}
         for engine in ("fused", "arb", "ref"):
@@ -3343,11 +3889,11 @@ def main() -> int:
                 rng=torch.Generator(device=dev).manual_seed(SEED))
             secs[engine] = time.time() - t0
             if engine == "fused":
-                check(ops.LAUNCHES["noc_fused_cycles_probed"] == 6
+                check(ops.LAUNCHES["noc_fused_cycles_probed"] == CONG_EPOCHS
                       and ops.LAUNCHES["noc_fused_cycles"] == 0,
                       f"traced fused engine launched {ops.LAUNCHES}")
             if engine == "arb":
-                check(ops.LAUNCHES["noc_arbitrate"] == 3000,
+                check(ops.LAUNCHES["noc_arbitrate"] == n_cong,
                       f"arb engine launched B1 {ops.LAUNCHES} times")
                 if label == "kf":
                     b1_launches = ops.LAUNCHES["noc_arbitrate"]
@@ -3365,7 +3911,7 @@ def main() -> int:
                   "kf run never changed its applied_config")
         tsum = summarize_trace(trc["fused"])
         print(f"[4] {label}/{wl}: fused == arb == ref bitwise (SimResult "
-              f"and SimTrace) over 6x500 cycles; applied_config "
+              f"and SimTrace) over {CONG_EPOCHS}x500 cycles; applied_config "
               f"{conf.tolist()}; trace digest grants "
               f"{tsum['arb_grant_total']}, denies {tsum['arb_deny_total']}, "
               f"rejects {tsum['kf_rejected_total']}, fault epochs "
@@ -3539,6 +4085,15 @@ def main() -> int:
     b5b, b5_train = train_paths(dev, t_start)
     b5["launches"] += b5_train
 
+    # ---- the SSM training paths: falcon-mamba-7b through B7 and B7-bwd
+    # (and B6, B6-bwd with use_kernel), zamba2-2.7b through B7, B7-bwd, B5
+    # and B5-bwd
+    b7b, b6b, ssm = ssm_train_paths(dev, t_start)
+    b5["launches"] += ssm["flash_attn"]
+    b5b["launches"] += ssm["flash_attn_bwd"]
+    b6["launches"] += ssm["mamba_scan"]
+    b7["launches"] += ssm["mamba_fused"]
+
     # ---- phase 6: the kernels line
     nb2, op2 = b2_bound(d, 500)
     nb3, op3 = b3_bound(d, 500)
@@ -3566,7 +4121,7 @@ def main() -> int:
              ms=b3_ms,
              plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),
-        b4, b5, b5b, b6, b7,
+        b4, b5, b5b, b6, b7, b6b, b7b,
     ]
     print(f"[6] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,11 @@
 // from dt, xc (B, L, D), B, C (B, L, S) and A (D, S), runs the recurrence
 // from h0 (zero when none is given) and emits only y = sum_s h * C
 // (B, L, D) and h_last (B, D, S).  xc, B and C are float32 or bfloat16
-// (the model's activations), cast to float32 on load.  S is 8 or 16
+// (the model's activations), cast to float32 on load.  Asked for them (a
+// call that needs a gradient), it also writes the state at the start of
+// each tile, ckpt (B, ceil(L / B7_TILE), D, S) float32, which B7-bwd
+// (csrc/mamba_scan_bwd.cu) walks back from; the stores change nothing
+// else, so y and h_last are the same bits with and without them.  S is 8 or 16
 // (Mamba1, falcon-mamba) or 64 (Mamba2 / SSD, zamba2: the port's
 // models/mamba.fused_chunked_scan_m2 hands B7 a head's dt and decay
 // repeated over the head's channels, so the SSD scan is this function).
@@ -387,7 +391,8 @@ mamba_fused_kernel(const float* __restrict__ dt, const T* __restrict__ xc,
                    const T* __restrict__ bm, const T* __restrict__ cm,
                    const float* __restrict__ a_mat,
                    const float* __restrict__ h0, int L, int D,
-                   float* __restrict__ y, float* __restrict__ h_last) {
+                   float* __restrict__ y, float* __restrict__ h_last,
+                   float* __restrict__ ckpt) {
   using Lay = FusedLayout<S>;
   static_assert(Lay::kOk, "B7 layout");
   constexpr int K = Lay::K, G = Lay::G;
@@ -410,9 +415,16 @@ mamba_fused_kernel(const float* __restrict__ dt, const T* __restrict__ xc,
   __syncthreads();
   convert_tile<T, S>(tile, arr, tid);
   __syncthreads();
+  const int n_tiles = (L + kFTile - 1) / kFTile;
   for (int t0 = 0; t0 < L; t0 += kFTile) {
     const int n = min(kFTile, L - t0);
     const bool more = t0 + kFTile < L;
+    if (ckpt != nullptr && live) {  // the state before step t0
+      const long long at =
+          (((long long)blockIdx.y * n_tiles + t0 / kFTile) * D + d) * S + j;
+#pragma unroll
+      for (int i = 0; i < K; ++i) ckpt[at + i * G] = h[i];
+    }
     // the arrival area was last read by the conversion before the
     // previous barrier
     if (more)
@@ -456,7 +468,7 @@ template <typename T, int S, bool WIDE>
 int launch_fused_as(const float* dt, const void* xc, const void* b,
                     const void* c, const float* a_mat, const float* h0,
                     int bsz, int L, int D, float* y, float* h_last,
-                    cudaStream_t stream) {
+                    float* ckpt, cudaStream_t stream) {
   constexpr int kBytes = ArrivalLayout<T, S>::kBytes;
   auto kernel = mamba_fused_kernel<T, S, WIDE>;
   if (kBytes > 232448) return (int)cudaErrorInvalidValue;  // > 227 KB
@@ -475,7 +487,7 @@ int launch_fused_as(const float* dt, const void* xc, const void* b,
   const dim3 grid((D + FusedLayout<S>::CH - 1) / FusedLayout<S>::CH, bsz);
   kernel<<<grid, kFThreads, kBytes, stream>>>(
       dt, static_cast<const T*>(xc), static_cast<const T*>(b),
-      static_cast<const T*>(c), a_mat, h0, L, D, y, h_last);
+      static_cast<const T*>(c), a_mat, h0, L, D, y, h_last, ckpt);
   return (int)cudaGetLastError();
 }
 
@@ -489,16 +501,17 @@ bool aligned(const void* p, size_t n) {
 template <typename T, int S>
 int launch_fused(const float* dt, const void* xc, const void* b,
                  const void* c, const float* a_mat, const float* h0, int bsz,
-                 int L, int D, float* y, float* h_last, cudaStream_t stream) {
+                 int L, int D, float* y, float* h_last, float* ckpt,
+                 cudaStream_t stream) {
   if constexpr (!FusedLayout<S>::kOk) {
     return (int)cudaErrorInvalidValue;  // see FusedLayout::kOk
   } else {
     if (D % (16 / sizeof(T)) == 0 && aligned(dt, 16) && aligned(xc, 16) &&
         aligned(b, 16) && aligned(c, 16) && aligned(y, 16))
       return launch_fused_as<T, S, true>(dt, xc, b, c, a_mat, h0, bsz, L, D,
-                                         y, h_last, stream);
+                                         y, h_last, ckpt, stream);
     return launch_fused_as<T, S, false>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                        h_last, stream);
+                                        h_last, ckpt, stream);
   }
 }
 
@@ -515,7 +528,8 @@ extern "C" int mamba_scan_fwd(const float* a, const float* b, const float* h0,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (of xc, b and c); s: 8, 16 or 64.
+// dtype: 0 = float32, 1 = bfloat16 (of xc, b and c); s: 8, 16 or 64;
+// ckpt: the tile checkpoints, or null for none.
 // B7's instantiation: {states per thread, steps in flight, threads per
 // block, steps per tile}; at S = 8 a thread holds min(K, 8) states.
 extern "C" void mamba_fused_config(int* out) {
@@ -526,17 +540,17 @@ template <typename T>
 int launch_fused_s(int s, const float* dt, const void* xc, const void* b,
                    const void* c, const float* a_mat, const float* h0,
                    int bsz, int L, int D, float* y, float* h_last,
-                   cudaStream_t stream) {
+                   float* ckpt, cudaStream_t stream) {
   switch (s) {
     case 8:
       return launch_fused<T, 8>(dt, xc, b, c, a_mat, h0, bsz, L, D, y, h_last,
-                                stream);
+                                ckpt, stream);
     case 16:
       return launch_fused<T, 16>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                 h_last, stream);
+                                 h_last, ckpt, stream);
     case 64:  // mamba2 (zamba2): d_state 64
       return launch_fused<T, 64>(dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                 h_last, stream);
+                                 h_last, ckpt, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -546,14 +560,14 @@ extern "C" int mamba_fused_fwd(int dtype, int s, const float* dt,
                                const void* xc, const void* b, const void* c,
                                const float* a_mat, const float* h0, int bsz,
                                int L, int D, float* y, float* h_last,
-                               cudaStream_t stream) {
+                               float* ckpt, cudaStream_t stream) {
   if (bsz <= 0 || L <= 0 || D <= 0 || bsz > 65535)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch_fused_s<float>(s, dt, xc, b, c, a_mat, h0, bsz, L, D, y,
-                                 h_last, stream);
+                                 h_last, ckpt, stream);
   if (dtype == 1)
     return launch_fused_s<__nv_bfloat16>(s, dt, xc, b, c, a_mat, h0, bsz, L,
-                                         D, y, h_last, stream);
+                                         D, y, h_last, ckpt, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,9 +22,18 @@ from zero; the model's scan passes one); ``chunk`` and ``block_d`` are
 kept for the reference's signature and change nothing on the card, where
 a few lanes walk the whole sequence of one (batch, d) channel, several
 states each (csrc/mamba_scan.cu's head note).  Launches count in
-`ops.LAUNCHES["mamba_fused"]`.  B7 has no backward kernel yet: on CUDA
-tensors that require a gradient, while gradients are recorded, it raises
-NotImplementedError naming ROADMAP A6b (`ops.refuse_grad`).
+`ops.LAUNCHES["mamba_fused"]`.
+
+The gradient.  While gradients are recorded and an input requires one,
+`fused_mamba_scan` goes through `MambaFusedScan`: on CUDA tensors B7's
+forward writes, beside y and h_last, the states at its tile boundaries
+(B, ceil(L / T), D, S) f32 (T = B7's tile), and B7-bwd
+(csrc/mamba_scan_bwd.cu) walks the tiles in reverse, recomputing each
+tile's states from its checkpoint; on CPU tensors the Function runs
+`fused_mamba_scan_plain` and `fused_mamba_scan_plain_bwd`.  Every other
+call launches B7 alone, without checkpoints: its y and h_last are the
+same bits either way.  B7-bwd launches count in
+`ops.LAUNCHES["mamba_fused_bwd"]`.
 """
 from __future__ import annotations
 
@@ -70,6 +79,95 @@ def fused_mamba_scan_plain(
     return y, h
 
 
+def fused_mamba_scan_plain_bwd(
+    dt: torch.Tensor, xc: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+    a_mat: torch.Tensor, h0: torch.Tensor | None, gy: torch.Tensor,
+    g_hlast: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, ...]:
+    """The gradient of `fused_mamba_scan_plain` written out, as B7-bwd
+    computes it: the states recomputed forward, then the adjoint
+    lam_t = gy_t C_t + a_{t+1} lam_{t+1} (g_hlast in place of a_L lam_L)
+    walked back, with ga_t = (lam_t h_{t-1}) a_t the gradient of dt_t A:
+
+        ddt_t = state_sum(lam_t B_t) xc_t + state_sum(ga_t A)
+        dxc_t = state_sum(lam_t B_t) dt_t
+        dB_t  = sum_d lam_t (dt_t xc_t),   dC_t = sum_d gy_t h_t
+        dA    = sum_b sum_t ga_t dt_t  (t from L - 1 down, then b in order)
+        dh0   = a_0 lam_0
+
+    -> (ddt, dxc, dB, dC, dA, dh0), each in its input's type (dh0 f32),
+    with f32 sums inside."""
+    bsz, L, d = dt.shape
+    s = a_mat.shape[-1]
+    f32 = torch.float32
+    xc_f, b_f, c_f, gy = xc.to(f32), b.to(f32), c.to(f32), gy.to(f32)
+    h = (torch.zeros((bsz, d, s), dtype=f32, device=dt.device)
+         if h0 is None else h0.to(f32))
+    hs = [h]                                  # hs[t] = h_{t-1}
+    for t in range(L):
+        a = torch.exp(dt[:, t, :, None] * a_mat)
+        h = a * h + (dt[:, t] * xc_f[:, t])[..., None] * b_f[:, t, None, :]
+        hs.append(h)
+    carry = torch.zeros_like(h) if g_hlast is None else g_hlast.to(f32)
+    ddt = torch.empty((bsz, L, d), dtype=f32, device=dt.device)
+    dxc = torch.empty_like(ddt)
+    db = torch.empty((bsz, L, s), dtype=f32, device=dt.device)
+    dc = torch.empty_like(db)
+    da_acc = torch.zeros_like(h)
+    for t in reversed(range(L)):
+        a = torch.exp(dt[:, t, :, None] * a_mat)
+        dx = dt[:, t] * xc_f[:, t]
+        lam = gy[:, t, :, None] * c_f[:, t, None, :] + carry
+        ga = lam * hs[t] * a
+        da_acc = da_acc + ga * dt[:, t, :, None]
+        gdx = state_sum(lam * b_f[:, t, None, :])
+        dxc[:, t] = gdx * dt[:, t]
+        ddt[:, t] = gdx * xc_f[:, t] + state_sum(ga * a_mat)
+        db[:, t] = (lam * dx[..., None]).sum(1)
+        dc[:, t] = (gy[:, t, :, None] * hs[t + 1]).sum(1)
+        carry = a * lam
+    da = da_acc[0]
+    for i in range(1, bsz):
+        da = da + da_acc[i]
+    return (ddt, dxc.to(xc.dtype), db.to(b.dtype), dc.to(c.dtype), da,
+            carry)
+
+
+class MambaFusedScan(torch.autograd.Function):
+    """B7 forward (asked for its tile checkpoints), B7-bwd backward, on
+    CUDA tensors; the plain forward and backward on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, dt, xc, b, c, a_mat, h0):
+        ctx.set_materialize_grads(False)
+        ctx.has_h0 = h0 is not None
+        if not dt.is_cuda:
+            ctx.save_for_backward(dt, xc, b, c, a_mat, h0)
+            return fused_mamba_scan_plain(dt, xc, b, c, a_mat, h0)
+        from repro_torch.kernels.mamba_scan import kernel
+
+        y, h_last, ckpt = kernel.mamba_fused(dt, xc, b, c, a_mat, h0,
+                                             checkpoints=True)
+        ctx.save_for_backward(dt, xc, b, c, a_mat, ckpt)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, gy, g_hlast):
+        dt, xc, b, c, a_mat, saved = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
+        if dt.is_cuda:
+            from repro_torch.kernels.mamba_scan import kernel
+
+            grads = kernel.mamba_fused_bwd(
+                dt, xc, b, c, a_mat, saved, gy.contiguous(),
+                None if g_hlast is None else g_hlast.contiguous())
+        else:
+            grads = fused_mamba_scan_plain_bwd(dt, xc, b, c, a_mat, saved,
+                                               gy, g_hlast)
+        return (*grads[:5], grads[5] if ctx.has_h0 else None)
+
+
 def fused_mamba_scan(
     dt: torch.Tensor,     # (B, L, D) fp32
     xc: torch.Tensor,     # (B, L, D)
@@ -86,13 +184,16 @@ def fused_mamba_scan(
     cuda = {t.is_cuda for t in ins}
     if len(cuda) != 1:
         raise ValueError("fused_mamba_scan inputs mix CUDA and CPU tensors")
-    if not cuda.pop():
+    on_card = cuda.pop()
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ins)
+    if not on_card and not grad:
         return fused_mamba_scan_plain(dt, xc, b, c, a_mat, h0)
-    from repro_torch.kernels.mamba_scan import kernel, ops
-
-    ops.refuse_grad("fused_mamba_scan (B7)", ins)
     f32 = torch.float32
-    return kernel.mamba_fused(
-        dt.to(f32).contiguous(), xc.contiguous(), b.contiguous(),
-        c.contiguous(), a_mat.to(f32).contiguous(),
-        None if h0 is None else h0.to(f32).contiguous())
+    args = (dt.to(f32).contiguous(), xc.contiguous(), b.contiguous(),
+            c.contiguous(), a_mat.to(f32).contiguous(),
+            None if h0 is None else h0.to(f32).contiguous())
+    if grad:
+        return MambaFusedScan.apply(*args)
+    from repro_torch.kernels.mamba_scan import kernel
+
+    return kernel.mamba_fused(*args)

@@ -13,16 +13,17 @@ D % block_d == 0, each after `min()` with the shape), but ``chunk`` and
 sequence of one (batch, d, s) element, so there are no chunks and no
 channel blocks.
 
-B6 and B7 have no backward kernel yet (ROADMAP queue A, A6b): on CUDA
-tensors, while gradients are recorded and any input requires one, both
-entry points raise NotImplementedError (`refuse_grad`) rather than return
-an output detached from autograd.  On CPU tensors they run plain torch,
+On CUDA tensors, while gradients are recorded and an input requires one,
+`mamba_chunk_scan` goes through `MambaChunkScan`: B6 forward, and B6-bwd
+(csrc/mamba_scan_bwd.cu) walking the adjoint back from the saved states
+hs.  Otherwise it launches B6 alone.  On CPU tensors it runs plain torch,
 which autograd differentiates.
 
-`LAUNCHES` counts kernel launches: "mamba_scan" (B6) and "mamba_fused"
-(B7, `fused.fused_mamba_scan`).  The launchers in kernel.py add one after
-each launch that succeeded and nowhere else (an empty input launches
-nothing and counts nothing).
+`LAUNCHES` counts kernel launches: "mamba_scan" (B6), "mamba_fused" (B7,
+`fused.fused_mamba_scan`), "mamba_scan_bwd" (B6-bwd) and
+"mamba_fused_bwd" (B7-bwd, one a call of its three kernels).  The
+launchers in kernel.py add one after each launch that succeeded and
+nowhere else (an empty input launches nothing and counts nothing).
 """
 from __future__ import annotations
 
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch.kernels.mamba_scan.ref import scan_ref
 
-LAUNCHES = {"mamba_scan": 0, "mamba_fused": 0}
+LAUNCHES = {"mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
+            "mamba_fused_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -38,15 +40,29 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def refuse_grad(name: str, tensors) -> None:
-    """Raise if a CUDA launch of ``name`` would cut its inputs' gradient:
-    the kernel's output is written through a raw pointer, outside
-    autograd."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{name} has no backward kernel on the card yet (ROADMAP queue "
-            f"A, A6b); its CUDA output would be detached from autograd")
+class MambaChunkScan(torch.autograd.Function):
+    """B6 forward, B6-bwd backward, on CUDA tensors: hs is an output, so
+    the backward reads it rather than recompute it."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        from repro_torch.kernels.mamba_scan import kernel
+
+        hs, h_last = kernel.mamba_scan(a, b, h0)
+        ctx.save_for_backward(a, hs, h0)
+        ctx.set_materialize_grads(False)
+        return hs, h_last
+
+    @staticmethod
+    def backward(ctx, g_hs, g_hlast):
+        from repro_torch.kernels.mamba_scan import kernel
+
+        a, hs, h0 = ctx.saved_tensors
+        if g_hs is None:
+            g_hs = torch.zeros_like(hs)
+        return kernel.mamba_scan_bwd(
+            a, hs, h0, g_hs.contiguous(),
+            None if g_hlast is None else g_hlast.contiguous())
 
 
 def mamba_chunk_scan(
@@ -72,7 +88,9 @@ def mamba_chunk_scan(
         raise ValueError("mamba_chunk_scan inputs mix CUDA and CPU tensors")
     if not cuda.pop():
         return scan_ref(a, b, h0)
-    refuse_grad("mamba_chunk_scan (B6)", (a, b, h0))
+    a, b, h0 = a.contiguous(), b.contiguous(), h0.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (a, b, h0)):
+        return MambaChunkScan.apply(a, b, h0)
     from repro_torch.kernels.mamba_scan import kernel
 
-    return kernel.mamba_scan(a.contiguous(), b.contiguous(), h0.contiguous())
+    return kernel.mamba_scan(a, b, h0)

@@ -2,12 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \
         --size smoke --steps 200 --kf --ckpt-dir CKPT_DIR [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch falcon-mamba-7b --size full --n-layers 16 --seq-len 2048 \
+        --global-batch 4
 
 `--size smoke` trains the reduced config (on the card with its attention
 heads widened to 64, the narrowest head dim B5 is built for: see
 `smoke_config`); `--size full` the published config on one card
 (llama3.2-3b: 3.21 B parameters, 38.6 GB of training state with f32
-moments).  Both build the two step variants (balanced /
+moments; zamba2-2.7b: all 54 layers fit; falcon-mamba-7b's 64 layers,
+~87 GB of state, do not, so ``--n-layers`` cuts the depth).  Both build the two step variants (balanced /
 comm-priority) up front and let the KF scheduler dispatch between them —
 the paper's pre-defined configuration model.  The model trains on the
 CUDA device unless ``--device`` names another.
@@ -58,11 +62,16 @@ def smoke_config(arch: str, device: torch.device) -> ModelConfig:
 
 def build(arch: str, size: str, seq_len: int, global_batch: int,
           lr: float = 3e-4, total_steps: int = 1000, seed: int = 0,
-          use_kf: bool = True, device: str | torch.device | None = None):
+          use_kf: bool = True, device: str | torch.device | None = None,
+          n_layers: int | None = None):
     """Returns (state, step_fns, make_batch, scheduler, cfg); the
-    reference also returns its mesh, which one card does not have."""
+    reference also returns its mesh, which one card does not have.
+    ``n_layers`` cuts the config's depth (a whole number of its
+    super-blocks)."""
     dev = resolve_device(device)
     cfg = smoke_config(arch, dev) if size == "smoke" else configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     opt_cfg = opt_lib.OptimizerConfig(
         lr=lr, total_steps=total_steps,
         moment_dtype=cfg.optimizer_dtype)
@@ -91,6 +100,8 @@ def main(argv=None):
     ap.add_argument("--fail-at", type=int, default=None,
                     help="inject a failure (fault-tolerance demo)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (default: the config's)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
@@ -98,7 +109,7 @@ def main(argv=None):
     state, step_fns, make_batch, scheduler, cfg = build(
         args.arch, args.size, args.seq_len, args.global_batch,
         lr=args.lr, total_steps=args.steps, seed=args.seed,
-        use_kf=args.kf, device=args.device)
+        use_kf=args.kf, device=args.device, n_layers=args.n_layers)
     loop_cfg = loop_lib.LoopConfig(
         total_steps=args.steps,
         ckpt_dir=args.ckpt_dir,

@@ -34,6 +34,13 @@ reference's chunked body, its last chunk shorter where L is ragged (the
 reference sends ragged L to `ref_scan`).  y sums over the states by
 `fused.state_sum` there too.
 
+Training: under autograd on the card both scans go through their
+kernels' `torch.autograd.Function`s (`fused.MambaFusedScan`: B7 with tile
+checkpoints, then B7-bwd; `ops.MambaChunkScan`: B6, then B6-bwd); mamba2's
+per-head dt and decay are repeated over the head's channels by torch ops
+(`ssd_channels`), so autograd sums the channels' gradients back into the
+head.  On the CPU autograd differentiates the reference's chunked body.
+
 Decode is a single-step state update (`apply_mamba1_decode`,
 `apply_mamba2_decode`) carrying a conv ring buffer and the SSM state: the
 SSM analogue of a KV cache.
@@ -222,7 +229,10 @@ def _mamba1_scan(p, x: Tensor, cfg: ModelConfig, *,
         bx = (dt * xc.to(F32))[..., None] * b_t.to(F32)[:, :, None, :]
         hs, h_last = scan_ops.mamba_chunk_scan(a, bx, h0, chunk=chunk)
         del a, bx
-        y = scan_fused.state_sum(hs.mul_(c_t.to(F32)[:, :, None, :]))
+        c_f = c_t.to(F32)[:, :, None, :]
+        # in place unless autograd keeps hs for B6's backward
+        y = scan_fused.state_sum(hs * c_f if hs.requires_grad
+                                 else hs.mul_(c_f))
     else:
         y, h_last = fused_chunked_scan_m1(dt, xc, b_t, c_t, a_mat, h0, chunk)
     y = y + xc.to(F32) * p["d_skip"]

@@ -699,24 +699,151 @@ def test_flash_attention_asks_lse_only_for_gradients(monkeypatch):
     assert fa_ops.LAUNCHES == {"flash_attn": 3, "flash_attn_bwd": 0}
 
 
+def _rel_l2_cuda(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
 @pytest.mark.cuda
-def test_mamba_kernels_refuse_grad_on_card():
-    """B6 and B7 have no backward kernel: on CUDA inputs that require a
-    gradient they raise, naming ROADMAP A6b, instead of returning an
-    output detached from autograd; under no_grad they launch."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,D,S", [(2, 64, 32, 8), (1, 517, 200, 16),
+                                     (2, 130, 77, 64)])
+def test_mamba_gradients_flow_on_card(B, L, D, S, dtype):
+    """Under autograd on CUDA tensors, B6 and B7 train: `mamba_chunk_scan`
+    goes through MambaChunkScan (B6, then B6-bwd, bitwise its plain
+    version) and `fused_mamba_scan` through MambaFusedScan (B7 with tile
+    checkpoints, then B7-bwd: each gradient in its input's type, within
+    relative L2 1e-5 of the plain backward where returned in f32, 1e-2 in
+    bf16)."""
     _need_cuda()
-    a = torch.full((1, 8, 16, 4), 0.5, device="cuda", requires_grad=True)
-    h0 = torch.zeros((1, 16, 4), device="cuda")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        ms_ops.mamba_chunk_scan(a, a, h0)
-    dt, xc, b, c, a_mat, h = _fused_inputs(1, 9, 40, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        ms_fused.fused_mamba_scan(dt.requires_grad_(), xc, b, c, a_mat, h0=h)
+    from repro_torch.kernels.mamba_scan.ref import scan_ref_bwd
+
+    dt, xc, b, c, a_mat, h0 = _fused_inputs(B, L, D, S, dtype)
+    leaves = [t.clone().requires_grad_() for t in (dt, xc, b, c, a_mat, h0)]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    gy = torch.randn((B, L, D), generator=g, device="cuda")
+    ghl = torch.randn((B, D, S), generator=g, device="cuda")
     ms_ops.reset_launches()
+    y, hl = ms_fused.fused_mamba_scan(*leaves[:5], h0=leaves[5])
+    got = torch.autograd.grad((y, hl), leaves, (gy, ghl))
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 1,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 1}
+    want = ms_fused.fused_mamba_scan_plain_bwd(dt, xc, b, c, a_mat, h0, gy,
+                                               ghl)
+    for x, w, leaf in zip(got, want, leaves):
+        assert x.dtype == leaf.dtype and x.shape == leaf.shape
+        bound = 1e-2 if x.dtype == torch.bfloat16 else 1e-5
+        assert _rel_l2_cuda(x, w) <= bound
+    a = (0.5 + 0.499 * torch.rand((B, L, D, S), generator=g,
+                                  device="cuda")).requires_grad_()
+    bb = (0.1 * torch.randn((B, L, D, S), generator=g,
+                            device="cuda")).requires_grad_()
+    h = h0.clone().requires_grad_()
+    ms_ops.reset_launches()
+    hs, hl = ms_ops.mamba_chunk_scan(a, bb, h, chunk=L, block_d=D)
+    g_hs = torch.randn(hs.shape, generator=g, device="cuda")
+    got = torch.autograd.grad((hs, hl), (a, bb, h), (g_hs, ghl))
+    assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 0,
+                               "mamba_scan_bwd": 1, "mamba_fused_bwd": 0}
+    want = scan_ref_bwd(a.detach(), hs.detach(), h0, g_hs, ghl)
+    for x, w in zip(got, want):
+        assert torch.equal(x, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_fused_same_bits_with_checkpoints(dtype):
+    """B7's y and h_last are the same bits with its tile checkpoints
+    written and without, and the checkpoints are the states at the tile
+    starts (the first one h0)."""
+    _need_cuda()
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+
+    dt, xc, b, c, a_mat, h0 = _fused_inputs(2, 517, 1000, 16, dtype)
+    y0, hl0 = ms_kernel.mamba_fused(dt, xc, b, c, a_mat, h0)
+    y1, hl1, ckpt = ms_kernel.mamba_fused(dt, xc, b, c, a_mat, h0,
+                                          checkpoints=True)
+    tile = ms_kernel.fused_config()["tile"]
+    assert ckpt.shape == (2, -(-517 // tile), 1000, 16)
+    assert torch.equal(y0, y1) and torch.equal(hl0, hl1)
+    assert torch.equal(ckpt[:, 0], h0)
+    _, hl_tile = ms_kernel.mamba_fused(dt[:, :tile].contiguous(),
+                                       xc[:, :tile].contiguous(),
+                                       b[:, :tile].contiguous(),
+                                       c[:, :tile].contiguous(), a_mat, h0)
+    assert torch.equal(ckpt[:, 1], hl_tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [16, 64])
+def test_mamba_bwd_kernels_are_deterministic(S):
+    """Two calls of B7-bwd (its sums over D and over the batch in a fixed
+    order, no atomics) and of B6-bwd give the same bits; so does the
+    mamba2 path's gradient through `ssd_channels` (autograd sums each
+    head's channels back into the head)."""
+    _need_cuda()
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+    from repro_torch.models import mamba as tmamba
+
+    dt, xc, b, c, a_mat, h0 = _fused_inputs(3, 300, 2048, S, torch.bfloat16)
+    _, _, ckpt = ms_kernel.mamba_fused(dt, xc, b, c, a_mat, h0,
+                                       checkpoints=True)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    gy = torch.randn(dt.shape, generator=g, device="cuda")
+    runs = [ms_kernel.mamba_fused_bwd(dt, xc, b, c, a_mat, ckpt, gy, None)
+            for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    a = 0.5 + 0.499 * torch.rand((2, 64, 256, S), generator=g, device="cuda")
+    h = h0[:2, :256].contiguous()
+    hs, _ = ms_kernel.mamba_scan(a, a, h)
+    runs = [ms_kernel.mamba_scan_bwd(a, hs, h, hs, None) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    nh, hd = 8, 64
+    dth = 0.001 + 0.099 * torch.rand((2, 200, nh), generator=g, device="cuda")
+    xh = torch.randn((2, 200, nh, hd), generator=g, device="cuda")
+    bm, cm = (torch.randn((2, 200, 64), generator=g, device="cuda")
+              for _ in range(2))
+    a_h = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
+    hz = torch.zeros((2, nh, hd, 64), device="cuda")
+    gz = torch.randn((2, 200, nh, hd), generator=g, device="cuda")
+
+    def grads():
+        leaves = [t.clone().requires_grad_() for t in (dth, xh, bm, cm, a_h)]
+        y, _ = tmamba.fused_chunked_scan_m2(*leaves, hz, 256)
+        return torch.autograd.grad(y, leaves, gz)
+
+    assert all(torch.equal(x, y) for x, y in zip(grads(), grads()))
+
+
+@pytest.mark.cuda
+def test_mamba_fused_asks_checkpoints_only_for_gradients(monkeypatch):
+    """B7 writes its tile checkpoints only where a backward will read
+    them: a call under no_grad, or on inputs that need no gradient,
+    launches B7 with none and builds no graph; a call that needs a
+    gradient asks for them.  y's bits are the same on both routes."""
+    _need_cuda()
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+
+    asked = []
+    launch = ms_kernel.mamba_fused
+
+    def spy(*args, checkpoints=False):
+        asked.append(checkpoints)
+        return launch(*args, checkpoints=checkpoints)
+
+    monkeypatch.setattr(ms_kernel, "mamba_fused", spy)
+    dt, xc, b, c, a_mat, h0 = _fused_inputs(1, 100, 64, 16, torch.bfloat16)
+    ms_ops.reset_launches()
+    served, _ = ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=h0)
     with torch.no_grad():
-        ms_ops.mamba_chunk_scan(a, a, h0)
-        ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=h)
-    assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 1}
+        ms_fused.fused_mamba_scan(dt.requires_grad_(), xc, b, c, a_mat,
+                                  h0=h0)
+    trained, _ = ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=h0)
+    assert asked == [False, False, True]
+    assert served.grad_fn is None and trained.grad_fn is not None
+    assert torch.equal(served, trained.detach())
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 3,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -797,7 +924,8 @@ def test_mamba_scan_kernel_matches_plain(b, L, d, s, chunk, bd):
     a, bb, h0 = _scan_inputs(b, L, d, s)
     ms_ops.reset_launches()
     hs, hl = ms_ops.mamba_chunk_scan(a, bb, h0, chunk=chunk, block_d=bd)
-    assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 0}
+    assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 0,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
     hs_p, hl_p = scan_ref(a, bb, h0)
     assert torch.equal(hs, hs_p) and torch.equal(hl, hl_p)
 
@@ -841,7 +969,8 @@ def test_mamba_fused_kernel_matches_plain(B, L, D, S, dtype):
                                                     start)
         torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(hl, hl_p, atol=1e-5, rtol=1e-5)
-    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2}
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -865,7 +994,8 @@ def test_mamba_fused_narrow_copies_equal_wide(dtype):
     ms_ops.reset_launches()
     y_w, hl_w = ms_fused.fused_mamba_scan(*ins[:5], h0=ins[5])
     y_n, hl_n = ms_fused.fused_mamba_scan(dt, xc, b, c, ins[4], h0=ins[5])
-    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2}
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
     assert torch.equal(y_w, y_n) and torch.equal(hl_w, hl_n)
     y_p, hl_p = ms_fused.fused_mamba_scan_plain(*ins)
     torch.testing.assert_close(y_n, y_p, atol=1e-5, rtol=1e-5)
@@ -882,7 +1012,8 @@ def test_mamba_fused_counts_one_launch_per_call():
     for n in range(1, 4):
         ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=h0 if n % 2 else
                                   None)
-        assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": n}
+        assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": n,
+                                   "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
     for cut in (dict(L=0), dict(B=0)):
         L, B = cut.get("L", 9), cut.get("B", 2)
         e_dt, e_xc, e_b, e_c = (t[:B, :L].contiguous() for t in (dt, xc, b, c))
@@ -894,7 +1025,8 @@ def test_mamba_fused_counts_one_launch_per_call():
                 else start
             assert torch.equal(hl, want)
             assert want.numel() == 0 or hl.data_ptr() != want.data_ptr()
-    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 3}
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 3,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -910,7 +1042,8 @@ def test_mamba_kernels_launch_nothing_on_empty_inputs():
     y, hl = ms_fused.fused_mamba_scan(dt, dt, e, e,
                                       torch.zeros((32, 8), device="cuda"),
                                       h0=h0)
-    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0}
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
     assert hs.shape == a.shape and y.shape == (1, 0, 32)
     assert torch.equal(hl, h0)
 
@@ -935,7 +1068,8 @@ def test_mamba2_scan_is_one_b7_launch(dtype):
     cpu = (dt, xh, b, c, a_h, h0)
     ms_ops.reset_launches()
     y, hl = tmamba.fused_chunked_scan_m2(*(t.cuda() for t in cpu), 256)
-    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 1}
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 1,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
     assert y.shape == (B, L, nh, hd) and hl.shape == (B, nh, hd, ds)
     dt_d, xc, a_mat, h0_d = tmamba.ssd_channels(dt.cuda(), xh.cuda(),
                                                 a_h.cuda(), h0.cuda())
@@ -971,7 +1105,8 @@ def test_hybrid_forward_launches_b7_per_layer_and_b5_per_super_block():
     fa_ops.reset_launches()
     out = lm.forward(params, toks.cuda(), cfg, return_caches=True,
                      cache_len=64)
-    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * 4}
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * 4,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
     assert fa_ops.LAUNCHES == {"flash_attn": 2 * 2, "flash_attn_bwd": 0}
     want = lm.forward(cpu_params, toks, cfg, return_caches=True, cache_len=64)
     a, b = out.logits.double().cpu(), want.logits.double()

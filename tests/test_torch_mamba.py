@@ -125,7 +125,9 @@ def test_mixer_matches_jax(model, L, use_kernel):
     yj, sj = jmamba._mamba1_scan(pj, x, cfg_j, use_kernel=use_kernel)
     yt, st = tmamba._mamba1_scan(pt, interop.tensor(x), cfg_t,
                                  use_kernel=use_kernel)
-    assert scan_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0}  # CPU
+    assert scan_ops.LAUNCHES == {  # CPU
+        "mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
+        "mamba_fused_bwd": 0}
     assert yt.dtype == torch.bfloat16 and yt.shape == yj.shape
     np.testing.assert_allclose(_np(yt), _np(yj), **ULP)
     np.testing.assert_array_equal(_np(st.conv), _np(sj.conv))

@@ -121,7 +121,9 @@ def test_fused_chunked_scan_m2_matches_jax(dtype):
     assert torch.equal(a_mat[8:16], torch.full((8, 8), -2.0))
     yb, hb = scan_fused.fused_mamba_scan(dt_d, xc, t[2], t[3], a_mat,
                                          h0=h0_d)
-    assert scan_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0}  # CPU
+    assert scan_ops.LAUNCHES == {  # CPU
+        "mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
+        "mamba_fused_bwd": 0}
     np.testing.assert_allclose(_np(yb.view(2, 16, 4, 8)), _np(yj), **SCAN)
     np.testing.assert_allclose(_np(hb.view(2, 4, 8, 8)), _np(hj), **SCAN)
 
@@ -136,7 +138,9 @@ def test_mixer_matches_jax(mixers, L):
     scan_ops.reset_launches()
     yj, sj = jmamba._mamba2_scan(pj, x, cfg_j)
     yt, st = tmamba._mamba2_scan(pt, interop.tensor(x), cfg_t)
-    assert scan_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0}  # CPU
+    assert scan_ops.LAUNCHES == {  # CPU
+        "mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
+        "mamba_fused_bwd": 0}
     assert isinstance(st, tmamba.Mamba2State)
     assert yt.dtype == torch.bfloat16 and yt.shape == yj.shape
     np.testing.assert_allclose(_np(yt), _np(yj), **ULP)

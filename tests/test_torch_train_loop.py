@@ -160,6 +160,24 @@ def test_launcher_main_trains_on_the_cpu(capsys):
     assert "[train] llama3.2-3b (smoke) 3 steps" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_launcher_trains_the_ssms_at_a_cut_depth(arch, capsys):
+    """The SSMs train through the launcher (on the card through B7 and
+    B7-bwd; here the reference's chunked body); ``--n-layers`` cuts the
+    depth, as falcon-mamba-7b's 64 layers need on one card."""
+    cfg = configs.smoke(arch)
+    n = cfg.shared_attn_period or 1
+    state, *_, built = launch_train.build(arch, "smoke", 16, 2,
+                                          device="cpu", n_layers=n)
+    assert built == dataclasses.replace(cfg, n_layers=n)
+    assert sum(len(stack) for stack in state.params["blocks"]) == n
+    res = launch_train.main(["--arch", arch, "--size", "smoke", "--device",
+                             "cpu", "--steps", "2", "--seq-len", "16",
+                             "--global-batch", "2", "--n-layers", str(n)])
+    assert len(res.losses) == 2 and np.isfinite(res.losses).all()
+    assert f"[train] {arch} (smoke) 2 steps" in capsys.readouterr().out
+
+
 def test_smoke_config_widens_heads_only_for_the_card():
     """B5 has no instantiation for the smoke config's 8-wide heads: on a
     CUDA device the launcher widens them to 64 and changes nothing else;
