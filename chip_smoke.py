@@ -103,7 +103,9 @@ build/repro_torch/), then runs, each phase failing the script on error:
      no logit cap);
   [serve-w] llama3.2-3b at full width cut to 2 layers: prefill of a
      256-token prompt and 2 decode steps on the card (B5) against the same
-     parameters on the CPU (plain), relative L2 of K/V and logits;
+     parameters on the CPU (plain), relative L2 of K/V and logits; the
+     CPU's run and the comparison (as [serve-mw]'s and [serve-zw]'s) later,
+     on a worker thread beside [train]'s steps, which keep the card busy;
   [serve] the serving main path: Engine(mode="kf") over 32 requests on
      llama3.2-3b at full width (28 layers) on the card, exactly 28 B5
      launches per prefill, every request finished, finite logits, and
@@ -212,7 +214,9 @@ build/repro_torch/), then runs, each phase failing the script on error:
      the last two below the first, exact launch counts), the wall per
      step, tokens/s, a step alone profiled for the device's busy share,
      the peak memory; then launch.train.main(["--arch", "llama3.2-3b",
-     "--size", "full", "--steps", "2"]) in-process on its defaults;
+     "--size", "full", "--steps", "2"]) in-process on its defaults (the
+     serving twins' CPU work runs beside all of it: its walls and idle
+     share are measured with that host load);
   [train-s] the smoke config as the launcher takes it on the card
      (`launch.train.smoke_config`: heads widened to 64, which B5 takes)
      through loop.run with a checkpoint every 4 steps and a
@@ -222,17 +226,22 @@ build/repro_torch/), then runs, each phase failing the script on error:
      restore and the final state bitwise the uninterrupted run's; then
      `python -m repro_torch.launch.train` on all its defaults (the smoke
      config, 100 steps), in-process through main([]);
-  [B7b] the fused scan's backward (mamba_fused_bwd: the walk back from
-     B7's tile checkpoints, then the fixed-order sums of dB, dC and dA)
-     against fused_mamba_scan_plain_bwd at falcon-mamba's training shape
-     (4, 2048, 8192, 16) bf16, zamba2's channels (4, 2048, 5120, 64) bf16
-     from a nonzero h0 and g_hlast, a ragged L = 517 and an f32 case at
-     S = 8: each of the six gradients within relative L2 1e-5 where
-     returned in f32 and 1e-2 where returned in bf16, two calls bitwise
-     equal, B7's y and h_last bitwise the same with the checkpoints written
-     and without; timed at the two training shapes (events, device) beside
-     its bound and the plain version, with B7's forward with and without
-     checkpoints;
+  [B7b] the fused scan's backward in its two forms (the walk back from
+     B7's tile checkpoints, then the fixed-order sums): the per-channel
+     form (mamba_fused_bwd) against fused_mamba_scan_plain_bwd at
+     falcon-mamba's training shape (4, 2048, 8192, 16) bf16, zamba2's
+     channels (4, 2048, 5120, 64) bf16 from a nonzero h0 and g_hlast, a
+     ragged L = 517 and an f32 case at S = 8, and the mamba2 form
+     (mamba_ssd_bwd) against fused_ssd_scan_plain_bwd at zamba2's shape
+     (80 heads of 64) on that case's xc, B, C, A, h0 and g_hlast with a
+     dt of its own, one a head (the per-channel case has one a channel):
+     each of the six gradients within relative L2 1e-5 where returned in
+     f32 and 1e-2 where returned in bf16, two calls bitwise equal, B7's y
+     and h_last bitwise the same with the checkpoints written and without;
+     timed at the training shapes (events, device; both forms at zamba2's)
+     beside their bounds and the plain versions, with B7's forward with and
+     without checkpoints, and the walk's registers and blocks an SM (the
+     CUDA runtime's); [B7b] and [B6b] are timed with no host work beside;
   [B6b] the selective scan's backward (mamba_scan_bwd) bitwise against
      scan_ref_bwd at (2, 64, 32, 8) and (1, 2048, 8192, 16), timed there
      beside its bytes bound and the plain version;
@@ -648,9 +657,12 @@ def ptxas_usage(log: str) -> dict:
               ("kf_bank_kernel", "B4"),
               ("mamba_scan_kernel", "B6"),
               ("mamba_scan_bwd_kernel", "B6b"),
-              *((f"mamba_fused_bwd_kernelI{t}Li{n}E", f"B7b {tn} S{n}")
+              *((f"mamba_fused_bwd_kernelI{t}Li{n}ELb{m}ELb{w}E",
+                 f"B7b {tn} S{n}{mn}{wn}")
                 for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))
-                for n in (8, 16, 64)),
+                for n in (8, 16, 64) for m, mn in ((0, ""), (1, " ssd"))
+                for w, wn in ((1, ""), (0, " narrow"))),
+              ("ssd_heads_kernel", "B7b heads"),
               *((f"reduce_parts_kernelI{t}E", f"B7b sums {tn}")
                 for t, tn in (("f", "f32"), ("13__nv_bfloat16", "bf16"))),
               *((f"mamba_fused_kernelI{t}Li{n}ELb{w}E", f"B7 {tn} S{n}{wn}")
@@ -1422,7 +1434,9 @@ def _to_cpu(tree):
 
 def phase_serve_w(dev):
     """llama3.2-3b at full width, depth cut to 2 layers: the card (B5)
-    against the CPU (plain) on one seeded parameter set."""
+    against the CPU (plain) on one seeded parameter set.  The card's part
+    runs now; the CPU's (with the comparison) is returned as a function,
+    for `on_worker`."""
     import dataclasses
 
     import torch
@@ -1439,33 +1453,70 @@ def phase_serve_w(dev):
     steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
     fa_ops.reset_launches()
     t0 = time.time()
-    on_card = lm.prefill_caches(params, toks.to(dev), cfg, 512)
+
+    def run(p, device):
+        seen = {}
+        st = lm.prefill_caches(p, toks.to(device), cfg, 512)
+        for tag in ("prefill", "decode 0", "decode 1"):
+            if tag != "prefill":
+                lg, st = lm.decode_step(p, steps[int(tag[-1])].to(device), st,
+                                        cfg)
+                check(lg.shape == (1, 1, cfg.vocab_size)
+                      and bool(torch.isfinite(lg).all()),
+                      f"full-width logits misshapen or non-finite ({tag})")
+                seen[f"logits {tag}"] = lg.cpu()
+            seen[f"K {tag}"] = st.caches[0].k.cpu().clone()
+            seen[f"V {tag}"] = st.caches[0].v.cpu().clone()
+        return seen
+
+    on_card = run(params, dev)
     check(fa_ops.LAUNCHES["flash_attn"] == cfg.n_layers,
           f"full-width prefill launched B5 {fa_ops.LAUNCHES} times")
-    on_cpu = lm.prefill_caches(cpu_params, toks, cfg, 512)
-    errs = {}
-    for tag in ("prefill", "decode 0", "decode 1"):
-        if tag != "prefill":
-            t = int(tag[-1])
-            lg, on_card = lm.decode_step(params, steps[t].to(dev), on_card, cfg)
-            lc, on_cpu = lm.decode_step(cpu_params, steps[t], on_cpu, cfg)
-            check(lg.shape == (1, 1, cfg.vocab_size)
-                  and bool(torch.isfinite(lg).all()),
-                  f"full-width logits misshapen or non-finite ({tag})")
-            errs[f"logits {tag}"] = rel_l2(lg, lc)
-        errs[f"K {tag}"] = rel_l2(on_card.caches[0].k, on_cpu.caches[0].k)
-        errs[f"V {tag}"] = rel_l2(on_card.caches[0].v, on_cpu.caches[0].v)
-    worst = max(errs, key=errs.get)
-    check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
-    print(f"[serve-w] llama3.2-3b full width (d_model 3072, 24/8 heads, "
-          f"d_ff 8192, vocab 128,256), 2 layers: prefill 256 tokens + 2 "
-          f"decode steps, card (B5, bf16 cuBLAS) vs CPU (plain) relative L2 "
-          f"worst {errs[worst]:.3e} ({worst}; bound 1e-2), all: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; {time.time() - t0:.1f} s")
-    sys.stdout.flush()
-    del params, cpu_params, on_card, on_cpu
+    t_card = time.time() - t0
+    del params
     torch.cuda.empty_cache()
+
+    def cpu_side():
+        t1 = time.time()
+        on_cpu = run(cpu_params, "cpu")
+        errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
+        print(f"[serve-w] llama3.2-3b full width (d_model 3072, 24/8 heads, "
+              f"d_ff 8192, vocab 128,256), 2 layers: prefill 256 tokens + 2 "
+              f"decode steps, card (B5, bf16 cuBLAS) vs CPU (plain) relative "
+              f"L2 worst {errs[worst]:.3e} ({worst}; bound 1e-2), all: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; card {t_card:.1f} s, CPU {time.time() - t1:.1f} s (on "
+              f"the worker thread)")
+        sys.stdout.flush()
+
+    return cpu_side
+
+
+def on_worker(fn):
+    """Start ``fn`` (a CPU twin's comparison) on a daemon thread beside the
+    card's next phases; return a join that waits for it and re-raises its
+    failure on the calling thread."""
+    import threading
+
+    errors = []
+
+    def run():
+        try:
+            fn()
+        except BaseException as e:   # re-raised by join
+            errors.append(e)
+
+    worker = threading.Thread(target=run, daemon=True)
+    worker.start()
+
+    def join():
+        worker.join()
+        if errors:
+            raise errors[0]
+
+    return join
 
 
 def stamp(what: str, t_start: float) -> None:
@@ -1903,7 +1954,7 @@ def phase_fwd_m(dev, params, cfg):
         outs[use_kernel] = lm.forward(params, toks, cfg,
                                       use_kernel=use_kernel).logits
         counts[use_kernel] = dict(ms_ops.LAUNCHES)
-    bwd0 = {"mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+    bwd0 = {"mamba_scan_bwd": 0, "mamba_fused_bwd": 0, "mamba_ssd_bwd": 0}
     check(counts[True] == {"mamba_scan": cfg.n_layers, "mamba_fused": 0,
                            **bwd0}
           and counts[False] == {"mamba_scan": 0, "mamba_fused": cfg.n_layers,
@@ -1936,7 +1987,9 @@ def phase_fwd_m(dev, params, cfg):
 
 def phase_serve_mw(dev):
     """falcon-mamba-7b at full width, depth cut to 2 layers: the card (B7)
-    against the CPU (plain) on one seeded parameter set."""
+    against the CPU (plain) on one seeded parameter set.  The card's part
+    runs now; the CPU's (with the comparison) is returned as a function,
+    for `on_worker`."""
     import dataclasses
 
     import torch
@@ -1952,41 +2005,50 @@ def phase_serve_mw(dev):
     toks = torch.randint(0, cfg.vocab_size, (1, 300), generator=g)
     steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
     t0 = time.time()
-    ms_ops.reset_launches()
-    on_card = lm.forward(params, toks.to(dev), cfg, return_caches=True,
+
+    def run(p, device):
+        out = lm.forward(p, toks.to(device), cfg, return_caches=True,
                          cache_len=512)
+        seen, st = {"logits prefill": out.logits.cpu()}, out.caches
+        for tag in ("prefill", "decode 0", "decode 1"):
+            if tag != "prefill":
+                lg, st = lm.decode_step(p, steps[int(tag[-1])].to(device), st,
+                                        cfg)
+                check(lg.shape == (1, 1, cfg.vocab_size)
+                      and bool(torch.isfinite(lg).all()),
+                      f"full-width logits misshapen or non-finite ({tag})")
+                seen[f"logits {tag}"] = lg.cpu()
+            seen[f"ssm {tag}"] = st.caches[0].ssm.cpu().clone()
+            seen[f"conv {tag}"] = st.caches[0].conv.cpu().clone()
+        return seen
+
+    ms_ops.reset_launches()
+    on_card = run(params, dev)
     check(ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * cfg.n_layers,
-                              "mamba_scan_bwd": 0, "mamba_fused_bwd": 0},
+                              "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                              "mamba_ssd_bwd": 0},
           f"full-width forward + prefill launched {ms_ops.LAUNCHES}")
-    on_cpu = lm.forward(cpu_params, toks, cfg, return_caches=True,
-                        cache_len=512)
-    errs = {"logits prefill": rel_l2(on_card.logits, on_cpu.logits)}
-    st_card, st_cpu = on_card.caches, on_cpu.caches
-    for tag in ("prefill", "decode 0", "decode 1"):
-        if tag != "prefill":
-            t = int(tag[-1])
-            lg, st_card = lm.decode_step(params, steps[t].to(dev), st_card,
-                                         cfg)
-            lc, st_cpu = lm.decode_step(cpu_params, steps[t], st_cpu, cfg)
-            check(lg.shape == (1, 1, cfg.vocab_size)
-                  and bool(torch.isfinite(lg).all()),
-                  f"full-width logits misshapen or non-finite ({tag})")
-            errs[f"logits {tag}"] = rel_l2(lg, lc)
-        errs[f"ssm {tag}"] = rel_l2(st_card.caches[0].ssm,
-                                    st_cpu.caches[0].ssm)
-        errs[f"conv {tag}"] = rel_l2(st_card.caches[0].conv,
-                                     st_cpu.caches[0].conv)
-    worst = max(errs, key=errs.get)
-    print(f"[serve-mw] falcon-mamba-7b full width (d_model 4096, d_inner "
-          f"8192, state 16, vocab 65,024), 2 layers: forward + prefill of a "
-          f"300-token prompt and 2 decode steps, card (B7, bf16 cuBLAS) vs "
-          f"CPU (plain) relative L2 worst {errs[worst]:.3e} ({worst}; bound "
-          f"1e-2), all: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; {time.time() - t0:.1f} s")
-    sys.stdout.flush()
-    check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
-    del params, cpu_params, on_card, on_cpu, st_card, st_cpu
+    t_card = time.time() - t0
+    del params
     torch.cuda.empty_cache()
+
+    def cpu_side():
+        t1 = time.time()
+        on_cpu = run(cpu_params, "cpu")
+        errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
+        worst = max(errs, key=errs.get)
+        print(f"[serve-mw] falcon-mamba-7b full width (d_model 4096, d_inner "
+              f"8192, state 16, vocab 65,024), 2 layers: forward + prefill of "
+              f"a 300-token prompt and 2 decode steps, card (B7, bf16 cuBLAS) "
+              f"vs CPU (plain) relative L2 worst {errs[worst]:.3e} ({worst}; "
+              f"bound 1e-2), all: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; card {t_card:.1f} s, CPU {time.time() - t1:.1f} s (on "
+              f"the worker thread)")
+        sys.stdout.flush()
+        check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
+
+    return cpu_side
 
 
 def phase_fwd_z(dev, params, cfg):
@@ -2046,14 +2108,28 @@ class card_gemms:
     once."""
 
     def __enter__(self):
+        import threading
+
         import torch
 
         from repro_torch.models import layers
 
-        self.saved = layers.matmul, layers.unembed
-        layers.matmul = lambda x, w: torch.matmul(x, w.to(x.dtype))
-        layers.unembed = lambda p, x: torch.matmul(
-            x, p["table"].to(x.dtype).T).to(torch.float32)
+        # only the entering thread's calls change: a CPU twin runs this on
+        # a worker thread while the main thread drives the card
+        owner = threading.get_ident()
+        self.saved = matmul, unembed = layers.matmul, layers.unembed
+
+        def bf16_matmul(x, w):
+            if threading.get_ident() != owner:
+                return matmul(x, w)
+            return torch.matmul(x, w.to(x.dtype))
+
+        def bf16_unembed(p, x):
+            if threading.get_ident() != owner:
+                return unembed(p, x)
+            return torch.matmul(x, p["table"].to(x.dtype).T).to(torch.float32)
+
+        layers.matmul, layers.unembed = bf16_matmul, bf16_unembed
 
     def __exit__(self, *exc):
         from repro_torch.models import layers
@@ -2066,13 +2142,17 @@ def hybrid_run(params, toks, steps, cfg, dev) -> tuple[dict, list]:
     logits of each and every state field after each, on the CPU; and the
     forward's x after each of its blocks (each mamba2 layer, then the
     shared block, per super-block)."""
+    import threading
+
     from repro_torch.models import lm
 
     trace, apply_block = [], lm._apply_block
+    owner = threading.get_ident()
 
     def traced(*args, **kwargs):
         x, aux = apply_block(*args, **kwargs)
-        trace.append(x.float().cpu())
+        if threading.get_ident() == owner:   # not the other thread's blocks
+            trace.append(x.float().cpu())
         return x, aux
 
     lm._apply_block = traced
@@ -2105,7 +2185,9 @@ def phase_serve_zw(dev):
     the card (B7, B5) against the CPU (plain) on one seeded parameter set.
     Where the card misses 1e-2, each block's distance is printed beside the
     witness, the CPU's own drift between its bf16 GEMMs and its f32 ones,
-    and the bound is max(1e-2, 1.5 x that witness)."""
+    and the bound is max(1e-2, 1.5 x that witness).  The card's part runs
+    now; the CPU's (with the comparison) is returned as a function, for
+    `on_worker`."""
     import torch
 
     import repro_torch.configs as configs
@@ -2132,6 +2214,16 @@ def phase_serve_zw(dev):
         check(bool(torch.isfinite(v.float()).all()),
               f"[serve-zw] non-finite {k} on the card")
     t_card = time.time() - t0
+    del params
+    torch.cuda.empty_cache()
+    return functools.partial(_serve_zw_cpu_side, cfg, cpu_params, toks, steps,
+                             on_card, tr_card, counts, t_card)
+
+
+def _serve_zw_cpu_side(cfg, cpu_params, toks, steps, on_card, tr_card, counts,
+                       t_card):
+    """`phase_serve_zw`'s CPU run, its witness where the card misses 1e-2,
+    and the comparison with the card's."""
     t1 = time.time()
     on_cpu, tr_cpu = hybrid_run(cpu_params, toks, steps, cfg, "cpu")
     t_cpu = time.time() - t1
@@ -2171,10 +2263,8 @@ def phase_serve_zw(dev):
     check(errs[worst] <= bound, f"[serve-zw] card and CPU differ: worst "
                                 f"{errs[worst]:.3e} ({worst}) > {bound:.3e}")
     print(f"[serve-zw] card vs CPU worst {errs[worst]:.3e} within bound "
-          f"{bound:.3e}")
+          f"{bound:.3e} (the CPU side on the worker thread)")
     sys.stdout.flush()
-    del params, cpu_params, on_card, on_cpu
-    torch.cuda.empty_cache()
 
 
 def moe_desc(cfg) -> str:
@@ -3138,16 +3228,22 @@ def phase_train_s(dev):
     sys.stdout.flush()
 
 
-def train_paths(dev, t_start) -> tuple[dict, int]:
+def train_paths(dev, t_start, twins=()) -> tuple[dict, int]:
     """[B5b], [train-w], [train], [train-s]; returns B5-bwd's kernels row
     with its launches on the main path ([train]'s loop) and that loop's B5
-    launches."""
+    launches.  ``twins`` (the serving phases' CPU sides) run one after
+    another on a worker thread beside the phases after [B5b], whose steps
+    keep the card busy (beside the host-bound serving loops they slowed
+    those); [B5b]'s kernel times are taken before, without that host load."""
     b5b = phase_b5b(dev)
+    join_twins = on_worker(lambda: [twin() for twin in twins])
     phase_train_w(dev)
     counts = phase_train(dev)
     b5b["launches"] = counts["flash_attn_bwd"]
     phase_train_s(dev)
-    stamp("the training path", t_start)
+    stamp("the training path's card work", t_start)
+    join_twins()
+    stamp("the training path and the serving twins", t_start)
     return b5b, counts["flash_attn"]
 
 
@@ -3176,16 +3272,39 @@ def b6b_bound(b, L, d, s):
     return bound_ms((5 * n + 3 * b * d * s) * 4, 3 * n, PEAK_F32_FLOP_S)
 
 
+def m2b_bound(b, L, nh, hd, s, elem, ghl):
+    """Least time of one call of B7-bwd's mamba2 form: dt (B, L, nh), xh,
+    gy (B, L, nh hd), B, C, a_h, the tile checkpoints (and g_hlast) read
+    once, ddt, dxh, dB, dC, da_h and dh0 written once; against ~12 f32
+    operations per (t, d, s) (the recurrence recomputed, 3, and walked
+    back, ~9) at the f32 rate; its exponentials are one a (t, head)."""
+    d = nh * hd
+    n = b * L * d * s
+    ckpt = b * -(-L // 64) * d * s * 4
+    nbytes = (b * L * nh * 4 + b * L * d * (elem + 4) + 2 * b * L * s * elem
+              + nh * 4 + ckpt + (b * d * s * 4 if ghl else 0)
+              + b * L * nh * 4 + b * L * d * elem + 2 * b * L * s * elem
+              + nh * 4 + b * d * s * 4)
+    return bound_ms(nbytes, 12 * n, PEAK_F32_FLOP_S)
+
+
 def phase_b7b(dev):
-    """B7-bwd against `fused_mamba_scan_plain_bwd` at falcon-mamba's
-    training shape (4, 2048, 8192, 16) bf16, zamba2's channels (4, 2048,
-    5120, 64) bf16 from a nonzero h0 and g_hlast, a ragged L = 517 and an
-    f32 case at S = 8: each of the six gradients within relative L2 1e-5
-    where returned in f32 and 1e-2 where returned in bf16, two calls
-    bitwise equal, and B7's y and h_last bitwise the same with the tile
-    checkpoints written and without; timed at the two training shapes
-    beside the bound and the plain version, with B7's forward with and
-    without checkpoints.  Returns B7-bwd's kernels row."""
+    """B7-bwd's two forms against their plain versions.  The per-channel
+    form (`mamba_fused_bwd` against `fused_mamba_scan_plain_bwd`) at
+    falcon-mamba's training shape (4, 2048, 8192, 16) bf16, zamba2's
+    channels (4, 2048, 5120, 64) bf16 from a nonzero h0 and g_hlast, a
+    ragged L = 517 and an f32 case at S = 8; the mamba2 form
+    (`mamba_ssd_bwd` against `fused_ssd_scan_plain_bwd`) at zamba2's shape,
+    80 heads of 64 channels, on xc, B, C, A, h0, gy and g_hlast of the
+    per-channel case with its own dt, one a head (the per-channel case keeps
+    a dt for each channel), and its own checkpoints.  Each gradient
+    within relative L2 1e-5 where returned in f32 and 1e-2 in bf16, two
+    calls bitwise equal, and B7's y and h_last bitwise the same with the
+    tile checkpoints written and without; timed at the training shapes
+    (both forms at zamba2's) beside their bounds and the plain versions,
+    with B7's forward with and without checkpoints, and the walk's
+    registers and blocks an SM.  Returns the per-channel form's kernels row
+    and the mamba2 form's."""
     import torch
 
     from repro_torch.kernels.mamba_scan import fused as ms_fused
@@ -3193,6 +3312,9 @@ def phase_b7b(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 30)
     f32, bf16 = torch.float32, torch.bfloat16
+    occ = {(s, m2): ms_kernel.fused_bwd_occupancy(bf16, s, m2)
+           for s, m2 in ((16, False), (64, False), (64, True))}
+    cfg = ms_kernel.fused_bwd_config()
     # (label, b, L, d, s, dtype, A's kind, h0 and g_hlast, timed)
     cases = [("falcon-mamba-7b", 4, 2048, 8192, 16, bf16, "falcon", False,
               True),
@@ -3201,8 +3323,40 @@ def phase_b7b(dev):
              ("f32 S = 8", 2, 300, 1000, 8, f32, "jax", True, False)]
     names = ("ddt", "dxc", "dB", "dC", "dA", "dh0")
     worst = {f32: 0.0, bf16: 0.0}
-    max_abs, rows, t0 = 0.0, {}, time.time()
-    for label, b, L, d, s, dtype, kind, state, timed in cases:
+    max_abs = {"per-channel": 0.0, "mamba2": 0.0}
+    rows, t0 = {}, time.time()
+
+    def held(label, got, again, want, names):
+        """checks each gradient; returns the largest abs error"""
+        most = 0.0
+        for name, x, y, w in zip(names, got, again, want):
+            check(x.dtype == w.dtype and x.shape == w.shape
+                  and torch.equal(x, y),
+                  f"[B7b] {label} {name}: misshapen, or two calls differ")
+            err = rel_l2(x, w)
+            bound = 1e-2 if x.dtype == bf16 else 1e-5
+            check(err <= bound, f"[B7b] {label} {name}: relative L2 "
+                                f"{err:.3e} > {bound:g}")
+            worst[x.dtype] = max(worst[x.dtype], err)
+            most = max(most, float((x.float() - w.float()).abs().max()))
+        return most
+
+    def timed(fn, name):
+        """events ms a call; device ms a call and the walk's part"""
+        ms = cuda_ms(fn, 3)
+        _, dev_ms, top_dev, _, _ = profile_device(fn, 3, whole=True)
+        walk = sum(t for n, t in top_dev if name in n)
+        return ms, dev_ms, walk
+
+    def plain_ms(fn):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    for label, b, L, d, s, dtype, kind, state, timed_case in cases:
         dt, xc, bm, cm, a_mat, h0 = b7_inputs(g, b, L, d, s, dtype, kind,
                                               state)
         gy = torch.randn((b, L, d), generator=g, device=dev)
@@ -3217,73 +3371,120 @@ def phase_b7b(dev):
         got = ms_kernel.mamba_fused_bwd(dt, xc, bm, cm, a_mat, ckpt, gy, ghl)
         again = ms_kernel.mamba_fused_bwd(dt, xc, bm, cm, a_mat, ckpt, gy,
                                           ghl)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        want = ms_fused.fused_mamba_scan_plain_bwd(dt, xc, bm, cm, a_mat, h0,
-                                                   gy, ghl)
-        ev[1].record()
-        torch.cuda.synchronize()
-        plain_ms = ev[0].elapsed_time(ev[1])
-        for name, x, y, w in zip(names, got, again, want):
-            check(x.dtype == w.dtype and x.shape == w.shape
-                  and torch.equal(x, y),
-                  f"[B7b] {label} {name}: misshapen, or two calls differ")
-            err = rel_l2(x, w)
-            bound = 1e-2 if x.dtype == bf16 else 1e-5
-            check(err <= bound, f"[B7b] {label} {name}: relative L2 "
-                                f"{err:.3e} > {bound:g}")
-            worst[x.dtype] = max(worst[x.dtype], err)
-            max_abs = max(max_abs, float((x.float() - w.float()).abs().max()))
+        want, p_ms = plain_ms(lambda: ms_fused.fused_mamba_scan_plain_bwd(
+            dt, xc, bm, cm, a_mat, h0, gy, ghl))
+        max_abs["per-channel"] = max(max_abs["per-channel"],
+                                     held(label, got, again, want, names))
         del got, again, want
-        if timed:
-            def kern():
-                return ms_kernel.mamba_fused_bwd(dt, xc, bm, cm, a_mat, ckpt,
-                                                 gy, ghl)
-
-            ms = cuda_ms(kern, 3)
-            _, dev_ms, top_dev, _, _ = profile_device(kern, 3, whole=True)
-            walk = sum(t for n, t in top_dev if "mamba_fused_bwd" in n)
+        row = {}
+        if timed_case:
+            ms, dev_ms, walk = timed(lambda: ms_kernel.mamba_fused_bwd(
+                dt, xc, bm, cm, a_mat, ckpt, gy, ghl), "mamba_fused_bwd")
             fwd = {ck: cuda_ms(lambda: ms_kernel.mamba_fused(
                 dt, xc, bm, cm, a_mat, h0, checkpoints=ck), 5)
                 for ck in (False, True)}
             bm_, by = b7b_bound(b, L, d, s, 2, state)
-            rows[label] = dict(shape=(b, L, d, s), ms=ms, dev_ms=dev_ms,
-                               walk=walk, plain=plain_ms, bm=bm_, by=by,
-                               fwd=fwd, ckpt_mb=ckpt.numel() * 4 / 1e6)
+            row = dict(shape=(b, L, d, s), ms=ms, dev_ms=dev_ms, walk=walk,
+                       plain=p_ms, bm=bm_, by=by, fwd=fwd,
+                       ckpt_mb=ckpt.numel() * 4 / 1e6)
+        if kind == "zamba2":
+            # the mamba2 form: one dt a head, as the SSD scan has it, and the
+            # checkpoints of B7's forward on that dt over the head's channels
+            del ckpt
+            nh = d // Z_HD
+            dth = 0.001 + 0.099 * torch.rand((b, L, nh), generator=g,
+                                             device=dev)
+            a_h = a_mat[::Z_HD, 0].contiguous()
+            dtr = dth.repeat_interleave(Z_HD, dim=-1)
+            y0, hl0 = ms_kernel.mamba_fused(dtr, xc, bm, cm, a_mat, h0)
+            y1, hl1, ckpt = ms_kernel.mamba_fused(dtr, xc, bm, cm, a_mat, h0,
+                                                  checkpoints=True)
+            check(torch.equal(y0, y1) and torch.equal(hl0, hl1),
+                  f"[B7b] {label} mamba2 form: B7's y or h_last differ with "
+                  f"checkpoints")
+            del y0, hl0, y1, hl1, dtr
+            xh, gyh = xc.view(b, L, nh, Z_HD), gy.view(b, L, nh, Z_HD)
+            h0h, ghh = (t.view(b, nh, Z_HD, s) for t in (h0, ghl))
+
+            def ssd():
+                return ms_kernel.mamba_ssd_bwd(dth, xh, bm, cm, a_h, ckpt,
+                                               gyh, ghh)
+
+            got, again = ssd(), ssd()
+            want, p2_ms = plain_ms(lambda: ms_fused.fused_ssd_scan_plain_bwd(
+                dth, xh, bm, cm, a_h, h0h, gyh, ghh))
+            max_abs["mamba2"] = held(f"{label} mamba2 form", got, again, want,
+                                     ("ddt", "dxh", "dB", "dC", "da_h", "dh0"))
+            del got, again, want
+            ms2, dev2, walk2 = timed(ssd, "mamba_fused_bwd")
+            bm2, by2 = m2b_bound(b, L, nh, Z_HD, s, 2, state)
+            row["ssd"] = dict(ms=ms2, dev_ms=dev2, walk=walk2, plain=p2_ms,
+                              bm=bm2, by=by2)
+        if row:
+            rows[label] = row
         del dt, xc, bm, cm, a_mat, h0, gy, ghl, ckpt
         torch.cuda.empty_cache()
-    print(f"[B7b] mamba_fused_bwd (the walk back from B7's tile checkpoints,"
-          f" then the fixed-order sums of dB, dC and dA) against "
-          f"fused_mamba_scan_plain_bwd at {len(cases)} shapes "
-          f"({', '.join(c[0] for c in cases)}): relative L2 worst of the "
-          f"six gradients f32 {worst[f32]:.3e} (bound 1e-5), bf16 "
-          f"{worst[bf16]:.3e} (bound 1e-2), max abs err {max_abs:.3e}; two "
-          f"calls bitwise equal and B7's y and h_last bitwise the same with "
-          f"checkpoints and without at every shape; {time.time() - t0:.1f} s")
+    print(f"[B7b] B7-bwd's per-channel form (mamba_fused_bwd) and mamba2 form"
+          f" (mamba_ssd_bwd): the walk back from B7's tile checkpoints, then "
+          f"the fixed-order sums of dB, dC and dA (heads: ddt, da_h), against"
+          f" their plain versions at {len(cases)} shapes "
+          f"({', '.join(c[0] for c in cases)}; the mamba2 form at "
+          f"zamba2-2.7b's): relative L2 worst of the gradients f32 "
+          f"{worst[f32]:.3e} (bound 1e-5), bf16 {worst[bf16]:.3e} (bound "
+          f"1e-2), max abs err {max_abs['per-channel']:.3e} per channel, "
+          f"{max_abs['mamba2']:.3e} in the mamba2 form; two calls bitwise "
+          f"equal and B7's y and h_last bitwise the same with checkpoints "
+          f"and without at every shape; {time.time() - t0:.1f} s")
+    print(f"[B7b] instantiation {json.dumps(cfg)}; the walk (bf16, 16-byte "
+          f"copies): " + "; ".join(
+              f"S = {s}{' mamba2' if m2 else ''}: {o['registers']} registers,"
+              f" {o['blocks_per_sm']} blocks an SM, {o['smem_bytes']} bytes "
+              f"of shared memory, {o['local_bytes']} local bytes"
+              for (s, m2), o in occ.items()))
     for label, r in rows.items():
-        print(f"[B7b] {label} {r['shape']} bf16: kernel events "
-              f"{r['ms']:.4f} ms per call, device {fmt_ms(r['dev_ms'])} (the "
-              f"walk {fmt_ms(r['walk'])}, the sums the rest); bound "
+        print(f"[B7b] {label} {r['shape']} bf16, per-channel form: kernel "
+              f"events {r['ms']:.4f} ms per call, device {fmt_ms(r['dev_ms'])}"
+              f" (the walk {fmt_ms(r['walk'])}, the sums the rest); bound "
               f"{r['bm']:.4f} ms ({r['by']}); plain {r['plain']:.1f} ms; "
               f"B7's forward {r['fwd'][False]:.4f} ms, with checkpoints "
               f"({r['ckpt_mb']:.0f} MB) {r['fwd'][True]:.4f} ms")
+        if "ssd" in r:
+            q = r["ssd"]
+            print(f"[B7b] {label} {r['shape']} bf16, mamba2 form (80 heads "
+                  f"of 64): kernel events {q['ms']:.4f} ms per call, device "
+                  f"{fmt_ms(q['dev_ms'])} (the walk {fmt_ms(q['walk'])}); "
+                  f"bound {q['bm']:.4f} ms ({q['by']}; the per-channel "
+                  f"form's {r['bm']:.4f}); plain {q['plain']:.1f} ms")
     sys.stdout.flush()
     r, z = rows["falcon-mamba-7b"], rows["zamba2-2.7b"]
-    return dict(name="mamba_fused_bwd", route="cuda",
-                source="src/repro_torch/kernels/mamba_scan/csrc/"
-                       "mamba_scan_bwd.cu",
-                replaces="none: the gradient of src/repro/kernels/"
-                         "mamba_scan/fused.py:28's function (the JAX package"
-                         " differentiates fused_chunked_scan_m1 / _m2, src/"
-                         "repro/models/mamba.py:89 and :128, with XLA)",
-                launches=None, max_abs_err=max_abs, ms=r["ms"],
-                plain_ms=r["plain"], bound_ms=r["bm"], bound_by=r["by"],
-                library_ms=None, shape="(4, 2048, 8192, 16) bf16",
-                device_ms=r["dev_ms"],
-                zamba2=dict(shape="(4, 2048, 5120, 64) bf16 from h0",
-                            ms=z["ms"], device_ms=z["dev_ms"],
-                            plain_ms=z["plain"], bound_ms=z["bm"],
-                            bound_by=z["by"], library_ms=None))
+    src = "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan_bwd.cu"
+    regs = {f"S{s}{' mamba2' if m2 else ''}": o["registers"]
+            for (s, m2), o in occ.items()}
+    b7b = dict(name="mamba_fused_bwd", route="cuda", source=src,
+               replaces="none: the gradient of src/repro/kernels/"
+                        "mamba_scan/fused.py:28's function (the JAX package"
+                        " differentiates fused_chunked_scan_m1, src/"
+                        "repro/models/mamba.py:89, with XLA)",
+               launches=None, max_abs_err=max_abs["per-channel"],
+               ms=r["ms"],
+               plain_ms=r["plain"], bound_ms=r["bm"], bound_by=r["by"],
+               library_ms=None, shape="(4, 2048, 8192, 16) bf16",
+               device_ms=r["dev_ms"], registers=regs,
+               zamba2=dict(shape="(4, 2048, 5120, 64) bf16 from h0",
+                           ms=z["ms"], device_ms=z["dev_ms"],
+                           plain_ms=z["plain"], bound_ms=z["bm"],
+                           bound_by=z["by"], library_ms=None))
+    q = z["ssd"]
+    ssd_row = dict(name="mamba_ssd_bwd", route="cuda", source=src,
+                   replaces="none: the gradient of the SSD scan (the JAX "
+                            "package differentiates fused_chunked_scan_m2, "
+                            "src/repro/models/mamba.py:128, with XLA)",
+                   launches=None, max_abs_err=max_abs["mamba2"], ms=q["ms"],
+                   plain_ms=q["plain"], bound_ms=q["bm"], bound_by=q["by"],
+                   library_ms=None,
+                   shape="(4, 2048, 80 heads x 64, 64) bf16 from h0",
+                   device_ms=q["dev_ms"])
+    return b7b, ssd_row
 
 
 def phase_b6b(dev):
@@ -3488,20 +3689,20 @@ def phase_train_ssm(dev, tag, cfg, want0, note, kernel_want=None) -> dict:
     return total
 
 
-def ssm_train_paths(dev, t_start) -> tuple[dict, dict, dict]:
+def ssm_train_paths(dev, t_start) -> tuple[dict, dict, dict, dict]:
     """[B7b], [B6b], [train-mw], [train-zw], [train-m], [train-z]; returns
-    B7-bwd's and B6-bwd's kernels rows, their launches counted on the
-    training paths, and every launch of the [train-m] / [train-z] steps.
-    [train-mw]'s and [train-zw]'s CPU sides (their CPU gradients and
-    witnesses, ~90 s of host work) run on a worker thread while the card
-    takes [train-m] and [train-z]'s steps; a failure on either side fails
-    the script (the thread is a daemon, so a failing main thread does not
-    wait for it)."""
-    import threading
-
+    the kernels rows of B7-bwd's per-channel form, its mamba2 form and
+    B6-bwd, their launches counted on the training paths, and every launch
+    of the [train-m] / [train-z] steps.
+    [B7b] and [B6b] run first, with no host work beside their times; then
+    [train-mw]'s and [train-zw]'s card sides; their CPU sides (their CPU
+    gradients and witnesses, ~60-100 s of host work) then run on a worker
+    thread while the card takes [train-m] and [train-z]'s steps; a failure
+    on either side fails the script (the thread is a daemon, so a failing
+    main thread does not wait for it)."""
     import repro_torch.configs as configs
 
-    b7b = phase_b7b(dev)
+    b7b, ssd = phase_b7b(dev)
     b6b = phase_b6b(dev)
     fm, zb = configs.get("falcon-mamba-7b"), configs.get("zamba2-2.7b")
     cfg = dataclasses.replace(fm, n_layers=2)
@@ -3514,22 +3715,12 @@ def ssm_train_paths(dev, t_start) -> tuple[dict, dict, dict]:
     cfg = dataclasses.replace(zb, n_layers=p)
     cpu_sides.append(train_card_vs_cpu(
         dev, "[train-zw]", cfg, ZW_SEQ,
-        launches(mamba_fused=2 * p, mamba_fused_bwd=p, flash_attn=2,
+        launches(mamba_fused=2 * p, mamba_ssd_bwd=p, flash_attn=2,
                  flash_attn_bwd=1),
         f"zamba2-2.7b full width (d_model 2560, d_inner 5120, state 64, "
         f"32/32 heads of 80, vocab 32,000), one super-block ({p} mamba2 "
         f"layers and the shared block)", pool_kin=True, defer=True))
-    errors = []
-
-    def cpu_work():
-        try:
-            for side in cpu_sides:
-                side()
-        except BaseException as e:   # re-raised on the main thread
-            errors.append(e)
-
-    worker = threading.Thread(target=cpu_work, daemon=True)
-    worker.start()
+    join_twins = on_worker(lambda: [side() for side in cpu_sides])
     stamp("the SSM kernels and the card sides of [train-mw] / [train-zw]",
           t_start)
     cfg = dataclasses.replace(fm, n_layers=TRAIN_M_LAYERS)
@@ -3544,20 +3735,19 @@ def ssm_train_paths(dev, t_start) -> tuple[dict, dict, dict]:
     n_super = zb.n_layers // p
     z = phase_train_ssm(
         dev, "[train-z]", zb,
-        launches(mamba_fused=2 * zb.n_layers, mamba_fused_bwd=zb.n_layers,
+        launches(mamba_fused=2 * zb.n_layers, mamba_ssd_bwd=zb.n_layers,
                  flash_attn=2 * n_super, flash_attn_bwd=n_super),
         f"all {zb.n_layers} layers ({n_super} super-blocks of {p} mamba2 "
         f"layers and the shared block)")
     for k, v in z.items():
         total[k] += v
     stamp("[train-m] and [train-z]", t_start)
-    worker.join()
-    if errors:
-        raise errors[0]
+    join_twins()
     stamp("the SSM training path", t_start)
     b7b["launches"] = total["mamba_fused_bwd"]
+    ssd["launches"] = total["mamba_ssd_bwd"]
     b6b["launches"] = total["mamba_scan_bwd"]
-    return b7b, b6b, total
+    return b7b, ssd, b6b, total
 
 
 def main() -> int:
@@ -3620,8 +3810,10 @@ def main() -> int:
             | {f"B5b delta {t}" for t in ("bf16", "f32")}
             | {f"B7 {t} S{n}{w}" for t in ("bf16", "f32")
                for n in ms_kernel.FUSED_STATES for w in ("", " narrow")}
-            | {"B6b"} | {f"B7b {t} S{n}" for t in ("bf16", "f32")
-                         for n in ms_kernel.FUSED_STATES}
+            | {"B6b", "B7b heads"}
+            | {f"B7b {t} S{n}{m}{w}" for t in ("bf16", "f32")
+               for n in ms_kernel.FUSED_STATES for m in ("", " ssd")
+               for w in ("", " narrow")}
             | {f"B7b sums {t}" for t in ("bf16", "f32")})
     check(set(usage) == want,
           f"ptxas report lacks a kernel: {sorted(want - set(usage))}")
@@ -4028,7 +4220,7 @@ def main() -> int:
     # ---- the fleet path (B4) and the serving path (B5)
     b4 = phase_b4(dev)
     b5 = phase_b5(dev)
-    phase_serve_w(dev)
+    twins = [phase_serve_w(dev)]   # the CPU sides run beside [train]
     b5["launches"] = phase_serve(dev)
     stamp("llama3.2-3b", t_start)
 
@@ -4047,7 +4239,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_init_m = time.time() - t0
     b6["launches"] = phase_fwd_m(dev, params_m, cfg_m)
-    phase_serve_mw(dev)
+    twins.append(phase_serve_mw(dev))
     b7["launches"] = serve_main(
         dev, "[serve-m]", cfg_m, params_m, t_init_m,
         [(ms_ops, "mamba_fused", "B7", cfg_m.n_layers)])["B7"]
@@ -4066,7 +4258,7 @@ def main() -> int:
     torch.cuda.synchronize()
     t_init_z = time.time() - t0
     fwd_z = phase_fwd_z(dev, params_z, cfg_z)
-    phase_serve_zw(dev)
+    twins.append(phase_serve_zw(dev))
     serve_z = serve_main(
         dev, "[serve-z]", cfg_z, params_z, t_init_z,
         [(ms_ops, "mamba_fused", "B7", cfg_z.n_layers),
@@ -4082,13 +4274,13 @@ def main() -> int:
     b5["launches"] += moe_paths(dev, t_start)
 
     # ---- the training path: llama3.2-3b through B5 and B5-bwd
-    b5b, b5_train = train_paths(dev, t_start)
+    b5b, b5_train = train_paths(dev, t_start, twins)
     b5["launches"] += b5_train
 
     # ---- the SSM training paths: falcon-mamba-7b through B7 and B7-bwd
     # (and B6, B6-bwd with use_kernel), zamba2-2.7b through B7, B7-bwd, B5
     # and B5-bwd
-    b7b, b6b, ssm = ssm_train_paths(dev, t_start)
+    b7b, ssd, b6b, ssm = ssm_train_paths(dev, t_start)
     b5["launches"] += ssm["flash_attn"]
     b5b["launches"] += ssm["flash_attn_bwd"]
     b6["launches"] += ssm["mamba_scan"]
@@ -4121,7 +4313,7 @@ def main() -> int:
              ms=b3_ms,
              plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),
-        b4, b5, b5b, b6, b7, b6b, b7b,
+        b4, b5, b5b, b6, b7, b6b, b7b, ssd,
     ]
     print(f"[6] total {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

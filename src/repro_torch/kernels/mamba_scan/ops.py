@@ -20,8 +20,10 @@ hs.  Otherwise it launches B6 alone.  On CPU tensors it runs plain torch,
 which autograd differentiates.
 
 `LAUNCHES` counts kernel launches: "mamba_scan" (B6), "mamba_fused" (B7,
-`fused.fused_mamba_scan`), "mamba_scan_bwd" (B6-bwd) and
-"mamba_fused_bwd" (B7-bwd, one a call of its three kernels).  The
+`fused.fused_mamba_scan`), "mamba_scan_bwd" (B6-bwd), "mamba_fused_bwd"
+(B7-bwd's per-channel form) and "mamba_ssd_bwd" (B7-bwd's mamba2 form,
+`fused.MambaSSDScan`), each of B7-bwd's forms one a call of its four
+kernels.  The
 launchers in kernel.py add one after each launch that succeeded and
 nowhere else (an empty input launches nothing and counts nothing).
 """
@@ -32,7 +34,7 @@ import torch
 from repro_torch.kernels.mamba_scan.ref import scan_ref
 
 LAUNCHES = {"mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
-            "mamba_fused_bwd": 0}
+            "mamba_fused_bwd": 0, "mamba_ssd_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -36,10 +36,11 @@ reference sends ragged L to `ref_scan`).  y sums over the states by
 
 Training: under autograd on the card both scans go through their
 kernels' `torch.autograd.Function`s (`fused.MambaFusedScan`: B7 with tile
-checkpoints, then B7-bwd; `ops.MambaChunkScan`: B6, then B6-bwd); mamba2's
-per-head dt and decay are repeated over the head's channels by torch ops
-(`ssd_channels`), so autograd sums the channels' gradients back into the
-head.  On the CPU autograd differentiates the reference's chunked body.
+checkpoints, then B7-bwd's per-channel form; `ops.MambaChunkScan`: B6,
+then B6-bwd); mamba2's scan goes through `fused.MambaSSDScan` (B7 over
+`ssd_channels`' views with tile checkpoints, then B7-bwd's mamba2 form,
+which returns the per-head ddt and da_h itself).  On the CPU autograd
+differentiates the reference's chunked body.
 
 Decode is a single-step state update (`apply_mamba1_decode`,
 `apply_mamba2_decode`) carrying a conv ring buffer and the SSM state: the
@@ -293,12 +294,8 @@ def ssd_channels(dt: Tensor, xh: Tensor, a_h: Tensor, h0: Tensor):
     (B, L, nh * hd) and a_h (nh,) -> A (nh * hd, ds), each head's value
     repeated over its hd channels (channel h * hd + e, the layout of
     ``xh.reshape(B, L, nh * hd)``); xh and h0 (B, nh, hd, ds) as views of
-    (B, L, nh * hd) and (B, nh * hd, ds)."""
-    bsz, L, nh, hd = xh.shape
-    di, ds = nh * hd, h0.shape[-1]
-    return (dt.repeat_interleave(hd, dim=-1), xh.reshape(bsz, L, di),
-            a_h.repeat_interleave(hd)[:, None].expand(di, ds),
-            h0.reshape(bsz, di, ds))
+    (B, L, nh * hd) and (B, nh * hd, ds) (`scan_fused.ssd_channels`)."""
+    return scan_fused.ssd_channels(dt, xh, a_h, h0)
 
 
 def fused_chunked_scan_m2(
@@ -316,13 +313,19 @@ def fused_chunked_scan_m2(
     channels, channel h * hd + e taking head h's dt and its decay a_h[h] at
     every state, so that exp(dt * A), (dt * x) * B, the recurrence and
     sum_s h * C are the reference's per-head values element for element;
-    one launch at any L.  On CPU tensors: the reference's body, a =
+    one launch at any L.  Under grad (an input requiring one) the same B7
+    launch asked for its tile checkpoints, inside `scan_fused.MambaSSDScan`,
+    whose backward is B7-bwd's mamba2 form (ddt and da_h a head, from one
+    decay a (t, head)).  On CPU tensors: the reference's body, a =
     exp(dt * a_h) per head and bx = dt * x * B built per chunk, an
     associative scan inside it and the C-projection folded in; where
     L % chunk != 0 the last chunk is shorter."""
     bsz, L, nh, hd = xh.shape
     ds = b_t.shape[-1]
     if dt.is_cuda:
+        ins = (dt, xh, b_t, c_t, a_h, h0)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+            return scan_fused.fused_ssd_scan(dt, xh, b_t, c_t, a_h, h0)
         dt_d, xc, a_mat, h0_d = ssd_channels(dt, xh, a_h, h0)
         y, h_last = scan_fused.fused_mamba_scan(dt_d, xc, b_t, c_t, a_mat,
                                                 h0=h0_d, chunk=chunk)

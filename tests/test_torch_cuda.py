@@ -727,7 +727,8 @@ def test_mamba_gradients_flow_on_card(B, L, D, S, dtype):
     y, hl = ms_fused.fused_mamba_scan(*leaves[:5], h0=leaves[5])
     got = torch.autograd.grad((y, hl), leaves, (gy, ghl))
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 1,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 1}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 1,
+                               "mamba_ssd_bwd": 0}
     want = ms_fused.fused_mamba_scan_plain_bwd(dt, xc, b, c, a_mat, h0, gy,
                                                ghl)
     for x, w, leaf in zip(got, want, leaves):
@@ -744,7 +745,8 @@ def test_mamba_gradients_flow_on_card(B, L, D, S, dtype):
     g_hs = torch.randn(hs.shape, generator=g, device="cuda")
     got = torch.autograd.grad((hs, hl), (a, bb, h), (g_hs, ghl))
     assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 0,
-                               "mamba_scan_bwd": 1, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 1, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
     want = scan_ref_bwd(a.detach(), hs.detach(), h0, g_hs, ghl)
     for x, w in zip(got, want):
         assert torch.equal(x, w)
@@ -815,6 +817,109 @@ def test_mamba_bwd_kernels_are_deterministic(S):
     assert all(torch.equal(x, y) for x, y in zip(grads(), grads()))
 
 
+def _ssd_inputs_cuda(B, L, nh, hd, S, dtype, seed=17):
+    """The SSD scan's inputs (zamba2's a_h = -(1 .. nh)) on the card."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+
+    def cu(x):
+        return torch.from_numpy(np.ascontiguousarray(x.astype(f))).cuda()
+
+    dt = cu(rng.uniform(0.001, 0.1, (B, L, nh)))
+    xh, b, c = (cu(rng.normal(size=sh)).to(dtype)
+                for sh in ((B, L, nh, hd), (B, L, S), (B, L, S)))
+    a_h = -torch.arange(1, nh + 1, dtype=torch.float32, device="cuda")
+    h0 = cu(rng.normal(size=(B, nh, hd, S)))
+    return dt, xh, b, c, a_h, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form,B,L,width,S", [
+    # per channel: (B, L, D, S); L ragged against the 64-step tiles and the
+    # 8-step sub-tiles, D against the block's channels and the cluster of 8
+    ("channel", 2, 77, 200, 8), ("channel", 1, 130, 1000, 16),
+    ("channel", 3, 5, 40, 16), ("channel", 2, 70, 77, 64),
+    ("channel", 1, 131, 2064, 64),
+    # mamba2: (B, L, (nh, hd), S); hd 4 (four heads a chunk of q and r),
+    # 32 (two chunks a head) and zamba2's 64
+    ("ssd", 2, 77, (3, 4), 8), ("ssd", 1, 100, (5, 32), 16),
+    ("ssd", 2, 67, (9, 64), 64), ("ssd", 1, 1, (2, 64), 64),
+])
+def test_mamba_bwd_forms_match_plain_on_card(form, B, L, width, S, dtype):
+    """B7-bwd's two forms against their plain versions: each gradient within
+    relative L2 1e-5 where returned in f32 and 1e-2 in bf16, two calls
+    bitwise equal, one launch counted a call."""
+    _need_cuda()
+    from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    if form == "channel":
+        dt, xc, b, c, a_mat, h0 = _fused_inputs(B, L, width, S, dtype)
+        _, _, ckpt = ms_kernel.mamba_fused(dt, xc, b, c, a_mat, h0,
+                                           checkpoints=True)
+        gy = torch.randn(dt.shape, generator=g, device="cuda")
+        ghl = torch.randn(h0.shape, generator=g, device="cuda")
+        args = (dt, xc, b, c, a_mat, ckpt, gy, ghl)
+        run, key = ms_kernel.mamba_fused_bwd, "mamba_fused_bwd"
+        want = ms_fused.fused_mamba_scan_plain_bwd(dt, xc, b, c, a_mat, h0,
+                                                   gy, ghl)
+        leaves = (dt, xc, b, c, a_mat, h0)
+    else:
+        nh, hd = width
+        dt, xh, b, c, a_h, h0 = _ssd_inputs_cuda(B, L, nh, hd, S, dtype)
+        dt_d, xc, a_mat, h0_d = ms_fused.ssd_channels(dt, xh, a_h, h0)
+        _, _, ckpt = ms_kernel.mamba_fused(dt_d, xc, b, c,
+                                           a_mat.contiguous(), h0_d,
+                                           checkpoints=True)
+        gy = torch.randn(xh.shape, generator=g, device="cuda")
+        ghl = torch.randn(h0.shape, generator=g, device="cuda")
+        args = (dt, xh, b, c, a_h, ckpt, gy, ghl)
+        run, key = ms_kernel.mamba_ssd_bwd, "mamba_ssd_bwd"
+        want = ms_fused.fused_ssd_scan_plain_bwd(dt, xh, b, c, a_h, h0, gy,
+                                                 ghl)
+        leaves = (dt, xh, b, c, a_h, h0)
+    ms_ops.reset_launches()
+    got, again = run(*args), run(*args)
+    assert ms_ops.LAUNCHES[key] == 2
+    assert sum(ms_ops.LAUNCHES.values()) == 2
+    for x, y, w, leaf in zip(got, again, want, leaves):
+        assert x.dtype == leaf.dtype and x.shape == leaf.shape
+        assert torch.equal(x, y)
+        bound = 1e-2 if x.dtype == torch.bfloat16 else 1e-5
+        assert _rel_l2_cuda(x, w) <= bound
+
+
+@pytest.mark.cuda
+def test_mamba2_layer_under_grad_launches_the_mamba2_form():
+    """A mamba2 mixer under grad on the card: its scan is one B7 launch
+    (with checkpoints) and its backward one launch of B7-bwd's mamba2 form,
+    never the per-channel form; the gradients reach every parameter."""
+    _need_cuda()
+    import dataclasses
+
+    import repro_torch.configs as configs
+    from repro_torch.models import mamba as tmamba
+
+    cfg = dataclasses.replace(configs.get("zamba2-2.7b"), d_model=256,
+                              ssm_head_dim=64)   # d_inner 512: 8 heads
+    p = tmamba.make_mamba2(torch.Generator(device="cuda").manual_seed(3),
+                           cfg, torch.bfloat16)
+    for t in p.values():
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            t.requires_grad_()
+    x = torch.randn((2, 100, cfg.d_model), device="cuda").to(torch.bfloat16)
+    ms_ops.reset_launches()
+    y = tmamba.apply_mamba2(p, x, cfg)
+    y.float().square().mean().backward()
+    assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 1,
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 1}
+    for name in ("in_proj", "a_log", "dt_bias", "out_proj"):
+        assert p[name].grad is not None
+        assert bool(torch.isfinite(p[name].grad).all()), name
+
+
 @pytest.mark.cuda
 def test_mamba_fused_asks_checkpoints_only_for_gradients(monkeypatch):
     """B7 writes its tile checkpoints only where a backward will read
@@ -843,7 +948,8 @@ def test_mamba_fused_asks_checkpoints_only_for_gradients(monkeypatch):
     assert served.grad_fn is None and trained.grad_fn is not None
     assert torch.equal(served, trained.detach())
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 3,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -925,7 +1031,8 @@ def test_mamba_scan_kernel_matches_plain(b, L, d, s, chunk, bd):
     ms_ops.reset_launches()
     hs, hl = ms_ops.mamba_chunk_scan(a, bb, h0, chunk=chunk, block_d=bd)
     assert ms_ops.LAUNCHES == {"mamba_scan": 1, "mamba_fused": 0,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
     hs_p, hl_p = scan_ref(a, bb, h0)
     assert torch.equal(hs, hs_p) and torch.equal(hl, hl_p)
 
@@ -970,7 +1077,8 @@ def test_mamba_fused_kernel_matches_plain(B, L, D, S, dtype):
         torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
         torch.testing.assert_close(hl, hl_p, atol=1e-5, rtol=1e-5)
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -995,7 +1103,8 @@ def test_mamba_fused_narrow_copies_equal_wide(dtype):
     y_w, hl_w = ms_fused.fused_mamba_scan(*ins[:5], h0=ins[5])
     y_n, hl_n = ms_fused.fused_mamba_scan(dt, xc, b, c, ins[4], h0=ins[5])
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
     assert torch.equal(y_w, y_n) and torch.equal(hl_w, hl_n)
     y_p, hl_p = ms_fused.fused_mamba_scan_plain(*ins)
     torch.testing.assert_close(y_n, y_p, atol=1e-5, rtol=1e-5)
@@ -1013,7 +1122,8 @@ def test_mamba_fused_counts_one_launch_per_call():
         ms_fused.fused_mamba_scan(dt, xc, b, c, a_mat, h0=h0 if n % 2 else
                                   None)
         assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": n,
-                                   "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                                   "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                                   "mamba_ssd_bwd": 0}
     for cut in (dict(L=0), dict(B=0)):
         L, B = cut.get("L", 9), cut.get("B", 2)
         e_dt, e_xc, e_b, e_c = (t[:B, :L].contiguous() for t in (dt, xc, b, c))
@@ -1026,7 +1136,8 @@ def test_mamba_fused_counts_one_launch_per_call():
             assert torch.equal(hl, want)
             assert want.numel() == 0 or hl.data_ptr() != want.data_ptr()
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 3,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -1043,7 +1154,8 @@ def test_mamba_kernels_launch_nothing_on_empty_inputs():
                                       torch.zeros((32, 8), device="cuda"),
                                       h0=h0)
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 0,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
     assert hs.shape == a.shape and y.shape == (1, 0, 32)
     assert torch.equal(hl, h0)
 
@@ -1069,7 +1181,8 @@ def test_mamba2_scan_is_one_b7_launch(dtype):
     ms_ops.reset_launches()
     y, hl = tmamba.fused_chunked_scan_m2(*(t.cuda() for t in cpu), 256)
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 1,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
     assert y.shape == (B, L, nh, hd) and hl.shape == (B, nh, hd, ds)
     dt_d, xc, a_mat, h0_d = tmamba.ssd_channels(dt.cuda(), xh.cuda(),
                                                 a_h.cuda(), h0.cuda())
@@ -1106,7 +1219,8 @@ def test_hybrid_forward_launches_b7_per_layer_and_b5_per_super_block():
     out = lm.forward(params, toks.cuda(), cfg, return_caches=True,
                      cache_len=64)
     assert ms_ops.LAUNCHES == {"mamba_scan": 0, "mamba_fused": 2 * 4,
-                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0}
+                               "mamba_scan_bwd": 0, "mamba_fused_bwd": 0,
+                               "mamba_ssd_bwd": 0}
     assert fa_ops.LAUNCHES == {"flash_attn": 2 * 2, "flash_attn_bwd": 0}
     want = lm.forward(cpu_params, toks, cfg, return_caches=True, cache_len=64)
     a, b = out.logits.double().cpu(), want.logits.double()

@@ -127,7 +127,7 @@ def test_mixer_matches_jax(model, L, use_kernel):
                                  use_kernel=use_kernel)
     assert scan_ops.LAUNCHES == {  # CPU
         "mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
-        "mamba_fused_bwd": 0}
+        "mamba_fused_bwd": 0, "mamba_ssd_bwd": 0}
     assert yt.dtype == torch.bfloat16 and yt.shape == yj.shape
     np.testing.assert_allclose(_np(yt), _np(yj), **ULP)
     np.testing.assert_array_equal(_np(st.conv), _np(sj.conv))

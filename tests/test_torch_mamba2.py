@@ -123,7 +123,7 @@ def test_fused_chunked_scan_m2_matches_jax(dtype):
                                          h0=h0_d)
     assert scan_ops.LAUNCHES == {  # CPU
         "mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
-        "mamba_fused_bwd": 0}
+        "mamba_fused_bwd": 0, "mamba_ssd_bwd": 0}
     np.testing.assert_allclose(_np(yb.view(2, 16, 4, 8)), _np(yj), **SCAN)
     np.testing.assert_allclose(_np(hb.view(2, 4, 8, 8)), _np(hj), **SCAN)
 
@@ -140,7 +140,7 @@ def test_mixer_matches_jax(mixers, L):
     yt, st = tmamba._mamba2_scan(pt, interop.tensor(x), cfg_t)
     assert scan_ops.LAUNCHES == {  # CPU
         "mamba_scan": 0, "mamba_fused": 0, "mamba_scan_bwd": 0,
-        "mamba_fused_bwd": 0}
+        "mamba_fused_bwd": 0, "mamba_ssd_bwd": 0}
     assert isinstance(st, tmamba.Mamba2State)
     assert yt.dtype == torch.bfloat16 and yt.shape == yj.shape
     np.testing.assert_allclose(_np(yt), _np(yj), **ULP)

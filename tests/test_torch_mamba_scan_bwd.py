@@ -5,7 +5,8 @@ package's, on the same numpy inputs.
 The JAX package differentiates its scans with XLA's autodiff of jnp; its
 Pallas B6 has no VJP, so B6's plain backward is held against `jax.vjp` of
 `chunked_scan` (the same function), and B7's against `jax.vjp` of
-`fused_chunked_scan_m1` and `fused_chunked_scan_m2`.
+`fused_chunked_scan_m1` and `fused_chunked_scan_m2` (the latter also
+through B7-bwd's mamba2 form's plain version, `fused_ssd_scan_plain_bwd`).
 
 Tolerances and why:
   * against JAX: relative L2 1e-5 per gradient in float32.  JAX's forward
@@ -15,8 +16,10 @@ Tolerances and why:
     relative L2 1e-5 (dB, dC, dA sum in another order; ~1e-7 here).
   * B6's plain backward against autograd of `scan_ref`: bitwise (the same
     products and sums, one rounding each, in the same order).
-  * `MambaFusedScan` / `MambaChunkScan` wiring on CPU tensors: bitwise the
-    plain backward (the Function runs it).
+  * the mamba2 plain backward against torch autograd through
+    `ssd_channels`: relative L2 1e-5 (the head sums run in another order).
+  * `MambaFusedScan` / `MambaSSDScan` / `MambaChunkScan` wiring on CPU
+    tensors: bitwise the plain backward (the Function runs it).
 The kernels run only on the card: tests/test_torch_cuda.py holds them
 against these plain versions.
 """
@@ -110,6 +113,96 @@ def test_fused_bwd_through_ssd_channels_matches_jax_vjp_m2(
     for name, g, w in zip(("dt", "xh", "b", "c", "a_h", "h0"), got, want):
         assert g.shape == w.shape, name
         assert _rel(g, w) <= REL, (name, _rel(g, w))
+
+
+def _ssd_inputs(B, L, nh, hd, S, seed):
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    return dict(
+        dt=rng.uniform(0.001, 0.1, (B, L, nh)).astype(f),
+        xh=rng.normal(size=(B, L, nh, hd)).astype(f),
+        b=rng.normal(size=(B, L, S)).astype(f),
+        c=rng.normal(size=(B, L, S)).astype(f),
+        a_h=-np.arange(1, nh + 1, dtype=f),
+        h0=rng.normal(size=(B, nh, hd, S)).astype(f),
+        gy=rng.normal(size=(B, L, nh, hd)).astype(f),
+        ghl=rng.normal(size=(B, nh, hd, S)).astype(f))
+
+
+SSD_NAMES = ("dt", "xh", "b", "c", "a_h", "h0")
+# (B, L, nh, hd, S, chunk): hd 32 sums two chunks of 16 channels a head
+SSD_SHAPES = [(2, 16, 3, 4, 8, 8), (1, 24, 2, 32, 16, 8),
+              (2, 20, 2, 8, 16, 4)]
+
+
+@pytest.mark.parametrize("B,L,nh,hd,S,chunk", SSD_SHAPES)
+def test_ssd_plain_bwd_matches_jax_vjp_m2(B, L, nh, hd, S, chunk):
+    """B7-bwd's mamba2 form's plain version (ddt and da_h a head, from one
+    decay a (t, head)) against `jax.vjp` of `fused_chunked_scan_m2`."""
+    x = _ssd_inputs(B, L, nh, hd, S, seed=200 + L + hd)
+    ins = [x[k] for k in SSD_NAMES]
+    _, vjp = jax.vjp(
+        lambda *a: jmamba.fused_chunked_scan_m2(*a, chunk),
+        *map(jnp.asarray, ins))
+    want = vjp((jnp.asarray(x["gy"]), jnp.asarray(x["ghl"])))
+    got = tfused.fused_ssd_scan_plain_bwd(*_t(*ins, x["gy"], x["ghl"]))
+    for name, g, w in zip(SSD_NAMES, got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32, name
+        assert _rel(g, w) <= REL, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("B,L,nh,hd,S,with_ghl",
+                         [(2, 13, 3, 4, 8, True), (1, 9, 2, 32, 64, False)])
+def test_ssd_plain_bwd_matches_autograd_through_ssd_channels(
+        B, L, nh, hd, S, with_ghl):
+    """The mamba2 plain backward against torch autograd of B7's plain
+    forward over `ssd_channels` (autograd sums each head's channels back
+    into the head in its own order): relative L2 1e-5."""
+    x = _ssd_inputs(B, L, nh, hd, S, seed=300 + L)
+    leaves = [t.requires_grad_() for t in _t(*(x[k] for k in SSD_NAMES))]
+    dt_d, xc, a_mat, h0_d = tmamba.ssd_channels(leaves[0], leaves[1],
+                                                leaves[4], leaves[5])
+    y, hl = tfused.fused_mamba_scan_plain(dt_d, xc, leaves[2], leaves[3],
+                                          a_mat, h0_d)
+    gy, ghl = _t(x["gy"], x["ghl"])
+    outs = (y, hl) if with_ghl else (y,)
+    grads = ((gy.reshape(y.shape), ghl.reshape(hl.shape)) if with_ghl
+             else (gy.reshape(y.shape),))
+    want = torch.autograd.grad(outs, leaves, grads)
+    got = tfused.fused_ssd_scan_plain_bwd(
+        *[t.detach() for t in leaves], gy, ghl if with_ghl else None)
+    for name, g, w in zip(SSD_NAMES, got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert _rel(g.detach(), w) <= REL, (name, _rel(g.detach(), w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_on_cpu_returns_the_plain_backward(dtype):
+    """`MambaSSDScan` on CPU tensors runs B7's plain forward over
+    `ssd_channels` (y and h_last the bits `fused_mamba_scan` gives there)
+    and `fused_ssd_scan_plain_bwd`: the gradients bitwise, in the inputs'
+    types; without h0 its gradient is not asked for."""
+    x = _ssd_inputs(2, 17, 2, 8, 16, seed=7)
+    dt, a_h, h0 = _t(x["dt"], x["a_h"], x["h0"])
+    xh, b, c = (t.to(dtype) for t in _t(x["xh"], x["b"], x["c"]))
+    gy, ghl = _t(x["gy"], x["ghl"])
+    leaves = [t.clone().requires_grad_() for t in (dt, xh, b, c, a_h, h0)]
+    y, hl = tfused.fused_ssd_scan(*leaves)
+    assert "MambaSSDScan" in type(y.grad_fn).__name__
+    dt_d, xc, a_mat, h0_d = tmamba.ssd_channels(dt, xh, a_h, h0)
+    y0, hl0 = tfused.fused_mamba_scan(dt_d, xc, b, c, a_mat, h0=h0_d)
+    assert torch.equal(y.detach(), y0.view(y.shape))
+    assert torch.equal(hl.detach(), hl0.view(hl.shape))
+    got = torch.autograd.grad((y, hl), leaves, (gy, ghl))
+    want = tfused.fused_ssd_scan_plain_bwd(dt, xh, b, c, a_h, h0, gy, ghl)
+    for g, w, leaf in zip(got, want, leaves):
+        assert g.dtype == leaf.dtype and torch.equal(g, w)
+    leaves = [t.clone().requires_grad_() for t in (dt, xh, b, c, a_h)]
+    y, _ = tfused.fused_ssd_scan(*leaves)
+    got = torch.autograd.grad(y, leaves, gy)
+    want = tfused.fused_ssd_scan_plain_bwd(dt, xh, b, c, a_h, None, gy)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 PLAIN_SHAPES = [(2, 19, 10, 8, False, False), (1, 33, 6, 16, True, True),
