@@ -95,10 +95,13 @@ build/repro_torch/), then runs, each phase failing the script on error:
      h2o-danube-1.8b shape at S = 6144 with its 4096 window, the grok-1
      shape with its logit cap (S = 512, also with kv_len < Sk, and 2048),
      zamba2's shared block (H = KV = 32, D = 80, causal) at S = 512 and
-     2048, and llama4-maverick's (H 40, KV 8, D 128: GQA groups of 5) at
-     S = 512 and 2048; the bf16 kernel and torch's
-     scaled_dot_product_attention timed at each llama, zamba2 and maverick
-     shape (device time under torch.profiler, and CUDA events per call)
+     2048, llama4-maverick's (H 40, KV 8, D 128: GQA groups of 5) at
+     S = 512 and 2048, seamless-m4t's encoder (H = KV = 16, D = 64, no
+     mask) at 1536 frames, also with kv_len = 1000, its decoder (causal)
+     at S = 2048 and internvl2's (H 16, KV 8, D 128) at S = 2048; the
+     bf16 kernel and torch's scaled_dot_product_attention timed at each
+     llama, zamba2 and maverick shape, seamless's encoder and internvl2's
+     (device time under torch.profiler, and CUDA events per call)
      beside the bound, and the kernel alone at grok-1's S = 2048 (SDPA has
      no logit cap);
   [serve-w] llama3.2-3b at full width cut to 2 layers: prefill of a
@@ -131,23 +134,23 @@ build/repro_torch/), then runs, each phase failing the script on error:
      and with torch.profiler's device time per launch, beside its bound
      (at S = 64 also beside the mamba2 scan's own bound, which has one
      exponential a head, not one a state);
-  [fwd-m] falcon-mamba-7b at full width, depth cut to 16 of its 64
+  [fwd-m] falcon-mamba-7b at full width, depth cut to 8 of its 64
      layers (to keep the script inside its time limit; random weights
      from the seed), B = 1, L = 2048: lm.forward with use_kernel
-     (exactly 16 B6 launches) and without (exactly 16 B7 launches), logits
+     (exactly 8 B6 launches) and without (exactly 8 B7 launches), logits
      of the two within relative L2 1e-2, and the wall of each;
   [serve-mw] falcon-mamba-7b at full width cut to 2 layers: forward +
      prefill of a 300-token prompt and 2 decode steps on the card (B7)
      against the same parameters on the CPU (plain), relative L2 <= 1e-2
      on the logits, SSM states and conv rings;
-  [serve-m] the [serve] runs on that 16-layer falcon-mamba-7b: exactly 16
-     B7 launches per prefill (512 a workload), EngineStats equal to a CPU
+  [serve-m] the [serve] runs on that 8-layer falcon-mamba-7b: exactly 8
+     B7 launches per prefill (256 a workload), EngineStats equal to a CPU
      smoke run, the wall, a decode step and a 512-token prefill timed
      alone, and the second workload's boosts and switches;
-  [fwd-z] zamba2-2.7b at full width, depth cut to 24 of its 54 layers
-     (24 mamba2 layers in 4 super-blocks of 6, the shared attention block
+  [fwd-z] zamba2-2.7b at full width, depth cut to 12 of its 54 layers
+     (12 mamba2 layers in 2 super-blocks of 6, the shared attention block
      after each; to keep the script inside its time limit; random weights
-     from the seed), B = 1, L = 2048: lm.forward with exactly 24 B7 and 4
+     from the seed), B = 1, L = 2048: lm.forward with exactly 12 B7 and 2
      B5 launches, its wall, tokens/s and the device's busy share;
   [serve-zw] zamba2-2.7b at full width cut to 6 layers (one super-block
      and one application of the shared block): forward + prefill of a
@@ -157,13 +160,13 @@ build/repro_torch/), then runs, each phase failing the script on error:
      the card misses 1e-2, the distance after each block is printed beside
      the CPU's own drift between its bf16 GEMMs and its f32 ones (the
      witness), and the bound is max(1e-2, 1.5 x the witness);
-  [serve-z] the [serve] runs on that 24-layer zamba2-2.7b: exactly 24 B7
-     and 4 B5 launches per prefill, EngineStats equal to a CPU smoke run, the
+  [serve-z] the [serve] runs on that 12-layer zamba2-2.7b: exactly 12 B7
+     and 2 B5 launches per prefill, EngineStats equal to a CPU smoke run, the
      wall, a decode step and a 512-token prefill timed alone;
   [fwd-g] grok-1-314b at full width (d_model 6144, 48/8 heads, logit cap
-     30, 8 experts of d_ff 32768, top-2), depth cut to 4 of its 64 layers
-     (42.6 GB of bf16 weights; random weights from the seed), B = 1, L =
-     2048 (one dispatch group, capacity 640): lm.forward with exactly 4 B5
+     30, 8 experts of d_ff 32768, top-2), depth cut to 2 of its 64 layers
+     (~22 GB of bf16 weights; random weights from the seed), B = 1, L =
+     2048 (one dispatch group, capacity 640): lm.forward with exactly 2 B5
      launches, finite logits, the expert load summing to k = 2, lb and zl
      finite, TF32 off for the router's f32 product; the wall, tokens/s and
      the device's busy share;
@@ -191,11 +194,14 @@ build/repro_torch/), then runs, each phase failing the script on error:
      log-sum-exp from B5's forward) against flash_attention_plain_bwd
      at llama3.2-3b's shape (S = 48, 512, 2048, and B = 4 at S = 2048),
      h2o-danube's window (S = 6144, window 4096), grok-1's cap (S = 512),
-     zamba2's D = 80 and maverick's groups of 5, bf16 and f32: relative L2
+     zamba2's D = 80 and maverick's groups of 5, seamless-m4t's training
+     shapes (4, 1536, 16, 64) with no mask (its encoder) and (4, 2048, 16,
+     64) causal (its decoder), bf16 and f32 (bf16 alone at B = 4): relative L2
      of dq, dk and dv <= 1e-5 (f32) and <= 1e-2 (bf16), two launches
      bitwise equal; at each shape B5's lse within 1e-5 + 1e-5 rel of
      flash_attention_plain(return_lse=True) and B5's O bitwise the same
-     with lse asked for and without; timed at the training shape (4, 2048, 24, 128) bf16 on
+     with lse asked for and without; timed at the training shapes
+     (llama's (4, 2048, 24, 128) and seamless's two) bf16 on
      events and device time (and each of the three kernels' device time)
      beside its bound (10 D flops a valid pair at 989 TFLOP/s), the plain
      version and torch's own flash backward
@@ -260,6 +266,40 @@ build/repro_torch/), then runs, each phase failing the script on error:
      step, tokens/s, a step alone profiled for the busy share, the peak
      memory; then for falcon-mamba one balanced step with use_kernel=True
      at B = 1 through B6 and B6-bwd;
+  [fwd-e] seamless-m4t-large-v2 whole (24 + 24 layers, 2.0 B parameters,
+     random weights from the seed): encdec.encode of 1536 frames of 160 at
+     B = 1 and B = 8 (exactly 24 B5 launches each, no mask) and
+     encdec.forward at B = 1, S = 2048 (exactly 48: the cross-attention is
+     plain, as the reference computes it), finite outputs; each one's
+     wall, tokens/s and busy share;
+  [serve-e] init_encdec_state for 8 utterances (24 B5 launches), max_len
+     256, then 16 greedy decode steps (no B5 launch), every logit finite;
+     a decode step timed alone and profiled, the cross K/V's size;
+  [fwd-v] internvl2-2b whole (24 layers): lm.forward at B = 1, L = 2048
+     with 256 projected patches of 1024 spliced in (exactly 24 B5
+     launches, the prefix moving the logits), wall, tokens/s, busy share;
+  [serve-v] prefill_caches(..., embeds=...) of 8 prompts of 256 patches +
+     256 tokens (24 B5 launches), then 32 greedy decode steps (no B5);
+     a prefill and a decode step timed alone and profiled;
+  [serve-ew], [serve-vw] seamless at full width cut to 2 + 2 layers
+     (encoder output, cross K/V, the logits and self K/V of 2 decode
+     steps) and internvl2 cut to 2 layers (forward + prefill of 300
+     tokens with the patches, 2 decode steps): card (B5) against CPU
+     (plain), relative L2 1e-2, or where the card misses, max(1e-2, 1.5 x
+     the CPU's bf16-against-f32 GEMM witness); their card sides and
+     [train-ew]'s run first, right after [train-z], and their CPU sides on
+     a worker thread, after the SSM twins' tail, beside [train-e] and the
+     forward and serving phases above;
+  [train-ew] seamless's gradients at full width, 2 + 2 layers, B = 1,
+     S = 256, F = 1536, the batch's mask set to all ones (the synthetic
+     mask zeroes the first 1536 decoder positions), card (B5, B5-bwd)
+     against CPU by [train-mw]'s rule;
+  [train-e] seamless whole, remat "full", B = 4, S = 2048 decoder tokens,
+     F = 1536 frames, the launcher's lr and warmup: one balanced step
+     (exactly 96 B5 and 48 B5-bwd launches), then loop.run for 3 steps
+     from its state (finite losses, exact launch counts), each step's
+     wall, a step alone profiled, the peak memory, and batch 0's loss on
+     the trained state below its loss at init;
   6. a JSON line {"kernels": [...]}: per kernel its launches on its path,
      max abs error against the plain version, median ms per launch (B1:
      per call of arbitrate_lanes, as the "arb" engine calls it), the plain
@@ -300,6 +340,9 @@ PEAK_F32_FLOP_S = 67e12
 # lanes per SM per clock x 1.98 GHz
 PEAK_EXP_S = 132 * 16 * 1.98e9
 SEED = 0
+# the serving paths' depths, cut to keep the script inside its time limit:
+# falcon-mamba-7b 8 of 64 layers, zamba2-2.7b 12 of 54 (2 super-blocks)
+SERVE_M_LAYERS, SERVE_Z_LAYERS = 8, 12
 # phase 4's epochs of 500 cycles (3, where 6 had its "arb" and "ref"
 # engines take 137-218 s of a run near its time limit)
 CONG_EPOCHS = 3
@@ -765,7 +808,8 @@ def flash_bound(b, h, kv, sq, sk, d, causal, window, kv_len, dtype):
 
     qp = np.arange(sq)[:, None]
     kp = np.arange(sk)[None, :]
-    valid = kp < min(sk if kv_len is None else kv_len, sk)
+    valid = np.broadcast_to(kp < min(sk if kv_len is None else kv_len, sk),
+                            (sq, sk))
     if causal:
         valid = valid & (qp >= kp)
     if window is not None:
@@ -1307,16 +1351,25 @@ def phase_b5(dev):
     zamba = ("zamba2-2.7b", 32, 32, 80)   # the shared attention block
     grok = ("grok-1-314b", 48, 8, 128)    # GQA groups of 6, logit cap 30
     maverick = ("llama4-maverick-400b-a17b", 40, 8, 128)  # groups of 5
+    # seamless-m4t's encoder (no mask over its 1536 frames) and decoder
+    # (MHA, D = 64), internvl2's decoder (groups of 2)
+    s_enc = ("seamless-m4t-large-v2 encoder", 16, 16, 64)
+    s_dec = ("seamless-m4t-large-v2 decoder", 16, 16, 64)
+    vlm = ("internvl2-2b", 16, 8, 128)
     cases = [(llama, s, True, None, None, None) for s in (48, 512, 2048)] + [
         (("h2o-danube-1.8b", 32, 8, 80), 6144, True, 4096, None, None),
         (grok, 512, True, None, 30.0, None),
         (grok, 512, True, None, 30.0, 300),
         (grok, 2048, True, None, 30.0, None),
     ] + [(zamba, s, True, None, None, None) for s in (512, 2048)] + [
-        (maverick, s, True, None, None, None) for s in (512, 2048)]
-    # timed at every S, beside SDPA; grok-1 at S = 2048 only, and without
-    # SDPA, which has no logit cap
-    timed = (llama[0], zamba[0], maverick[0])
+        (maverick, s, True, None, None, None) for s in (512, 2048)] + [
+        (s_enc, 1536, False, None, None, None),
+        (s_enc, 1536, False, None, None, 1000),
+        (s_dec, 2048, True, None, None, None),
+        (vlm, 2048, True, None, None, None)]
+    # timed at every S without kv_len, beside SDPA; grok-1 at S = 2048
+    # only, and without SDPA, which has no logit cap
+    timed = (llama[0], zamba[0], maverick[0], s_enc[0], vlm[0])
     tol = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (8e-3, 2 ** -7)}
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     timing = []
@@ -1336,14 +1389,14 @@ def phase_b5(dev):
                   f"B5 differs from its plain version: {arch} S={s} {dtype} "
                   f"(max abs err {float(diff.max())})")
             errs[dtype] = max(errs[dtype], float(diff.max()))
-            lib_too = arch in timed
+            lib_too = arch in timed and kv_len is None
             if dtype == torch.bfloat16 and (lib_too or (
                     arch == grok[0] and s == 2048)):
                 # the kernel and SDPA each timed two ways: CUDA events over
                 # back-to-back calls (host work included: the wrapper,
                 # checks, three tensor-map encodes and the launch) and the
                 # device time of the kernels under torch.profiler
-                reps = {48: 200, 512: 50, 2048: 20}[s]
+                reps = {48: 200, 512: 50, 1536: 20, 2048: 20}[s]
 
                 def kern():
                     return fa_kernel.flash_attn(q, k, v, **kw)
@@ -1353,7 +1406,7 @@ def phase_b5(dev):
 
                 def sdpa():
                     return F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
 
                 ms = cuda_ms(kern, reps)
                 dev_ms = profile_device(kern, 20, whole=True)[1]
@@ -1367,7 +1420,7 @@ def phase_b5(dev):
                 # a device time the tracing dropped is "not measured" (0)
                 flops = 4 * d * h * pairs
                 timing.append(dict(
-                    arch=arch, h=h, kv=kv, d=d, cap=cap,
+                    arch=arch, h=h, kv=kv, d=d, cap=cap, causal=causal,
                     s=s, ms=ms, dev_ms=dev_ms, lib=lib, lib_dev=lib_dev,
                     plain=plain, bm=bm, by=by, blocks=h * -(-s // 128),
                     tflops=flops / ms / 1e9, flops=flops,
@@ -1390,7 +1443,7 @@ def phase_b5(dev):
                f"({t['flops'] / t['dev_ms'] / 1e9:.1f} TFLOP/s)"
                if t["dev_ms"] > 0 else "not measured")
         print(f"[B5] {t['arch']} bf16 B=1 H={t['h']} KV={t['kv']} D={t['d']} "
-              f"S={t['s']} causal"
+              f"S={t['s']} {'causal' if t['causal'] else 'no mask'}"
               + (f", logit cap {t['cap']:g}" if t["cap"] else "")
               + f" ({t['blocks']} blocks of 384 threads on "
               f"{torch.cuda.get_device_properties(0).multi_processor_count}"
@@ -1399,9 +1452,10 @@ def phase_b5(dev):
               f"{t['bm']:.5f} ms ({t['by']}; {t['bound_tflops']:.1f} TFLOP/s "
               f"at the bound); plain {t['plain']:.4f} ms")
     sys.stdout.flush()
-    t, z, mv, gk = (
+    t, z, mv, gk, vl = (
         next(x for x in timing if x["arch"] == a and x["s"] == 2048)
-        for a in timed + (grok[0],))
+        for a in (llama[0], zamba[0], maverick[0], grok[0], vlm[0]))
+    enc = next(x for x in timing if x["arch"] == s_enc[0])
 
     def row(x, shape):
         return dict(shape=shape, ms=x["ms"], plain_ms=x["plain"],
@@ -1409,8 +1463,10 @@ def phase_b5(dev):
 
     # ms and library_ms at S = 2048 are CUDA-event ms per call, as in every
     # other row; the profiler's device time is in the [B5] lines above;
-    # zamba2's shared block (H = KV = 32, D = 80), maverick's (H 40, KV 8)
-    # and grok-1's (H 48, KV 8, cap 30; no library call) beside llama's
+    # zamba2's shared block (H = KV = 32, D = 80), maverick's (H 40, KV 8),
+    # grok-1's (H 48, KV 8, cap 30; no library call), seamless-m4t's
+    # encoder (H = KV = 16, D = 64, no mask) and internvl2's (H 16, KV 8)
+    # beside llama's
     return dict(name="flash_attn", route="cuda",
                 source="src/repro_torch/kernels/flash_attn/csrc/"
                        "flash_attn_sm90.cu",
@@ -1421,7 +1477,10 @@ def phase_b5(dev):
                 zamba2=row(z, "(1, 2048, 32, 80) bf16 causal"),
                 maverick=row(mv, "(1, 2048, 40, 128), KV 8, bf16 causal"),
                 grok=row(gk, "(1, 2048, 48, 128), KV 8, bf16 causal, "
-                             "logit cap 30"))
+                             "logit cap 30"),
+                seamless_encoder=row(enc, "(1, 1536, 16, 64), KV 16, bf16, "
+                                          "no mask"),
+                internvl2=row(vl, "(1, 2048, 16, 128), KV 8, bf16 causal"))
 
 
 def _to_cpu(tree):
@@ -2628,9 +2687,9 @@ def flash_bwd_bound(b, h, kv, s, d, causal, window, dtype):
     return bound_ms(nbytes, flops, rate), flops
 
 
-def library_flash_bwd(q, k, v, do):
+def library_flash_bwd(q, k, v, do, causal=True):
     """torch's own flash-attention backward (timing only; the port never
-    calls it) on the same causal problem, in its (B, H, S, D) layout with
+    calls it) on the same problem, in its (B, H, S, D) layout with
     K/V repeated to the query heads: a closure running the backward, or
     None (with the reason printed) where this torch build lacks it."""
     import torch
@@ -2642,12 +2701,12 @@ def library_flash_bwd(q, k, v, do):
                   .contiguous() for t in (k, v))
         dot = do.transpose(1, 2).contiguous()
         fwd = torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, True, False)
+            qt, kt, vt, 0.0, causal, False)
         out, lse, cq, ck, mq, mk, seed, offset = fwd[:8]
 
         def run():
             return torch.ops.aten._scaled_dot_product_flash_attention_backward(
-                dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, True, seed,
+                dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed,
                 offset)
 
         run()
@@ -2679,20 +2738,27 @@ def phase_b5b(dev):
 
     g = torch.Generator(device=dev).manual_seed(SEED + 20)
     llama = ("llama3.2-3b", 24, 8, 128)
-    cases = [(llama, 1, s, None, None) for s in (48, 512, 2048)] + [
-        (("h2o-danube-1.8b", 32, 8, 80), 1, 6144, 4096, None),
-        (("grok-1-314b", 48, 8, 128), 1, 512, None, 30.0),
-        (("zamba2-2.7b", 32, 32, 80), 1, 512, None, None),
-        (("llama4-maverick-400b-a17b", 40, 8, 128), 1, 512, None, None),
-        (llama, 4, 2048, None, None),   # the training shape, timed
+    cases = [(llama, 1, s, None, None, True) for s in (48, 512, 2048)] + [
+        (("h2o-danube-1.8b", 32, 8, 80), 1, 6144, 4096, None, True),
+        (("grok-1-314b", 48, 8, 128), 1, 512, None, 30.0, True),
+        (("zamba2-2.7b", 32, 32, 80), 1, 512, None, None, True),
+        (("llama4-maverick-400b-a17b", 40, 8, 128), 1, 512, None, None,
+         True),
+        # the training shapes, timed: llama's, and seamless-m4t's encoder
+        # (1536 frames, no mask) and decoder (MHA at D = 64)
+        (llama, 4, 2048, None, None, True),
+        (("seamless-m4t-large-v2 encoder", 16, 16, 64), 4, 1536, None, None,
+         False),
+        (("seamless-m4t-large-v2 decoder", 16, 16, 64), 4, 2048, None, None,
+         True),
     ]
     bounds = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     max_abs = lse_worst = 0.0
-    row = None
+    rows = {}
     t0 = time.time()
-    for (arch, h, kv, d), b, s, window, cap in cases:
-        kw = dict(causal=True, window=window, logit_cap=cap)
+    for (arch, h, kv, d), b, s, window, cap, causal in cases:
+        kw = dict(causal=causal, window=window, logit_cap=cap)
         base = [torch.randn(shape, generator=g, device=dev) for shape in (
             (b, s, h, d), (b, s, kv, d), (b, s, kv, d), (b, s, h, d))]
         for dtype in (torch.bfloat16, torch.float32):
@@ -2747,13 +2813,18 @@ def phase_b5b(dev):
                          for part in ("delta", "dkdv", "dq")}
                 plain = cuda_ms(lambda: fa_ops.flash_attention_plain_bwd(
                     q, k, v, o, do, **kw), 2, warmup=1)
-                lib = library_flash_bwd(q, k, v, do)
+                lib = library_flash_bwd(q, k, v, do, causal)
                 lib_ms = cuda_ms(lib, reps) if lib is not None else None
-                (bm, by), flops = flash_bwd_bound(b, h, kv, s, d, True,
+                del lib
+                (bm, by), flops = flash_bwd_bound(b, h, kv, s, d, causal,
                                                   window, dtype)
-                row = dict(ms=ms, dev_ms=dev_ms, plain=plain, lib=lib_ms,
-                           bm=bm, by=by, tflops=flops / ms / 1e9,
-                           parts=parts)
+                row = rows[arch] = dict(
+                    ms=ms, dev_ms=dev_ms, plain=plain, lib=lib_ms, bm=bm,
+                    by=by, tflops=flops / ms / 1e9, parts=parts,
+                    shape=f"({b}, {s}, {h}, {d}), KV {kv}, bf16 "
+                          + ("causal" if causal else "no mask"))
+                if arch != llama[0]:
+                    continue
 
                 # B5's forward at the same shape (a training step's
                 # forward and remat recompute, which ask for lse), beside
@@ -2767,7 +2838,7 @@ def phase_b5b(dev):
 
                 qt, kt, vt = (t.transpose(1, 2).contiguous()
                               for t in (q, k, v))
-                (fbm, fby), _ = flash_bound(b, h, kv, s, s, d, True,
+                (fbm, fby), _ = flash_bound(b, h, kv, s, s, d, causal,
                                             window, None, dtype)
                 row["fwd"] = dict(
                     ms=cuda_ms(fwd, reps),
@@ -2785,23 +2856,27 @@ def phase_b5b(dev):
           f"flash_attention_plain_bwd at {len(cases)} shapes "
           f"(llama3.2-3b S = 48, 512, 2048 and B = 4 x S = 2048, "
           f"h2o-danube's 4096 window at S = 6144, grok-1's cap at S = 512, "
-          f"zamba2's D = 80, maverick's groups of 5): relative L2 worst "
+          f"zamba2's D = 80, maverick's groups of 5, seamless-m4t's encoder "
+          f"(B = 4 x 1536 frames, no mask) and decoder (B = 4 x S = 2048) "
+          f"at D = 64): relative L2 worst "
           f"f32 {worst[torch.float32]:.3e} (bound 1e-5), bf16 "
           f"{worst[torch.bfloat16]:.3e} (bound 1e-2); two launches bitwise "
           f"equal at every shape; B5's lse within {LSE_ATOL:g} + "
           f"{LSE_RTOL:g} rel of flash_attention_plain(return_lse=True) "
           f"(max abs err {lse_worst:.3e}) and its O bitwise the same with "
           f"lse and without at every shape; {time.time() - t0:.1f} s")
-    lib = (f"torch flash backward {row['lib']:.3f} ms "
-           f"(kernel/library {row['ms'] / row['lib']:.2f}x)"
-           if row["lib"] is not None else "no library time")
-    parts = "; ".join(f"{k} {fmt_ms(v)}" for k, v in row["parts"].items())
-    print(f"[B5b] llama3.2-3b training shape B=4 S=2048 H=24 KV=8 D=128 "
-          f"causal bf16: kernel events {row['ms']:.4f} ms per call "
-          f"({row['tflops']:.1f} TFLOP/s at 10 D flops a valid pair), device "
-          f"{fmt_ms(row['dev_ms'])} ({parts}); bound {row['bm']:.4f} ms "
-          f"({row['by']}, 10 D flops a valid pair at 989 TFLOP/s; the "
-          f"kernels do 14 D); plain {row['plain']:.3f} ms; {lib}")
+    for arch, r in rows.items():
+        lib = (f"torch flash backward {r['lib']:.3f} ms "
+               f"(kernel/library {r['ms'] / r['lib']:.2f}x)"
+               if r["lib"] is not None else "no library time")
+        parts = "; ".join(f"{k} {fmt_ms(v)}" for k, v in r["parts"].items())
+        print(f"[B5b] {arch} training shape {r['shape']}: kernel events "
+              f"{r['ms']:.4f} ms per call ({r['tflops']:.1f} TFLOP/s at 10 D "
+              f"flops a valid pair), device {fmt_ms(r['dev_ms'])} ({parts}); "
+              f"bound {r['bm']:.4f} ms ({r['by']}, 10 D flops a valid pair "
+              f"at 989 TFLOP/s; the kernels do 14 D); plain "
+              f"{r['plain']:.3f} ms; {lib}")
+    row = rows[llama[0]]
     fw = row["fwd"]
     print(f"[B5b] B5's forward at that shape (each layer's forward and its "
           f"remat recompute, lse asked for): events {fw['ms']:.4f} ms per "
@@ -2819,9 +2894,14 @@ def phase_b5b(dev):
                 launches=None, max_abs_err=max_abs, ms=row["ms"],
                 plain_ms=row["plain"], bound_ms=row["bm"],
                 bound_by=row["by"], library_ms=row["lib"],
-                shape="(4, 2048, 24, 128), KV 8, bf16 causal",
-                device_ms=row["dev_ms"],
-                parts_device_ms=row["parts"])
+                shape=row["shape"], device_ms=row["dev_ms"],
+                parts_device_ms=row["parts"],
+                **{("seamless_encoder" if "encoder" in arch
+                    else "seamless_decoder"): dict(
+                    shape=r["shape"], ms=r["ms"], plain_ms=r["plain"],
+                    bound_ms=r["bm"], bound_by=r["by"], library_ms=r["lib"],
+                    device_ms=r["dev_ms"])
+                   for arch, r in rows.items() if arch != llama[0]})
 
 
 def grad_leaves(params, batch, cfg) -> tuple[float, dict]:
@@ -2841,10 +2921,12 @@ def kin(p) -> tuple:
 
 
 def train_card_vs_cpu(dev, tag, cfg, seq, want, desc, pool_kin=False,
-                      defer=False):
+                      defer=False, mask_ones=False):
     """The loss and every gradient leaf of ``cfg`` at B = 1, S = ``seq``
-    (one batch of make_dataset) on the card (hand-written kernels, bf16
-    cuBLAS, remat "full"), launching exactly ``want``, against the same
+    (one batch of make_dataset; with ``mask_ones`` its mask set to all
+    ones, so that every position counts) on the card (hand-written
+    kernels, bf16 cuBLAS, remat "full"), launching exactly ``want``,
+    against the same
     parameters on the CPU (plain): loss within 1e-2 relative, each leaf
     within relative L2 1e-2, or where a leaf misses, max(1e-2, 1.5 x the
     CPU's own bf16-against-f32 GEMM witness for that leaf).  With
@@ -2858,12 +2940,15 @@ def train_card_vs_cpu(dev, tag, cfg, seq, want, desc, pool_kin=False,
     import torch
 
     from repro_torch.data import synthetic
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
 
-    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    make = encdec.make_encdec if cfg.is_encoder_decoder else lm.make_lm
+    params = make(torch.Generator(device=dev).manual_seed(SEED), cfg)
     cpu_params = _to_cpu(params)
     batch = synthetic.make_dataset(cfg, seq, 1, seed=SEED,
                                    device=dev).batch(0)
+    if mask_ones:
+        batch["mask"] = torch.ones_like(batch["mask"])
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     t0 = time.time()
     reset_counts()
@@ -3689,11 +3774,13 @@ def phase_train_ssm(dev, tag, cfg, want0, note, kernel_want=None) -> dict:
     return total
 
 
-def ssm_train_paths(dev, t_start) -> tuple[dict, dict, dict, dict]:
+def ssm_train_paths(dev, t_start) -> tuple:
     """[B7b], [B6b], [train-mw], [train-zw], [train-m], [train-z]; returns
     the kernels rows of B7-bwd's per-channel form, its mamba2 form and
-    B6-bwd, their launches counted on the training paths, and every launch
-    of the [train-m] / [train-z] steps.
+    B6-bwd, their launches counted on the training paths, every launch
+    of the [train-m] / [train-z] steps, and the join of the twins' worker
+    (their CPU sides outlast [train-z]: the encoder-decoder's phases run
+    beside their tail).
     [B7b] and [B6b] run first, with no host work beside their times; then
     [train-mw]'s and [train-zw]'s card sides; their CPU sides (their CPU
     gradients and witnesses, ~60-100 s of host work) then run on a worker
@@ -3742,12 +3829,528 @@ def ssm_train_paths(dev, t_start) -> tuple[dict, dict, dict, dict]:
     for k, v in z.items():
         total[k] += v
     stamp("[train-m] and [train-z]", t_start)
-    join_twins()
-    stamp("the SSM training path", t_start)
     b7b["launches"] = total["mamba_fused_bwd"]
     ssd["launches"] = total["mamba_ssd_bwd"]
     b6b["launches"] = total["mamba_scan_bwd"]
-    return b7b, ssd, b6b, total
+    return b7b, ssd, b6b, total, join_twins
+
+
+# --------------------------------------------------------------------------
+# the encoder-decoder (seamless-m4t-large-v2) and the vision prefix
+# (internvl2-2b): B5 with no mask in the encoder, cross-attention plain
+# --------------------------------------------------------------------------
+
+# [serve-e]'s batch of utterances, its cache and its greedy steps (16:
+# a step is host-bound, ~125 ms, and 64 took 8.0 s of the script's time);
+# [serve-v]'s prompts (256 image patches + 256 text tokens) and steps
+SERVE_E_B, SERVE_E_LEN, SERVE_E_STEPS = 8, 256, 16
+SERVE_V_B, SERVE_V_TEXT, SERVE_V_STEPS = 8, 256, 32
+# [train-e]'s loop steps (a batch at vocab 256,206 takes ~2x llama's to
+# draw, and paces the loop at ~5.5-6.7 s a step)
+TRAIN_E_STEPS = 3
+
+
+def n_params(params) -> int:
+    from repro_torch._util import tree_leaves
+
+    return sum(t.numel() for _, t in tree_leaves(params))
+
+
+def twin_cpu_side(tag, desc, run, cpu_params, on_card, t_card):
+    """A serving twin's CPU run (``run(cpu_params, "cpu")``: {field:
+    tensor on the CPU}) against the card's fields, relative L2 within
+    1e-2; where the card misses, the witness (the CPU's bf16 GEMMs against
+    its f32 ones over the same fields) runs, and the bound is max(1e-2,
+    1.5 x its worst field)."""
+    t1 = time.time()
+    on_cpu = run(cpu_params, "cpu")
+    t_cpu = time.time() - t1
+    errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
+    worst = max(errs, key=errs.get)
+    bound = 1e-2
+    if errs[worst] > bound:
+        with card_gemms():
+            witness = run(cpu_params, "cpu")
+        w_errs = {k: rel_l2(witness[k], on_cpu[k]) for k in on_cpu}
+        w_worst = max(w_errs, key=w_errs.get)
+        bound = max(bound, 1.5 * w_errs[w_worst])
+        print(f"{tag} witness (CPU bf16 GEMMs vs f32) over the same fields: "
+              f"worst {w_errs[w_worst]:.3e} ({w_worst}); bound max(1e-2, "
+              f"1.5 x witness) = {bound:.3e}; all: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in w_errs.items()))
+    check(errs[worst] <= bound, f"{tag} card and CPU differ: worst "
+                                f"{errs[worst]:.3e} ({worst}) > {bound:.3e}")
+    print(f"{tag} {desc}: card vs CPU (plain) relative L2 worst "
+          f"{errs[worst]:.3e} ({worst}; bound {bound:.3e}), all: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; card {t_card:.1f} s, CPU {t_cpu:.1f} s (on the worker "
+          f"thread)")
+    sys.stdout.flush()
+
+
+def profiled(fn, what: str, tokens: int) -> str:
+    """``fn`` timed alone (wall over 2 calls ending in a sync) and profiled
+    once: its wall, tokens/s, device busy time and idle share, top device
+    ops, as a phrase."""
+    wall = wall_ms(fn, 2)
+    _, busy, top_dev, _, note = profile_device(fn, 1)
+    return (f"{what}: wall {wall:.1f} ms ({tokens * 1e3 / wall:.0f} "
+            f"tokens/s), device busy {fmt_ms(busy)}{note}, idle share "
+            + (f"{max(0.0, 1 - busy / wall):.3f}" if busy > 0
+               else "not measured")
+            + f"; top device ops (ms): {fmt_top(top_dev)}")
+
+
+def phase_fwd_e(dev, params, cfg) -> int:
+    """seamless-m4t-large-v2 whole: `encdec.encode` of 1536 frames at B = 1
+    and B = 8 (exactly 24 B5 launches each, no mask) and `encdec.forward`
+    at B = 1, S = 2048 (48: the encoder's 24 and the decoder's 24 causal;
+    cross-attention is plain), finite outputs of the right shape; each
+    one's wall, tokens/s and busy share.  Returns the B5 launches."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+    f, fd = cfg.frontend_len, cfg.frontend_dim
+    total = 0
+    lines = []
+    for b in (1, 8):
+        emb = torch.randn((b, f, fd), generator=g, device=dev)
+        out, c, _ = step_launches(encdec.encode, params, emb, cfg)
+        check(c == launches(flash_attn=cfg.n_encoder_layers),
+              f"[fwd-e] encode B={b} launched {c}")
+        check(out.shape == (b, f, cfg.d_model)
+              and bool(torch.isfinite(out).all()),
+              f"[fwd-e] encode B={b} output misshapen or non-finite")
+        total += c["flash_attn"]
+        lines.append(profiled(lambda: encdec.encode(params, emb, cfg),
+                              f"encode B={b} x {f} frames", b * f))
+    toks = torch.randint(0, cfg.vocab_size, (1, TRAIN_S), generator=g,
+                         device=dev)
+    emb = torch.randn((1, f, fd), generator=g, device=dev)
+    logits, c, _ = step_launches(encdec.forward, params, toks, emb, cfg)
+    want = launches(flash_attn=cfg.n_encoder_layers + cfg.n_layers)
+    check(c == want, f"[fwd-e] forward launched {c}, expected {want}")
+    check(logits.shape == (1, TRAIN_S, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "[fwd-e] forward logits misshapen or non-finite")
+    total += c["flash_attn"]
+    del logits
+    lines.append(profiled(lambda: encdec.forward(params, toks, emb, cfg),
+                          f"forward B=1 S={TRAIN_S} (+ {f} frames)",
+                          TRAIN_S))
+    print(f"[fwd-e] {cfg.name} full width, {cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers (d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size:,}, frames of {fd}), "
+          f"{n_params(params) / 1e9:.3f} B parameters: "
+          f"{cfg.n_encoder_layers} B5 launches an encode (no mask), "
+          f"{want['flash_attn']} a forward; " + "; ".join(lines))
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_e(dev, params, cfg) -> int:
+    """seamless's serving path: `init_encdec_state` for SERVE_E_B
+    utterances of 1536 frames (exactly 24 B5 launches: the encoder), then
+    SERVE_E_STEPS greedy `decode_step`s (no B5 launch: the self-attention
+    cache and the cross-attention are plain), every logit finite; the
+    walls, a decode step timed alone and profiled.  Returns the B5
+    launches."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    emb = torch.randn((SERVE_E_B, cfg.frontend_len, cfg.frontend_dim),
+                      generator=g, device=dev)
+    st, c, t_init = step_launches(encdec.init_encdec_state, params, emb, cfg,
+                                  SERVE_E_LEN)
+    check(c == launches(flash_attn=cfg.n_encoder_layers),
+          f"[serve-e] init_encdec_state launched {c}")
+    cross_gb = 2 * st.cross_k.numel() * st.cross_k.element_size() / 1e9
+    tok = torch.zeros((SERVE_E_B, 1), dtype=torch.int32, device=dev)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def greedy():
+        nonlocal st, tok, finite
+        for _ in range(SERVE_E_STEPS):
+            lg, st = encdec.decode_step(params, tok, st, cfg)
+            finite = finite & torch.isfinite(lg).all()
+            tok = lg[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+
+    _, c, t_dec = step_launches(greedy)
+    check(c == launches(), f"[serve-e] decode steps launched {c}")
+    check(bool(finite) and st.self_kv.length.eq(SERVE_E_STEPS).all().item()
+          and st.length.eq(SERVE_E_STEPS).all().item(),
+          "[serve-e] non-finite logits or wrong lengths")
+    step = profiled(lambda: encdec.decode_step(params, tok, st, cfg),
+                    f"one decode step alone (B={SERVE_E_B})", SERVE_E_B)
+    print(f"[serve-e] {cfg.name}: init_encdec_state of {SERVE_E_B} "
+          f"utterances x {cfg.frontend_len} frames (the encoder through B5, "
+          f"{cfg.n_encoder_layers} launches; cross K/V "
+          f"{tuple(st.cross_k.shape)} x 2 in bf16, {cross_gb:.2f} GB) "
+          f"{t_init:.2f} s, then {SERVE_E_STEPS} greedy decode steps (max_len "
+          f"{SERVE_E_LEN}; no B5 launch; every logit finite) {t_dec:.2f} s "
+          f"({t_dec / SERVE_E_STEPS * 1e3:.1f} ms a step, "
+          f"{SERVE_E_B * SERVE_E_STEPS / t_dec:.0f} tokens/s); {step}")
+    sys.stdout.flush()
+    del st
+    torch.cuda.empty_cache()
+    return cfg.n_encoder_layers
+
+
+def phase_serve_ew(dev, cfg_full):
+    """seamless at full width cut to 2 + 2 layers: the encoder output,
+    init_encdec_state's cross K/V, and the logits and self K/V of 2
+    decode steps, card (B5) against CPU (plain) on one seeded parameter
+    set, by `twin_cpu_side`'s rule.  The card's part runs now; the CPU's
+    is returned, for `on_worker`."""
+    import torch
+
+    from repro_torch.models import encdec
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2, n_encoder_layers=2)
+    params = encdec.make_encdec(torch.Generator(device=dev).manual_seed(SEED),
+                                cfg)
+    cpu_params = _to_cpu(params)
+    g = torch.Generator().manual_seed(SEED + 32)
+    emb = torch.randn((1, cfg.frontend_len, cfg.frontend_dim), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
+
+    def run(p, device):
+        seen = {"encoder out": encdec.encode(p, emb.to(device), cfg).cpu()}
+        st = encdec.init_encdec_state(p, emb.to(device), cfg, 16)
+        seen["cross K"], seen["cross V"] = st.cross_k.cpu(), st.cross_v.cpu()
+        for t in range(2):
+            lg, st = encdec.decode_step(p, steps[t].to(device), st, cfg)
+            seen[f"logits decode {t}"] = lg.cpu()
+            seen[f"self K decode {t}"] = st.self_kv.k.cpu().clone()
+            seen[f"self V decode {t}"] = st.self_kv.v.cpu().clone()
+        return seen
+
+    t0 = time.time()
+    on_card, c, _ = step_launches(run, params, dev)
+    check(c == launches(flash_attn=2 * cfg.n_encoder_layers),
+          f"[serve-ew] launched {c}")
+    for k, v in on_card.items():
+        check(bool(torch.isfinite(v.float()).all()),
+              f"[serve-ew] non-finite {k} on the card")
+    t_card = time.time() - t0
+    del params
+    torch.cuda.empty_cache()
+    return functools.partial(
+        twin_cpu_side, "[serve-ew]",
+        f"{cfg.name} full width (d_model {cfg.d_model}, 16/16 heads of 64, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size:,}), 2 + 2 layers: encode "
+        f"{cfg.frontend_len} frames, init_encdec_state and 2 decode steps",
+        run, cpu_params, on_card, t_card)
+
+
+def phase_fwd_v(dev, params, cfg) -> int:
+    """internvl2-2b whole through `lm.forward` at B = 1, L = 2048 with 256
+    projected patches of width 1024 spliced over the first positions:
+    exactly 24 B5 launches, finite logits, the prefix moving them; the
+    wall, tokens/s and busy share.  Returns the B5 launches."""
+    import torch
+
+    from repro_torch.models import lm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 33)
+    toks = torch.randint(0, cfg.vocab_size, (1, TRAIN_S), generator=g,
+                         device=dev)
+    emb = torch.randn((1, cfg.frontend_len, cfg.frontend_dim), generator=g,
+                      device=dev)
+    out, c, _ = step_launches(lambda: lm.forward(params, toks, cfg,
+                                                 embeds=emb))
+    check(c == launches(flash_attn=cfg.n_layers),
+          f"[fwd-v] forward launched {c}")
+    check(out.logits.shape == (1, TRAIN_S, cfg.vocab_size)
+          and bool(torch.isfinite(out.logits).all()),
+          "[fwd-v] logits misshapen or non-finite")
+    moved = rel_l2(out.logits, lm.forward(params, toks, cfg).logits)
+    check(moved > 1e-2, f"[fwd-v] the image prefix moved the logits by "
+                        f"only {moved:.2e}")
+    del out
+    line = profiled(lambda: lm.forward(params, toks, cfg, embeds=emb),
+                    f"forward B=1 L={TRAIN_S}", TRAIN_S)
+    print(f"[fwd-v] {cfg.name} full width, {cfg.n_layers} layers (d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size:,}; "
+          f"projector layernorm + 2-layer GELU MLP from {cfg.frontend_dim}), "
+          f"{n_params(params) / 1e9:.3f} B parameters: {cfg.frontend_len} "
+          f"projected patches spliced in (the logits move by {moved:.2f} "
+          f"relative L2 against the bare tokens); {c['flash_attn']} B5 "
+          f"launches; {line}")
+    sys.stdout.flush()
+    torch.cuda.empty_cache()
+    return c["flash_attn"]
+
+
+def phase_serve_v(dev, params, cfg) -> int:
+    """internvl2's serving path: `prefill_caches(..., embeds=...)` of
+    SERVE_V_B prompts (256 image patches + SERVE_V_TEXT text tokens;
+    exactly 24 B5 launches), then SERVE_V_STEPS greedy decode steps (no
+    B5 launch), every logit finite; the prefill and a decode step timed
+    alone and profiled.  Returns the B5 launches."""
+    import torch
+
+    from repro_torch.models import lm
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 34)
+    s = cfg.frontend_len + SERVE_V_TEXT
+    toks = torch.randint(0, cfg.vocab_size, (SERVE_V_B, s), generator=g,
+                         device=dev)
+    emb = torch.randn((SERVE_V_B, cfg.frontend_len, cfg.frontend_dim),
+                      generator=g, device=dev)
+    max_len = s + SERVE_V_STEPS
+    st, c, t_pre = step_launches(lambda: lm.prefill_caches(
+        params, toks, cfg, max_len, embeds=emb))
+    check(c == launches(flash_attn=cfg.n_layers),
+          f"[serve-v] prefill launched {c}")
+    tok = toks[:, -1:]
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+
+    def greedy():
+        nonlocal st, tok, finite
+        for _ in range(SERVE_V_STEPS):
+            lg, st = lm.decode_step(params, tok, st, cfg)
+            finite = finite & torch.isfinite(lg).all()
+            tok = lg[:, -1].argmax(dim=-1, keepdim=True).to(torch.int32)
+
+    _, c, t_dec = step_launches(greedy)
+    check(c == launches(), f"[serve-v] decode steps launched {c}")
+    check(bool(finite) and st.length.eq(s + SERVE_V_STEPS).all().item(),
+          "[serve-v] non-finite logits or wrong lengths")
+    pre = profiled(lambda: lm.prefill_caches(params, toks, cfg, max_len,
+                                             embeds=emb),
+                   f"a prefill alone", SERVE_V_B * s)
+    step = profiled(lambda: lm.decode_step(params, tok, st, cfg),
+                    f"one decode step alone (B={SERVE_V_B})", SERVE_V_B)
+    print(f"[serve-v] {cfg.name}: prefill_caches of {SERVE_V_B} prompts "
+          f"({cfg.frontend_len} image patches + {SERVE_V_TEXT} text tokens, "
+          f"{cfg.n_layers} B5 launches) {t_pre:.2f} s, then {SERVE_V_STEPS} "
+          f"greedy decode steps (no B5 launch; every logit finite) "
+          f"{t_dec:.2f} s ({t_dec / SERVE_V_STEPS * 1e3:.1f} ms a step); "
+          f"{pre}; {step}")
+    sys.stdout.flush()
+    del st
+    torch.cuda.empty_cache()
+    return cfg.n_layers
+
+
+def phase_serve_vw(dev, cfg_full):
+    """internvl2 at full width cut to 2 layers: forward + prefill of a
+    300-token prompt (256 patches spliced in) and 2 decode steps, card
+    (B5) against CPU (plain) by `twin_cpu_side`'s rule.  The card's part
+    runs now; the CPU's is returned, for `on_worker`."""
+    import torch
+
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(cfg_full, n_layers=2)
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    cpu_params = _to_cpu(params)
+    g = torch.Generator().manual_seed(SEED + 35)
+    toks = torch.randint(0, cfg.vocab_size, (1, 300), generator=g)
+    emb = torch.randn((1, cfg.frontend_len, cfg.frontend_dim), generator=g)
+    steps = torch.randint(0, cfg.vocab_size, (2, 1, 1), generator=g)
+
+    def run(p, device):
+        out = lm.forward(p, toks.to(device), cfg, embeds=emb.to(device),
+                         return_caches=True, cache_len=512)
+        seen = {"logits prefill": out.logits.cpu()}
+        st = out.caches
+        for t in range(3):
+            if t:
+                lg, st = lm.decode_step(p, steps[t - 1].to(device), st, cfg)
+                seen[f"logits decode {t - 1}"] = lg.cpu()
+            tag = f"decode {t - 1}" if t else "prefill"
+            seen[f"K {tag}"] = st.caches[0].k.cpu().clone()
+            seen[f"V {tag}"] = st.caches[0].v.cpu().clone()
+        return seen
+
+    t0 = time.time()
+    on_card, c, _ = step_launches(run, params, dev)
+    check(c == launches(flash_attn=2 * cfg.n_layers),
+          f"[serve-vw] launched {c}")
+    t_card = time.time() - t0
+    del params
+    torch.cuda.empty_cache()
+    return functools.partial(
+        twin_cpu_side, "[serve-vw]",
+        f"{cfg.name} full width (d_model {cfg.d_model}, 16/8 heads of 128, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size:,}), 2 layers: forward + "
+        f"prefill of 300 tokens with {cfg.frontend_len} patches spliced in "
+        f"and 2 decode steps", run, cpu_params, on_card, t_card)
+
+
+def cross_attention_ms(dev, cfg) -> tuple[float, float, float]:
+    """The decoder's plain cross-attention (`attention.attend_ref` with no
+    mask) at [train-e]'s shape, B = 4, S = 2048 queries over F = 1536
+    frames, timed alone with CUDA events: its forward, its forward and
+    backward, and the step's share, a layer's forward, remat recompute
+    and backward times the decoder's layers (ms)."""
+    import torch
+
+    from repro_torch.models import attention
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 36)
+    h, d = cfg.n_heads, cfg.head_dim
+    q, k, v = (torch.randn((TRAIN_B, s, h, d), generator=g, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for s in (TRAIN_S, cfg.frontend_len, cfg.frontend_len))
+    do = torch.randn(q.shape, generator=g, device=dev, dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            return attention.attend_ref(q, k, v, causal=False)
+
+    def fwd_bwd():
+        attention.attend_ref(q, k, v, causal=False).backward(do)
+
+    f, fb = cuda_ms(fwd, 3), cuda_ms(fwd_bwd, 3)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return f, fb, cfg.n_layers * (f + fb)
+
+
+def phase_train_e(dev, cfg) -> dict:
+    """seamless-m4t-large-v2 whole, remat "full", B = 4, S = 2048 decoder
+    tokens, F = 1536 frames, on the launcher's optimizer settings
+    (`phase_train_ssm`'s): loop.run on the launcher's KF scheduler for
+    TRAIN_E_STEPS balanced steps from the initial state (finite losses;
+    exactly 2 B5 launches a layer a step, forward and remat recompute, and
+    one B5-bwd; cross-attention is plain), each step's wall, a step alone
+    profiled, the peak memory; then batch 0's loss on the trained state
+    below its loss at init, the loop's first (the loop's own losses are on
+    different batches, whose spread at this lr can hide the fall).  The
+    loop is handed batch 0 as drawn for the init line (a batch is a
+    function of (seed, step)), so that its vocab-256k synthesis runs
+    once.  Returns the launches of every step it took."""
+    import torch
+
+    from repro_torch._util import tree_leaves
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop as loop_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import step as step_lib
+
+    n = cfg.n_layers + cfg.n_encoder_layers
+    want = launches(flash_attn=2 * n, flash_attn_bwd=n)
+    opt_cfg = opt_lib.OptimizerConfig(total_steps=100,
+                                      moment_dtype=cfg.optimizer_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state = step_lib.init_train_state(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, opt_cfg)
+    n_params = sum(t.numel() for _, t in tree_leaves(state.params))
+    ds = synthetic.make_dataset(cfg, TRAIN_S, TRAIN_B, seed=SEED, device=dev)
+    batch, _, t_data = step_launches(ds.batch, 0)
+    t_init = time.time() - t0
+    step = step_lib.make_train_step(cfg, opt_cfg)
+    walls = []
+    res, c, wall = step_launches(
+        lambda: loop_lib.run(
+            loop_lib.LoopConfig(total_steps=TRAIN_E_STEPS, log_every=0),
+            state, {0: lambda s, b: _timed(step, s, b, walls)},
+            lambda i: batch if i == 0 else ds.batch(i),
+            launch_train.make_scheduler(), log=lambda s: None))
+    del state
+    want_c = {k: TRAIN_E_STEPS * v for k, v in want.items()}
+    check(len(res.losses) == TRAIN_E_STEPS
+          and all(map(math.isfinite, res.losses)) and c == want_c,
+          f"[train-e] loop losses {res.losses}, launched {c} (expected "
+          f"{want_c})")
+    total, l0 = c, res.losses[0]
+    state = res.state
+    with torch.no_grad():
+        again = float(step_lib.make_loss_fn(cfg)(state.params, batch)[0])
+    check(again < l0, f"[train-e] batch 0's loss did not fall: {l0} -> "
+                      f"{again}")
+    toks = TRAIN_B * TRAIN_S
+    reset_counts()
+    p_wall, busy, top_dev, _, p_note = profile_device(
+        lambda: step(state, batch), 1)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cross_ms = cross_attention_ms(dev, cfg)
+    print(f"[train-e] {cfg.name} full width, {cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters, remat "
+          f"full, B={TRAIN_B} S={TRAIN_S}, F={cfg.frontend_len} frames (the "
+          f"synthetic mask zeroes the first {cfg.frontend_len} decoder "
+          f"positions: the reference's quirk): init {t_init:.1f} s (one "
+          f"batch of make_dataset {t_data:.2f} s); loop.run {TRAIN_E_STEPS} "
+          f"steps (KF scheduler, variants {res.variants}; "
+          f"{want['flash_attn']} B5 and {want['flash_attn_bwd']} B5-bwd "
+          f"launches a step): losses "
+          + ", ".join(f"{x:.4f}" for x in res.losses)
+          + f", batch 0's loss after them {again:.4f} below its {l0:.4f} "
+          f"at init; "
+          f"wall {wall:.1f} s, step walls "
+          + ", ".join(f"{x:.3f}" for x in walls)
+          + f" s (median {statistics.median(walls):.3f} s, "
+          f"{toks / statistics.median(walls):.0f} tokens/s; the prefetcher "
+          f"draws the next batch meanwhile); one more step alone, profiled: "
+          f"wall {p_wall:.1f} ms ({toks / p_wall * 1e3:.0f} tokens/s), "
+          f"device busy {fmt_ms(busy)}{p_note}, idle share "
+          + (f"{max(0.0, 1 - busy / p_wall):.3f}" if busy > 0
+             else "not measured")
+          + f"; top device ops (ms a step): {fmt_top(top_dev)}; peak device "
+          f"memory {peak:.1f} GB (torch.cuda.max_memory_allocated); the "
+          f"plain cross-attention (attend_ref, no mask) at the step's shape "
+          f"timed alone: forward {cross_ms[0]:.3f} ms, forward + backward "
+          f"{cross_ms[1]:.3f} ms a layer (events), {cfg.n_layers} layers' "
+          f"forward, remat recompute and backward {cross_ms[2]:.1f} ms, "
+          f"{cross_ms[2] / p_wall:.3f} of the step alone's wall")
+    sys.stdout.flush()
+    del state, res, batch
+    torch.cuda.empty_cache()
+    return total
+
+
+def encdec_paths(dev, t_start, join_ssm) -> tuple[int, int]:
+    """The card sides of [serve-ew], [serve-vw] and [train-ew]; then, with
+    the SSM twins' CPU tail (``join_ssm`` waits for it) and these twins'
+    CPU sides on a worker thread beside them, [train-e], [fwd-e],
+    [serve-e], [fwd-v] and [serve-v] (each model whole, freed after).
+    Returns the B5 and B5-bwd launches of the main paths."""
+    import torch
+
+    import repro_torch.configs as configs
+    from repro_torch.models import encdec, lm
+
+    cfg_e, cfg_v = configs.get("seamless-m4t-large-v2"), configs.get(
+        "internvl2-2b")
+    twins = [phase_serve_ew(dev, cfg_e), phase_serve_vw(dev, cfg_v)]
+    cfg2 = dataclasses.replace(cfg_e, n_layers=2, n_encoder_layers=2)
+    twins.append(train_card_vs_cpu(
+        dev, "[train-ew]", cfg2, 256,
+        launches(flash_attn=4 * 2, flash_attn_bwd=2 * 2),
+        f"{cfg_e.name} full width, 2 + 2 layers, {cfg_e.frontend_len} "
+        f"frames, the mask all ones", pool_kin=True, defer=True,
+        mask_ones=True))
+    join_twins = on_worker(lambda: [join_ssm()] + [t() for t in twins])
+    stamp("the card sides of [serve-ew], [serve-vw] and [train-ew]", t_start)
+    total = phase_train_e(dev, cfg_e)
+    stamp("[train-e]", t_start)
+    params = encdec.make_encdec(torch.Generator(device=dev).manual_seed(SEED),
+                                cfg_e)
+    b5 = phase_fwd_e(dev, params, cfg_e) + phase_serve_e(dev, params, cfg_e)
+    del params
+    torch.cuda.empty_cache()
+    stamp("[fwd-e] and [serve-e]", t_start)
+    params = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_v)
+    b5 += phase_fwd_v(dev, params, cfg_v) + phase_serve_v(dev, params, cfg_v)
+    del params
+    torch.cuda.empty_cache()
+    stamp("[fwd-v] and [serve-v]", t_start)
+    join_twins()
+    stamp("the SSM twins, the encoder-decoder and the vision prefix",
+          t_start)
+    return b5 + total["flash_attn"], total["flash_attn_bwd"]
 
 
 def main() -> int:
@@ -4225,15 +4828,17 @@ def main() -> int:
     stamp("llama3.2-3b", t_start)
 
     # ---- the mamba paths: forward through B6, serving through B7, on
-    # falcon-mamba-7b at full width, depth cut to 16 of its 64 layers to
-    # keep the script inside its time limit (llama's weights are freed)
+    # falcon-mamba-7b at full width, depth cut to SERVE_M_LAYERS of its 64
+    # layers to keep the script inside its time limit (llama's weights
+    # are freed)
     import repro_torch.configs as configs
     from repro_torch.kernels.mamba_scan import ops as ms_ops
     from repro_torch.models import lm
 
     b6 = phase_b6(dev)
     b7 = phase_b7(dev)
-    cfg_m = dataclasses.replace(configs.get("falcon-mamba-7b"), n_layers=16)
+    cfg_m = dataclasses.replace(configs.get("falcon-mamba-7b"),
+                                n_layers=SERVE_M_LAYERS)
     t0 = time.time()
     params_m = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_m)
     torch.cuda.synchronize()
@@ -4247,12 +4852,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     stamp("falcon-mamba-7b", t_start)
 
-    # ---- the hybrid: zamba2-2.7b at full width, depth cut to 24 of its 54
-    # layers (4 super-blocks) to keep the script inside its time limit, its
+    # ---- the hybrid: zamba2-2.7b at full width, depth cut to
+    # SERVE_Z_LAYERS of its 54 layers to keep the script inside its time
+    # limit, its
     # SSD scan through B7 (S = 64) and its shared attention block through B5
     from repro_torch.kernels.flash_attn import ops as fa_ops
 
-    cfg_z = dataclasses.replace(configs.get("zamba2-2.7b"), n_layers=24)
+    cfg_z = dataclasses.replace(configs.get("zamba2-2.7b"),
+                                n_layers=SERVE_Z_LAYERS)
     t0 = time.time()
     params_z = lm.make_lm(torch.Generator(device=dev).manual_seed(SEED), cfg_z)
     torch.cuda.synchronize()
@@ -4280,11 +4887,18 @@ def main() -> int:
     # ---- the SSM training paths: falcon-mamba-7b through B7 and B7-bwd
     # (and B6, B6-bwd with use_kernel), zamba2-2.7b through B7, B7-bwd, B5
     # and B5-bwd
-    b7b, ssd, b6b, ssm = ssm_train_paths(dev, t_start)
+    b7b, ssd, b6b, ssm, join_ssm = ssm_train_paths(dev, t_start)
     b5["launches"] += ssm["flash_attn"]
     b5b["launches"] += ssm["flash_attn_bwd"]
     b6["launches"] += ssm["mamba_scan"]
     b7["launches"] += ssm["mamba_fused"]
+
+    # ---- the encoder-decoder (seamless-m4t-large-v2: its encoder through
+    # B5 with no mask, training through B5-bwd) and the vision prefix
+    # (internvl2-2b)
+    b5_e, b5b_e = encdec_paths(dev, t_start, join_ssm)
+    b5["launches"] += b5_e
+    b5b["launches"] += b5b_e
 
     # ---- phase 6: the kernels line
     nb2, op2 = b2_bound(d, 500)

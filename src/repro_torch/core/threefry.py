@@ -2,8 +2,8 @@
 
 Reproduces, bit for bit, what jax 0.9.0 computes for ``PRNGKey``,
 ``split``, ``fold_in``, ``random_bits`` (32-bit), ``uniform``, ``gumbel``
-(float32, mode "low"), ``bernoulli``, ``categorical`` (with replacement)
-and ``randint`` (int32) under both settings of
+(float32, mode "low"), ``bernoulli``, ``categorical`` (with replacement),
+``normal`` (float32) and ``randint`` (int32) under both settings of
 ``jax_threefry_partitionable``:
 
 * the original scheme hashes ``iota(n)`` with the count split in halves
@@ -19,8 +19,8 @@ array a slice of rows at a time: at V = 128,256 the whole draw never
 lives at once.  `gumbel` takes its logarithm from `xla_log`, the Cephes
 polynomial XLA's CPU backend emits for ``log`` (torch's ``log`` differs
 from it in the last bit for about one value in seven), so the draws are
-the reference's bits on any device.  ``normal`` is not ported
-(`normal` raises).
+the reference's bits on any device.  ``normal`` (float32) takes XLA:CPU's
+erf_inv and log1p, written out the same way (`xla_erfinv`, `xla_log1p`).
 
 The partitionable scheme is jax 0.9.0's default and this module's;
 `threefry_partitionable` switches it for a block, as
@@ -266,11 +266,78 @@ def categorical(key: Tensor, logits: Tensor,
     return torch.cat(out).view(shape)
 
 
+# XLA's float32 erf_inv: a degree-8 polynomial in w - 2.5 (w < 5) or in
+# sqrt(w) - 3 (w >= 5), w = -log1p(-x^2), coefficients highest first
+_ERFINV_LT5 = torch.tensor((
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941), dtype=torch.float32).tolist()
+_ERFINV_GE5 = torch.tensor((
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+    2.83297682), dtype=torch.float32).tolist()
+# XLA:CPU's log1p below |x| = sqrt(2) - 1: x - x^2 / 2 + x^3 P(x) / Q(x),
+# the Cephes rational, coefficients highest first (rounded to float32)
+_LOG1P_P = torch.tensor((
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1), dtype=torch.float32).tolist()
+_LOG1P_Q = torch.tensor((
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1),
+    dtype=torch.float32).tolist()
+
+
+def _horner(x: Tensor, coeffs) -> Tensor:
+    """sum c_i x^(n-i), each step one fused multiply-add (`_fma`)."""
+    y = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        y = _fma(y, x, c)
+    return y
+
+
+def xla_log1p(x: Tensor) -> Tensor:
+    """float32 log1p as XLA's CPU backend computes it on (-1, 1): the
+    Cephes rational for |x| < sqrt(2) - 1 (its polynomials in fused
+    multiply-adds), else `xla_log` of 1 + x."""
+    x2 = x * x
+    r = _horner(x, _LOG1P_P) / _horner(x, _LOG1P_Q)
+    small = x + _fma(torch.full_like(x, -0.5), x2, (x * x2) * r)
+    large = xla_log(x + 1.0)
+    return torch.where(x.abs() < 0.41421356237309504880, small, large)
+
+
+def xla_erfinv(x: Tensor) -> Tensor:
+    """float32 erf_inv as XLA expands it (Giles' two-branch polynomial
+    on w = -log1p(-x^2), in fused multiply-adds), on (-1, 1); +-1 give
+    +-inf.  The square root is taken in float64 and rounded once, which
+    is the correctly rounded float32 root XLA's takes (torch's CPU sqrt
+    can differ in the last bit)."""
+    w = -xla_log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5,
+                    torch.sqrt(w.double()).float() - 3.0)
+    lo = torch.tensor(_ERFINV_LT5, device=x.device)
+    hi = torch.tensor(_ERFINV_GE5, device=x.device)
+    p = torch.where(lt, lo[0], hi[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = _fma(p, w, torch.where(lt, lo[i], hi[i]))
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+_SQRT2 = torch.tensor(math.sqrt(2), dtype=torch.float32).item()
+# nextafter(-1, 0) in float32: the low end of normal's uniform draw
+_NORMAL_LO = -1.0 + 2.0 ** -24
+
+
 def normal(key: Tensor, shape: tuple[int, ...] = ()) -> Tensor:
-    """Not ported: only the modality frontends' ``embeds`` draw normals."""
-    raise NotImplementedError(
-        "threefry.normal is not ported yet (ROADMAP queue A, A7: the "
-        "encoder-decoder and modality frontends)")
+    """``jax.random.normal(key, shape)`` in float32, for one key (2,):
+    sqrt(2) erf_inv(u) of a uniform u on [nextafter(-1, 0), 1), with
+    XLA:CPU's erf_inv (`xla_erfinv`), bit for bit."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0)
+    return torch.tensor(_SQRT2, device=u.device) * xla_erfinv(u)
 
 
 def randint(key: Tensor, shape: tuple[int, ...], minval: int,

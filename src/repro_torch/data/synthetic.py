@@ -12,9 +12,12 @@ run without failure would have seen.
 The batch is made on the dataset's device (the CUDA device unless the
 caller names another).  The categorical draw is taken a slice of rows at
 a time (`threefry.categorical`), so at llama3.2-3b's vocabulary of
-128,256 the (B, S + 1, V) Gumbel array never lives whole.  The frontends'
-``embeds`` (a normal draw) are not ported: a config with a frontend
-raises, naming ROADMAP A7.
+128,256 the (B, S + 1, V) Gumbel array never lives whole.  A config with
+a modality frontend also gets ``embeds`` (B, frontend_len, frontend_dim),
+a float32 normal draw (`threefry.normal`, bitwise the reference's), and
+its mask zeroed on the first frontend_len positions, as the reference
+does.  For the encoder-decoder (seamless) that zeroes decoder positions,
+though its embeds feed the encoder: a quirk of the reference, mirrored.
 """
 from __future__ import annotations
 
@@ -59,21 +62,18 @@ class SyntheticDataset:
     device: str | torch.device | None = None
 
     def __post_init__(self):
-        if self.cfg.frontend_len:
-            raise NotImplementedError(
-                "synthetic embeds for a modality frontend are not ported "
-                "yet (ROADMAP queue A, A7)")
         self.device = resolve_device(self.device)
         self._logits = torch.from_numpy(_unigram_logits(self.cfg)).to(
             self.device)
 
     def batch(self, step: int) -> dict[str, Tensor]:
-        """Pure function of (seed, step) -> {tokens, labels, mask}: int32,
-        int32 and float32 (B, S) tensors on the dataset's device."""
+        """Pure function of (seed, step) -> {tokens, labels, mask[,
+        embeds]}: int32, int32 and float32 (B, S) tensors (and float32
+        (B, F, frontend_dim) embeds) on the dataset's device."""
         cfg = self.cfg
         key = threefry.fold_in(
             threefry.prng_key(cfg.seed, device=self.device), step)
-        k_tok, k_mix, _k_shift, _k_emb = threefry.split(key, 4)
+        k_tok, k_mix, _k_shift, k_emb = threefry.split(key, 4)
         b, s, v = cfg.global_batch, cfg.seq_len, cfg.vocab_size
 
         base = threefry.categorical(k_tok, self._logits, (b, s + 1))
@@ -85,12 +85,18 @@ class SyntheticDataset:
         take_markov = threefry.bernoulli(k_mix, cfg.markov_mix, (b, s))
         toks = torch.where(take_markov, mapped, base[:, 1:])
         tokens = torch.cat([base[:, :1], toks[:, :-1]], dim=1)
-        return {
+        out = {
             "tokens": tokens.to(torch.int32),
             "labels": toks.to(torch.int32),
             "mask": torch.ones((b, s), dtype=torch.float32,
                                device=self.device),
         }
+        if cfg.frontend_len:
+            out["embeds"] = threefry.normal(
+                k_emb, (b, cfg.frontend_len, cfg.frontend_dim))
+            # prefix positions carry no next-token loss
+            out["mask"][:, :cfg.frontend_len] = 0.0
+        return out
 
 
 def make_dataset(model_cfg, seq_len: int, global_batch: int, seed: int = 0,

@@ -3,10 +3,11 @@
 What crosses over: demand, fault and placement streams, recorded traces,
 simulator state, the flight-recorder carry and random streams (the NoC
 simulator has no weights), a language model's parameter tree and decode
-state (the serving path), and a training state (parameters and AdamW
-moments).  Each converter takes any object with the right
-field names whose leaves numpy can read (for example a NamedTuple of numpy
-arrays) and returns the port's structure of the same names on ``device``.
+state (the serving path), an encoder-decoder's parameter tree and decode
+state, and a training state (parameters and AdamW moments).  Each
+converter takes any object with the right field names whose leaves numpy
+can read (for example a NamedTuple of numpy arrays) and returns the
+port's structure of the same names on ``device``.
 uint16 injection stamps widen to the port's int32 stamps value for value;
 bfloat16 leaves (numpy's ml_dtypes type) cross as torch.bfloat16 exactly.
 The port materializes named fault and placement scenarios itself
@@ -24,7 +25,7 @@ from repro_torch.core.noc.router import SubnetState
 from repro_torch.core.noc.sim import EpochStreams, MCState
 from repro_torch.core.noc.traffic import RecordedTrace, WorkloadProfile
 from repro_torch.kernels.noc_cycle.fused import LaneState, ProbeLanes
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.mamba import Mamba1State, Mamba2State
 from repro_torch.models.config import ModelConfig
@@ -135,8 +136,9 @@ def lm_params(tree, cfg: ModelConfig, device="cpu") -> dict:
     of arrays, each pattern position's blocks stacked over n_super; the
     hybrid's one ``shared_attn`` block unstacked) -> the port's tree
     (`lm.make_lm`'s layout: a list of per-layer dicts per pattern
-    position).  Leaf types are kept (a moe block's router stays float32,
-    its experts in the parameter dtype), except that a mamba mixer's leaves
+    position; a frontend's ``projector`` carried as it is).  Leaf types
+    are kept (a moe block's router stays float32, its experts in the
+    parameter dtype), except that a mamba mixer's leaves
     are cast as the port's `make_mamba1` / `make_mamba2` make them:
     `MAMBA1_F32` / `MAMBA2_F32` in float32, the rest in the parameter
     dtype."""
@@ -164,30 +166,66 @@ def _unstack(tree, cfg: ModelConfig, device) -> dict:
     """The reference's LM tree (each pattern position's blocks stacked
     over n_super) in the port's layout, every leaf's type kept."""
     pattern, n_super = lm.layer_pattern(cfg)
-
-    def conv(node, i=None):
-        if isinstance(node, dict):
-            return {k: conv(v, i) for k, v in node.items()}
-        return tensor(node if i is None else np.asarray(node)[i], device)
-
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [[conv(tree["blocks"][j], i) for i in range(n_super)]
-                     for j in range(len(pattern))]
+    out = {k: _tree(v, device) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = [[_tree(tree["blocks"][j], device, i)
+                      for i in range(n_super)] for j in range(len(pattern))]
     return out
+
+
+def _tree(node, device, i=None):
+    """A nested dict of arrays as tensors on ``device``, each leaf's type
+    kept; with ``i``, layer i of leaves stacked over layers."""
+    if isinstance(node, dict):
+        return {k: _tree(v, device, i) for k, v in node.items()}
+    return tensor(node if i is None else np.asarray(node)[i], device)
+
+
+def encdec_params(tree, cfg: ModelConfig, device="cpu") -> dict:
+    """An encoder-decoder's parameter tree as the reference's
+    `make_encdec` builds it (``enc_blocks`` and ``dec_blocks`` stacked over
+    their layers) -> the port's (`encdec.make_encdec`'s layout: a list of
+    per-layer dicts each; ``projector``, the norms, ``embed`` and
+    ``unembed`` as they are), every leaf's type kept."""
+    counts = {"enc_blocks": cfg.n_encoder_layers, "dec_blocks": cfg.n_layers}
+    return {k: ([_tree(v, device, i) for i in range(counts[k])]
+                if k in counts else _tree(v, device))
+            for k, v in tree.items()}
+
+
+def encdec_state(obj, device="cpu") -> encdec.EncDecState:
+    """An encoder-decoder decode state (``self_kv`` stacked (L, B, Smax,
+    KV, D) with (L, B) lengths, ``cross_k`` / ``cross_v`` (L, B, F, KV, D),
+    ``length``) as the port's `encdec.EncDecState`: bf16 K/V, int32
+    lengths."""
+    kv = obj.self_kv
+    return encdec.EncDecState(
+        self_kv=KVCache(k=tensor(kv.k, device, torch.bfloat16),
+                        v=tensor(kv.v, device, torch.bfloat16),
+                        length=tensor(kv.length, device, torch.int32)),
+        cross_k=tensor(obj.cross_k, device, torch.bfloat16),
+        cross_v=tensor(obj.cross_v, device, torch.bfloat16),
+        length=tensor(obj.length, device, torch.int32))
 
 
 def train_state(obj, cfg: ModelConfig, device="cpu") -> TrainState:
     """A training state (``params``; ``opt`` with ``step``, ``mu``, ``nu``,
     as the reference's TrainState and OptState hold them) as the port's
-    `TrainState`: the parameters through `lm_params`, the moments laid
-    out the same way in their own type, the step an int32 scalar."""
+    `TrainState`: the parameters through `lm_params` (`encdec_params` for
+    an encoder-decoder), the moments laid out the same way in their own
+    type, the step an int32 scalar."""
     opt = obj.opt
+    if cfg.is_encoder_decoder:
+        params = encdec_params(obj.params, cfg, device)
+        mu = encdec_params(opt.mu, cfg, device)
+        nu = encdec_params(opt.nu, cfg, device)
+    else:
+        params = lm_params(obj.params, cfg, device)
+        mu = _unstack(opt.mu, cfg, device)
+        nu = _unstack(opt.nu, cfg, device)
     return TrainState(
-        params=lm_params(obj.params, cfg, device),
-        opt=opt_lib.OptState(
-            step=tensor(opt.step, device, torch.int32),
-            mu=_unstack(opt.mu, cfg, device),
-            nu=_unstack(opt.nu, cfg, device)))
+        params=params,
+        opt=opt_lib.OptState(step=tensor(opt.step, device, torch.int32),
+                             mu=mu, nu=nu))
 
 
 def decode_state(obj, device="cpu") -> lm.DecodeState:

@@ -11,9 +11,11 @@ heads widened to 64, the narrowest head dim B5 is built for: see
 `smoke_config`); `--size full` the published config on one card
 (llama3.2-3b: 3.21 B parameters, 38.6 GB of training state with f32
 moments; zamba2-2.7b: all 54 layers fit; falcon-mamba-7b's 64 layers,
-~87 GB of state, do not, so ``--n-layers`` cuts the depth).  Both build the two step variants (balanced /
-comm-priority) up front and let the KF scheduler dispatch between them —
-the paper's pre-defined configuration model.  The model trains on the
+~87 GB of state, do not, so ``--n-layers`` cuts the depth;
+seamless-m4t-large-v2 trains through `encdec.encdec_loss`, internvl2-2b
+with the batch's image-prefix embeds).  Both build the two step variants
+(balanced / comm-priority) up front and let the KF scheduler dispatch
+between them — the paper's pre-defined configuration model.  The model trains on the
 CUDA device unless ``--device`` names another.
 """
 from __future__ import annotations

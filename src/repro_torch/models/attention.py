@@ -9,6 +9,8 @@ Three lowerings of the same math, as in the JAX package:
   * `attend_decode` — single-query attention against a KV cache (plain
                       torch, as the reference computes it outside any
                       kernel).
+The encoder-decoder's `cross_attention` runs `attend_ref` with no mask,
+as the reference does, outside any kernel.
 
 The reference's `attend` takes `use_kernel=False` by default and leaves
 the fusion to XLA, which the port does not have; the port therefore always
@@ -258,3 +260,32 @@ def self_attention_decode(
         )
     out = out_project(o, p["wo"])
     return out, KVCache(k=cache.k, v=cache.v, length=new_len)
+
+
+def cross_attention(
+    p, x: Tensor, enc_kv: tuple[Tensor, Tensor], cfg: ModelConfig
+) -> Tensor:
+    """Decoder cross-attention over precomputed encoder K/V (seamless-m4t).
+
+    The reference computes it with `attend_ref(..., causal=False)`, outside
+    any kernel, even where its `use_kernel` is set; the port does the same
+    through its own `attend_ref`, on the card too (no kernel computes it in
+    the reference, so none does here)."""
+    q = _project_heads(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+    k, v = enc_kv
+    o = attend_ref(q, k, v, causal=False)
+    return out_project(o, p["wo"])
+
+
+def encode_kv(p, enc_out: Tensor, cfg: ModelConfig
+              ) -> tuple[Tensor, Tensor]:
+    """The encoder output's K and V for one decoder block's cross-attention,
+    (B, F, KV, hd) each, with no RoPE."""
+    k = _project_heads(enc_out, p["wk"])
+    v = _project_heads(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    return k, v

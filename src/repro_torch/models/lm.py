@@ -17,9 +17,11 @@ carry does), the mamba1 kind ([mamba1], P = 1: falcon-mamba) and
 zamba2's hybrid ([mamba2 x 6], then ONE shared attn + mlp block whose
 weights every super-block reuses, ``params["shared_attn"]``; its caches
 are ``DecodeState.shared_kv``, one stacked KVCache entry per
-application).  The other kinds raise NotImplementedError naming the
-ROADMAP item that brings them: encoder-decoder (seamless-m4t) and the
-modality frontends (internvl2).
+application).  A config with a modality frontend (internvl2's vision
+prefix) gets ``params["projector"]``, and `forward` / `prefill_caches`
+take ``embeds=`` (B, F, frontend_dim): the projected prefix replaces the
+first F token embeddings (`frontends.splice_prefix`).  The
+encoder-decoder (seamless-m4t) is `models.encdec`.
 
 Training: `cross_entropy` and `lm_loss` are the reference's loss (the MoE
 aux terms added as there), and `forward` applies ``cfg.remat`` to each
@@ -36,7 +38,7 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch._util import resolve_device
-from repro_torch.models import attention, layers, mamba, moe
+from repro_torch.models import attention, frontends, layers, mamba, moe
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoEAux
@@ -44,12 +46,6 @@ from repro_torch.models.moe import MoEAux
 Tensor = torch.Tensor
 
 ACT_DTYPE = torch.bfloat16
-
-_LATER = {
-    "encdec": "ROADMAP queue A 'encoder-decoder and frontends'",
-    "frontend": "ROADMAP queue A 'encoder-decoder and frontends'",
-}
-_PORTED = ("dense", "moe", "mamba1", "mamba2")
 
 
 class _MambaKind(NamedTuple):
@@ -88,22 +84,6 @@ def layer_pattern(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
     return ("dense",), cfg.n_layers
 
 
-def _require_ported(cfg: ModelConfig) -> tuple[tuple[str, ...], int]:
-    """The pattern, if this slice runs it; else NotImplementedError."""
-    pattern, n_super = layer_pattern(cfg)
-    why = None
-    if cfg.is_encoder_decoder:
-        why = "encdec"
-    elif cfg.frontend:
-        why = "frontend"
-    else:
-        why = next((k for k in pattern if k not in _PORTED), None)
-    if why is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {why} kind is not ported yet ({_LATER[why]})")
-    return pattern, n_super
-
-
 def param_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
 
@@ -130,7 +110,7 @@ def make_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters drawn from ``gen`` on its device (the reference
     draws from a JAX key, so the numbers differ; tests carry the
     reference's parameters across with `interop.lm_params`)."""
-    pattern, n_super = _require_ported(cfg)
+    pattern, n_super = layer_pattern(cfg)
     dtype = param_dtype(cfg)
     params: dict[str, Any] = {
         "embed": layers.make_embedding(gen, cfg.vocab_size, cfg.d_model,
@@ -144,7 +124,22 @@ def make_lm(gen: torch.Generator, cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         params["unembed"] = {"table": layers.truncated_normal(
             gen, (cfg.vocab_size, cfg.d_model), cfg.d_model ** -0.5, dtype)}
+    if cfg.frontend:
+        params["projector"] = frontends.make_projector(gen, cfg, dtype)
     return params
+
+
+def embed_inputs(params: dict, tokens: Tensor, cfg: ModelConfig,
+                 embeds: Optional[Tensor] = None) -> Tensor:
+    """The token embeddings (B, S, D) in ACT_DTYPE, the projected modality
+    prefix spliced over the first F positions when the config has a
+    frontend and ``embeds`` (B, F, frontend_dim) is given."""
+    x = layers.embed(params["embed"], tokens, ACT_DTYPE)
+    if cfg.frontend and embeds is not None:
+        prefix = frontends.apply_projector(params["projector"],
+                                           embeds.to(ACT_DTYPE), cfg)
+        x = frontends.splice_prefix(x, prefix)
+    return x
 
 
 def _final_logits(params: dict, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -231,8 +226,8 @@ def _remat_wrap(fn, cfg: ModelConfig):
 
 def forward(
     params: dict, tokens: Tensor, cfg: ModelConfig, *,
-    use_kernel: bool = False, return_caches: bool = False,
-    cache_len: Optional[int] = None,
+    embeds: Optional[Tensor] = None, use_kernel: bool = False,
+    return_caches: bool = False, cache_len: Optional[int] = None,
 ) -> ForwardOut:
     """tokens: (B, S) int -> logits (B, S, V) f32, the MoE aux (zero for
     the kinds without experts; else lb and zl summed over the MoE layers,
@@ -247,11 +242,13 @@ def forward(
     point (B5 on the card, with its backward kernel under autograd).
     While gradients are recorded, each super-block runs under
     ``cfg.remat`` (`_remat_wrap`), as the reference's scan body does; the
-    numbers do not change."""
-    pattern, n_super = _require_ported(cfg)
+    numbers do not change.  ``embeds`` (B, F, frontend_dim), for a config
+    with a frontend, is projected and spliced over the first F token
+    embeddings (`embed_inputs`)."""
+    pattern, n_super = layer_pattern(cfg)
     b, s = tokens.shape
     dev = tokens.device
-    x = layers.embed(params["embed"], tokens, ACT_DTYPE)
+    x = embed_inputs(params, tokens, cfg, embeds)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
 
     def super_block(x, i):
@@ -281,8 +278,8 @@ def forward(
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         aux = MoEAux(zero, zero, torch.zeros((1,), dtype=torch.float32,
                                              device=dev))
-    caches = (prefill_caches(params, tokens, cfg, cache_len or s)
-              if return_caches else None)
+    caches = (prefill_caches(params, tokens, cfg, cache_len or s,
+                             embeds=embeds) if return_caches else None)
     return ForwardOut(logits=logits, aux=aux, caches=caches)
 
 
@@ -307,8 +304,9 @@ def lm_loss(
     """The next-token loss of ``batch`` ({tokens, labels, mask}) and its
     metrics {ce[, lb_loss, z_loss], loss}; a MoE decoder adds lb_coef x
     its load-balance loss and z_coef x its router z-loss, as the
-    reference does."""
-    out = forward(params, batch["tokens"], cfg, use_kernel=use_kernel)
+    reference does.  A batch's ``embeds`` go to `forward`."""
+    out = forward(params, batch["tokens"], cfg, embeds=batch.get("embeds"),
+                  use_kernel=use_kernel)
     ce = cross_entropy(out.logits, batch["labels"], batch["mask"])
     loss = ce
     metrics = {"ce": ce}
@@ -351,7 +349,7 @@ def _new_cache(kind: str, n_super: int, batch: int, max_len: int,
 
 def init_decode_state(batch: int, max_len: int, cfg: ModelConfig,
                       device: str | torch.device | None = None) -> DecodeState:
-    pattern, n_super = _require_ported(cfg)
+    pattern, n_super = layer_pattern(cfg)
     dev = resolve_device(device)
     if cfg.sliding_window is not None:  # ring cache: O(window) not O(context)
         max_len = min(max_len, cfg.sliding_window)
@@ -401,7 +399,7 @@ def decode_step(
     written into ``state``'s cache tensors IN PLACE (the reference returns
     updated copies); the returned DecodeState holds the same cache tensors,
     the new per-layer lengths and length + 1."""
-    pattern, n_super = _require_ported(cfg)
+    pattern, n_super = layer_pattern(cfg)
     x = layers.embed(params["embed"], token, ACT_DTYPE)
     lengths = [[None] * n_super for _ in pattern]
     shared_lengths = [None] * n_super
@@ -444,6 +442,7 @@ def _prefill_block(p, kind: str, x: Tensor, cfg: ModelConfig,
 
 def prefill_caches(
     params: dict, tokens: Tensor, cfg: ModelConfig, max_len: int,
+    *, embeds: Optional[Tensor] = None,
 ) -> DecodeState:
     """Run the full sequence once and return a DecodeState holding its K/V
     (padded to ``max_len`` positions) or its final conv and SSM states.
@@ -451,11 +450,11 @@ def prefill_caches(
     the card, the hybrid's shared block included (one launch per
     application); the mamba1 scan through `fused_chunked_scan_m1` and the
     mamba2 scan through `fused_chunked_scan_m2`, so through the fused
-    kernel (B7): one launch per layer."""
-    pattern, n_super = _require_ported(cfg)
+    kernel (B7): one launch per layer.  ``embeds`` as in `forward`."""
+    pattern, n_super = layer_pattern(cfg)
     b, s = tokens.shape
     dev = tokens.device
-    x = layers.embed(params["embed"], tokens, ACT_DTYPE)
+    x = embed_inputs(params, tokens, cfg, embeds)
     positions = torch.arange(s, device=dev)[None, :].expand(b, s)
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     caches = [_new_cache(kind, n_super, b, max_len, cfg, dev, lens)

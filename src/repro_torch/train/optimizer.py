@@ -13,7 +13,8 @@ position's layers on a leading n_super axis: a block's norm scale
 ``final_norm/scale`` (D,) is not.  The port keeps one leaf per layer, so
 the same formula on the port's leaves would decay no norm at all; `decays`
 mirrors the reference's set of decayed leaves instead: a leaf under
-``blocks`` counts the stacked axis it has in the reference.  zamba2's
+``blocks`` (an encoder-decoder's ``enc_blocks`` / ``dec_blocks``) counts
+the stacked axis it has in the reference.  zamba2's
 ``shared_attn`` block is unstacked in both, so it follows its own shapes.
 
 `update` writes the new parameters and moments into the given tensors IN
@@ -86,15 +87,21 @@ def schedule(cfg: OptimizerConfig, step: Tensor) -> Tensor:
     return cfg.lr * warm * frac
 
 
+# the subtrees the reference stacks over layers
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
 def ref_order(params: Any) -> list[tuple]:
     """The port's leaf paths in the reference's ``jax.tree.leaves`` order:
-    sorted keys, and each ``blocks`` leaf's layers one after another where
+    sorted keys, and each stacked leaf's layers one after another where
     the reference holds them in one stacked leaf."""
     paths = [path for path, _ in tree_leaves(params)]
 
     def key(path):
         if path and path[0] == "blocks":   # (blocks, j, i, *keys)
             path = (path[0], path[1], *path[3:], path[2])
+        elif path and path[0] in STACKED:  # (enc_blocks, i, *keys)
+            path = (path[0], *path[2:], path[1])
         return tuple((isinstance(k, str), k) for k in path)
 
     return sorted(paths, key=key)
@@ -112,8 +119,9 @@ def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, Tensor]:
 
 def decays(path: tuple, p: Tensor) -> bool:
     """Whether the reference decays this leaf: ``ndim >= 2`` of its leaf,
-    which has one more (stacked) axis under ``blocks``."""
-    return p.ndim + (1 if path and path[0] == "blocks" else 0) >= 2
+    which has one more (stacked) axis under ``blocks`` (and an
+    encoder-decoder's ``enc_blocks`` / ``dec_blocks``)."""
+    return p.ndim + (1 if path and path[0] in STACKED else 0) >= 2
 
 
 @torch.no_grad()

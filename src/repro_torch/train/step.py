@@ -15,8 +15,8 @@ only the memory traffic pattern differs.  A step is a plain function
 ``jit_step``; `optimizer.update` writes the state in place.  The
 reference's multi-pod variant (int8 + error-feedback gradient sync over a
 `pod` axis) and its residual buckets need a mesh: on one card there is no
-`pod` axis, so ``mesh`` and ``with_residuals`` raise, naming ROADMAP A9;
-the encoder-decoder loss raises, naming A7.
+`pod` axis, so ``mesh`` and ``with_residuals`` raise, naming ROADMAP A9.
+An encoder-decoder trains through `encdec.encdec_loss`.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch._util import map_tree, tree_leaves
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt_lib
 
@@ -43,10 +43,14 @@ class TrainState(NamedTuple):
 
 
 def make_loss_fn(cfg: ModelConfig, *, use_kernel: bool = False) -> Callable:
+    """``use_kernel`` picks the mamba scan (`lm.forward`); an
+    encoder-decoder has no scan, and its attention always goes through B5,
+    so there it must stay False."""
     if cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder loss is not ported yet "
-            f"(ROADMAP queue A, A7)")
+        if use_kernel:
+            raise ValueError(f"{cfg.name}: use_kernel picks a mamba scan; "
+                             f"an encoder-decoder has none")
+        return functools.partial(encdec.encdec_loss, cfg=cfg)
     return functools.partial(lm.lm_loss, cfg=cfg, use_kernel=use_kernel)
 
 
@@ -54,14 +58,13 @@ def init_train_state(
     gen: torch.Generator, cfg: ModelConfig,
     opt_cfg: opt_lib.OptimizerConfig, *, with_residuals: bool = False,
 ) -> TrainState:
-    """Random parameters from ``gen`` (on its device, `lm.make_lm`) and zero
-    moments.  The reference also returns its sharding specs; the port has
-    none."""
+    """Random parameters from ``gen`` (on its device: `lm.make_lm`, or
+    `encdec.make_encdec` for an encoder-decoder) and zero moments.  The
+    reference also returns its sharding specs; the port has none."""
     if with_residuals:
         raise NotImplementedError(f"error-feedback residuals: {_A9}")
-    if cfg.is_encoder_decoder:
-        make_loss_fn(cfg)   # raises
-    params = lm.make_lm(gen, cfg)
+    make = encdec.make_encdec if cfg.is_encoder_decoder else lm.make_lm
+    params = make(gen, cfg)
     return TrainState(params=params, opt=opt_lib.init(opt_cfg, params))
 
 

@@ -445,6 +445,12 @@ def test_kf_bank_kernel_matches_plain(n, m):
     # llama4-maverick (GQA groups of 5) and grok-1 (groups of 6, capped)
     (1, 517, 517, 40, 8, 128, True, None, None, None),
     (1, 300, 300, 48, 8, 128, True, None, 30.0, None),
+    # seamless-m4t's encoder (H = KV = 16, D = 64, no mask), with and
+    # without kv_len, and its decoder (causal); internvl2 (groups of 2)
+    (1, 600, 600, 16, 16, 64, False, None, None, None),
+    (2, 333, 333, 16, 16, 64, False, None, None, 201),
+    (1, 517, 517, 16, 16, 64, True, None, None, None),
+    (1, 300, 300, 16, 8, 128, True, None, None, None),
 ])
 def test_flash_kernel_matches_plain(dtype, b, sq, sk, h, kv, d, causal,
                                     window, cap, kv_len):
@@ -534,6 +540,12 @@ BWD_CASES = [
     (1, 333, 15, 5, 64, True, 100, 20.0),
     (2, 190, 10, 2, 80, True, 48, 30.0),
     (1, 250, 8, 8, 128, True, 70, 30.0),
+    # seamless-m4t's encoder (no mask) at D = 64 with H = KV = 16, its
+    # decoder (causal), and internvl2's groups of 2
+    (1, 333, 16, 16, 64, False, None, None),
+    (2, 190, 16, 16, 64, False, None, None),
+    (1, 300, 16, 16, 64, True, None, None),
+    (1, 300, 16, 8, 128, True, None, None),
 ]
 
 

@@ -215,12 +215,18 @@ def test_forward_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
-def test_non_dense_kinds_raise(arch):
+def test_frontend_configs_build_as_the_reference_does(arch):
+    """`make_lm` and `init_decode_state` take the frontend configs as the
+    reference's do: a decoder tree with the projector (seamless's own
+    model is `encdec`: tests/test_torch_encdec.py), and empty caches."""
     cfg = tconfigs.smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.make_lm(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_decode_state(2, 16, cfg, device="cpu")
+    tp, carried = _made_and_carried(arch)
+    shapes = lambda tree: [(p, s, d) for p, s, d in _tree_leaves(tree)]
+    assert shapes(tp) == shapes(carried)
+    assert "projector" in tp
+    st = tlm.init_decode_state(2, 16, cfg, device="cpu")
+    assert st.caches[0].k.shape == (cfg.n_layers, 2, 16, cfg.n_kv_heads,
+                                    cfg.head_dim)
 
 
 def _tree_leaves(tree, prefix=""):

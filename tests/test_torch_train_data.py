@@ -138,11 +138,15 @@ def test_synthetic_batch_at_full_vocab():
         same_bits(want[k], got[k])
 
 
-def test_frontend_embeds_and_normal_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        tsyn.make_dataset(tconfigs.smoke("internvl2-2b"), 8, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tf.normal(tf.prng_key(0), (3,))
+def test_frontend_embeds_and_normal_run():
+    """A frontend config's dataset draws its embeds (bitwise the
+    reference's: tests/test_torch_frontends.py) and `normal` draws."""
+    cfg = tconfigs.smoke("internvl2-2b")
+    batch = tsyn.make_dataset(cfg, 8, 2, device="cpu").batch(0)
+    assert batch["embeds"].shape == (2, cfg.frontend_len, cfg.frontend_dim)
+    assert batch["embeds"].dtype == torch.float32
+    x = tf.normal(tf.prng_key(0), (3,))
+    assert x.dtype == torch.float32 and bool(torch.isfinite(x).all())
 
 
 def test_prefetcher_keeps_order_and_raises_the_producer_error():

@@ -148,8 +148,9 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="A9"):
         step_lib.init_train_state(torch.Generator(), cfg, opt_cfg,
                                   with_residuals=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        step_lib.make_loss_fn(configs.smoke("seamless-m4t-large-v2"))
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        step_lib.make_loss_fn(configs.smoke("seamless-m4t-large-v2"),
+                              use_kernel=True)
 
 
 def test_launcher_main_trains_on_the_cpu(capsys):
@@ -158,6 +159,17 @@ def test_launcher_main_trains_on_the_cpu(capsys):
                              "--global-batch", "2", "--kf"])
     assert len(res.losses) == 3 and np.isfinite(res.losses).all()
     assert "[train] llama3.2-3b (smoke) 3 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
+def test_launcher_trains_the_encdec_and_the_vlm(arch, capsys):
+    """The encoder-decoder (`encdec.encdec_loss`) and the vision prefix
+    (the batch's embeds) train through the launcher on the CPU."""
+    res = launch_train.main(["--arch", arch, "--size", "smoke", "--device",
+                             "cpu", "--steps", "3", "--seq-len", "32",
+                             "--global-batch", "2"])
+    assert len(res.losses) == 3 and np.isfinite(res.losses).all()
+    assert f"[train] {arch} (smoke) 3 steps" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
