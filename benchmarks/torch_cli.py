@@ -1,22 +1,42 @@
 """The cross-cutting flags of the torch figure drivers: ``--faults NAME``,
-``--placement NAME`` and ``--topology WxH``.
+``--placement NAME``, ``--topology WxH``, ``--profile DIR`` and
+``--trace F.npz`` with ``--trace-fit exact|tile|stretch``.
 
     torch_cli.add_flags(ap)                      # on the driver's parser
-    run(..., **torch_cli.shared_overrides(args))
+    wl = torch_cli.registered_trace(args)        # --trace F.npz -> a name
+    res = profiling.profiled_run(args.profile, lambda: run(
+        ..., **torch_cli.shared_overrides(args)), label="...")
 
-Each flag becomes a `NoCConfig` override that `sweep` forwards to every
-row, where it takes precedence over a per-spec value.  Names are checked
-against the port's registries (`faults.FAULTS`, `placement.PLACEMENTS`)
-and the mesh against `topology.validate_topology_args` when the overrides
-are built, so a typo fails at the command line with the registry's
-close-match hint.  Imports no JAX.
+Each of the first three flags becomes a `NoCConfig` override that `sweep`
+forwards to every row, where it takes precedence over a per-spec value.
+Names are checked against the port's registries (`faults.FAULTS`,
+`placement.PLACEMENTS`) and the mesh against
+`topology.validate_topology_args` when the overrides are built, so a typo
+fails at the command line with the registry's close-match hint.
+
+``--trace PATH`` registers a recorded demand trace (the
+`traffic.RecordedTrace` npz schema) as the workload ``TRACE``, which a
+driver then runs in place of its builtin workloads.  The default fit is
+"stretch": drivers run at many ``n_epochs``, and a linear resample keeps
+any trace usable everywhere (``--trace-fit exact`` insists on a bitwise
+replay).  ``--profile DIR`` wraps the driver's run in
+`repro_torch.obs.profiling.profiled_run` (a cold and a steady call, each
+a Chrome trace).  Imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
 
 
-def add_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+# The registry name `--trace` files land under: drivers substitute it for
+# their builtin workload set when the flag is present.
+TRACE_WORKLOAD = "TRACE"
+
+
+def add_flags(ap: argparse.ArgumentParser,
+              trace: bool = True) -> argparse.ArgumentParser:
+    """Add the shared flags; ``trace=False`` leaves out ``--trace`` and
+    ``--trace-fit`` (drivers whose rows carry their own workloads)."""
     ap.add_argument("--faults", metavar="NAME", default=None,
                     help="inject a registered fault scenario "
                          "(repro_torch.core.noc.faults.FAULTS, e.g. "
@@ -29,6 +49,20 @@ def add_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     ap.add_argument("--topology", metavar="WxH", default=None,
                     help="run on a WxH mesh instead of the paper's 6x6 "
                          "(e.g. 4x4, 8x8; at most 64 routers)")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="capture torch.profiler Chrome traces of a cold "
+                         "and a steady call of the run into DIR")
+    if trace:
+        ap.add_argument("--trace", metavar="F.npz", default=None,
+                        help="drive the figure with a recorded demand trace "
+                             "(the RecordedTrace npz schema) instead of its "
+                             "builtin workloads")
+        ap.add_argument("--trace-fit", choices=("exact", "tile", "stretch"),
+                        default="stretch",
+                        help="how a trace of T epochs fits a run of "
+                             "n_epochs: exact requires T == n_epochs, tile "
+                             "repeats cyclically, stretch resamples "
+                             "linearly (default)")
     return ap
 
 
@@ -84,3 +118,20 @@ def shared_overrides(args) -> dict:
         **placement_overrides(args),
         **topology_overrides(args),
     }
+
+
+def registered_trace(args) -> str | None:
+    """Register ``--trace`` (if given) as the workload TRACE_WORKLOAD and
+    return that name; None when the flag is absent, so drivers fall back
+    to their builtin workloads."""
+    path = getattr(args, "trace", None)
+    if not path:
+        return None
+    from repro_torch.core.noc.traffic import register_trace
+
+    trace = register_trace(TRACE_WORKLOAD, path,
+                           fit=getattr(args, "trace_fit", "stretch"),
+                           overwrite=True)
+    print(f"# --trace: registered {path} as workload {TRACE_WORKLOAD!r} "
+          f"({trace.n_epochs_recorded} epochs, fit={trace.fit})")
+    return TRACE_WORKLOAD

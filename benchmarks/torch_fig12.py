@@ -8,6 +8,7 @@ seed's.  Claim: where 2-subnet-fair dips, the KF run holds IPC up.
         [--workload STO] [--n-epochs N] [--seeds 0,1,2]
         [--partitionable 0|1]
         [--faults NAME] [--placement NAME] [--topology WxH]
+        [--trace F.npz [--trace-fit exact|tile|stretch]] [--profile DIR]
 
 Imports no JAX.
 """
@@ -28,6 +29,7 @@ import torch
 from benchmarks import torch_cli
 from repro_torch.core import threefry
 from repro_torch.core.noc.sim import NoCConfig, simulate_batch
+from repro_torch.obs import profiling
 
 SEEDS = (0, 1, 2)
 
@@ -63,10 +65,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
     overrides = torch_cli.shared_overrides(args)
     seeds = tuple(int(s) for s in args.seeds.split(","))
+    workload = torch_cli.registered_trace(args) or args.workload
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
-        tr = run(workload=args.workload, n_epochs=args.n_epochs, seeds=seeds,
-                 device=args.device, **overrides)
+        tr = profiling.profiled_run(
+            args.profile,
+            lambda: run(workload=workload, n_epochs=args.n_epochs,
+                        seeds=seeds, device=args.device, **overrides),
+            label="fig12")
     wall = time.time() - t0
     print("epoch,fair_gpu_ipc,kf_gpu_ipc,kf_signal,applied_config")
     for i in range(len(tr["fair_ipc"])):

@@ -7,6 +7,7 @@ rises with more GPU VCs; CPU IPC barely moves.
     PYTHONPATH=src python3 benchmarks/torch_fig2_3.py [--device cpu]
         [--n-epochs N] [--seeds 0,1,2] [--partitionable 0|1]
         [--faults NAME] [--placement NAME] [--topology WxH]
+        [--trace F.npz [--trace-fit exact|tile|stretch]] [--profile DIR]
 
 Imports no JAX.
 """
@@ -26,6 +27,7 @@ import torch
 from benchmarks import torch_cli
 from repro_torch.core import threefry
 from repro_torch.core.noc.sim import SweepSpec, summarize_seeds, sweep
+from repro_torch.obs import profiling
 
 WORKLOADS = ("PATH", "LIB", "STO", "MUM")
 RATIOS = (1, 2, 3)   # GPU VCs out of 4
@@ -61,10 +63,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     overrides = torch_cli.shared_overrides(args)
     seeds = tuple(int(s) for s in args.seeds.split(","))
+    trace_wl = torch_cli.registered_trace(args)
+    workloads = (trace_wl,) if trace_wl else WORKLOADS
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
-        results = run(n_epochs=args.n_epochs, seeds=seeds,
-                      device=args.device, **overrides)
+        results = profiling.profiled_run(
+            args.profile,
+            lambda: run(n_epochs=args.n_epochs, seeds=seeds,
+                        workloads=workloads, device=args.device,
+                        **overrides),
+            label="fig2_3")
     wall = time.time() - t0
     print("workload,ratio,gpu_ipc,gpu_ipc_std,cpu_ipc,cpu_ipc_std,avg_latency")
     for wl, row in results.items():
@@ -76,7 +84,7 @@ def main(argv=None):
         gpu_up = row["3:1"]["gpu_ipc"] >= row["1:3"]["gpu_ipc"]
         print(f"# {wl}: GPU IPC rises with GPU VCs: {gpu_up}")
     dev = args.device or torch.cuda.get_device_name(0)
-    print(f"# {len(WORKLOADS) * len(RATIOS) * len(seeds)} rows x "
+    print(f"# {len(workloads) * len(RATIOS) * len(seeds)} rows x "
           f"{args.n_epochs} epochs in one sweep, wall {wall:.2f} s on {dev}")
     return results
 

@@ -11,7 +11,8 @@ rate's coefficient of variation is more than twice the CPU push rate's.
     PYTHONPATH=src python3 benchmarks/torch_fig4_traffic.py
         [--device cpu] [--workload PATH] [--n-epochs N]
         [--partitionable 0|1] [--faults NAME] [--placement NAME]
-        [--topology WxH]
+        [--topology WxH] [--trace F.npz [--trace-fit exact|tile|stretch]]
+        [--profile DIR]
 
 Imports no JAX.
 """
@@ -33,6 +34,7 @@ from benchmarks import torch_cli
 from repro_torch._util import tree_map
 from repro_torch.core import threefry
 from repro_torch.core.noc.sim import NoCConfig, run_workload, simulate_batch
+from repro_torch.obs import profiling
 
 
 def run(workload: str = "PATH", n_epochs: int = 120,
@@ -72,10 +74,14 @@ def main(argv=None):
     torch_cli.add_flags(ap)
     args = ap.parse_args(argv)
     overrides = torch_cli.shared_overrides(args)
+    workload = torch_cli.registered_trace(args) or args.workload
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
-        tr = run(workload=args.workload, n_epochs=args.n_epochs,
-                 device=args.device, **overrides)
+        tr = profiling.profiled_run(
+            args.profile,
+            lambda: run(workload=workload, n_epochs=args.n_epochs,
+                        device=args.device, **overrides),
+            label="fig4")
     wall = time.time() - t0
     print("epoch,gpu_inj_rate,gpu_ipc,gpu_stall_icnt,gpu_stall_dram,cpu_push")
     for i in range(len(tr["gpu_ipc"])):
@@ -86,7 +92,7 @@ def main(argv=None):
     print(f"# gpu_inj CoV={gpu_cov:.3f} cpu_push CoV={cpu_cov:.3f} "
           f"(claim: gpu >> cpu): {holds}")
     dev = args.device or torch.cuda.get_device_name(0)
-    print(f"# {args.workload} {args.n_epochs} epochs, wall {wall:.2f} s on "
+    print(f"# {workload} {args.n_epochs} epochs, wall {wall:.2f} s on "
           f"{dev}")
     return tr
 

@@ -8,6 +8,7 @@ GPU IPC; KF >= fair on GPU IPC; CPU IPC unaffected.
     PYTHONPATH=src python3 benchmarks/torch_fig9_10_11.py [--device cpu]
         [--n-epochs N] [--seeds 0,1,2] [--partitionable 0|1]
         [--faults NAME] [--placement NAME] [--topology WxH]
+        [--trace F.npz [--trace-fit exact|tile|stretch]] [--profile DIR]
 
 Imports no JAX.
 """
@@ -27,6 +28,7 @@ import torch
 from benchmarks import torch_cli
 from repro_torch.core import threefry
 from repro_torch.core.noc.sim import SweepSpec, summarize_seeds, sweep
+from repro_torch.obs import profiling
 
 WORKLOADS = ("PATH", "LIB", "STO", "MUM", "BFS", "LPS")
 MODES = ("4subnet", "baseline", "fair", "kf")
@@ -61,10 +63,16 @@ def main(argv=None):
     args = ap.parse_args(argv)
     overrides = torch_cli.shared_overrides(args)
     seeds = tuple(int(s) for s in args.seeds.split(","))
+    trace_wl = torch_cli.registered_trace(args)
+    workloads = (trace_wl,) if trace_wl else WORKLOADS
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
-        results = run(n_epochs=args.n_epochs, seeds=seeds,
-                      device=args.device, **overrides)
+        results = profiling.profiled_run(
+            args.profile,
+            lambda: run(n_epochs=args.n_epochs, seeds=seeds,
+                        workloads=workloads, device=args.device,
+                        **overrides),
+            label="fig9_10_11")
     wall = time.time() - t0
     print("workload,mode,gpu_ipc,gpu_ipc_std,cpu_ipc,avg_latency,kf_on_frac")
     for wl, row in results.items():
@@ -87,7 +95,7 @@ def main(argv=None):
           f"max {max(gpu_gains):+.1%} (paper: ~+7% mean, up to +19%)")
     print(f"# CPU IPC max |change| {max(cpu_moves):.1%} (paper: unaffected)")
     dev = args.device or torch.cuda.get_device_name(0)
-    print(f"# {len(WORKLOADS) * len(MODES) * len(seeds)} rows x "
+    print(f"# {len(workloads) * len(MODES) * len(seeds)} rows x "
           f"{args.n_epochs} epochs in one sweep, wall {wall:.2f} s on {dev}")
     return results
 

@@ -11,6 +11,7 @@ GPU IPC must be >= every naive predictor's.
     PYTHONPATH=src python3 benchmarks/torch_fig_ablation.py [--gate]
         [--smoke] [--device cpu] [--n-epochs N] [--partitionable 0|1]
         [--faults NAME] [--placement NAME] [--topology WxH]
+        [--trace F.npz [--trace-fit exact|tile|stretch]] [--profile DIR]
 
 ``--partitionable 0`` draws with JAX's original threefry scheme, the one
 the JAX package's committed `noc_ablation` row in BENCH_noc.json was drawn
@@ -34,6 +35,7 @@ from benchmarks import torch_cli
 from repro_torch.core import threefry
 from repro_torch.core.allocator import PolicyConfig
 from repro_torch.core.noc.sim import SweepSpec, summarize_seeds, sweep
+from repro_torch.obs import profiling
 
 PREDICTORS = ("kf", "ema", "last", "always_on", "always_off")
 SCENARIO_SET = (
@@ -105,10 +107,18 @@ def main(argv=None) -> int:
     overrides = torch_cli.shared_overrides(args)
     seeds, scenarios = ((SMOKE["seeds"], SMOKE["scenarios"]) if args.smoke
                         else (SEEDS, SCENARIO_SET))
+    trace_wl = torch_cli.registered_trace(args)
+    if trace_wl:
+        # the replayed trace becomes both the scenario set and the gate
+        scenarios = (trace_wl,)
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
-        res = run(n_epochs=args.n_epochs, seeds=seeds, scenarios=scenarios,
-                  device=args.device, **overrides)
+        res = profiling.profiled_run(
+            args.profile,
+            lambda: run(n_epochs=args.n_epochs, seeds=seeds,
+                        scenarios=scenarios, device=args.device,
+                        **overrides),
+            label="fig_ablation")
     wall = time.time() - t0
     print("scenario,predictor,gpu_ipc,gpu_ipc_std,cpu_ipc,avg_latency,"
           "boost_frac")
@@ -117,7 +127,7 @@ def main(argv=None) -> int:
             print(f"{sc},{p},{s['gpu_ipc']:.4f},{s['gpu_ipc_std']:.4f},"
                   f"{s['cpu_ipc']:.4f},{s['avg_latency']:.2f},"
                   f"{s['kf_on_frac']:.2f}")
-    verdict = kf_verdict(res["table"])
+    verdict = kf_verdict(res["table"], trace_wl or GATE_SCENARIO)
     print(f"# {verdict['scenario']}: KF gpu_ipc {verdict['kf_gpu_ipc']:.6f}; "
           "margins vs naive: "
           + ", ".join(f"{p} {m:+.6f}" for p, m in verdict["margins"].items()))

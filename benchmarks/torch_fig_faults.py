@@ -24,7 +24,7 @@ the card the grid took one B2 launch an epoch.
 
     PYTHONPATH=src python3 benchmarks/torch_fig_faults.py [--gate]
         [--smoke] [--device cpu] [--n-epochs N] [--partitionable 0|1]
-        [--faults NAME] [--placement NAME] [--topology WxH]
+        [--faults NAME] [--placement NAME] [--topology WxH] [--profile DIR]
 
 ``--partitionable 0`` draws with JAX's original threefry scheme, the one
 the JAX package's committed `noc_faults` row in BENCH_noc.json was drawn
@@ -56,6 +56,7 @@ from repro_torch.core.noc import sim
 from repro_torch.core.noc.faults import FAULTS, lookup_faults
 from repro_torch.core.noc.sim import NoCConfig, SweepSpec, summarize_seeds
 from repro_torch.kernels.noc_cycle import ops
+from repro_torch.obs import profiling
 from repro_torch.obs.probes import summarize_trace
 
 # every registered fault scenario, in registry order
@@ -224,7 +225,7 @@ def main(argv=None) -> int:
                          ">= always_off under every fault scenario, the "
                          "healthy pair is bitwise, and on the card the grid "
                          "took one B2 launch an epoch")
-    torch_cli.add_flags(ap)
+    torch_cli.add_flags(ap, trace=False)
     args = ap.parse_args(argv)
     seeds, fault_set = ((SMOKE["seeds"], SMOKE["fault_set"]) if args.smoke
                         else (SEEDS, FAULT_SET))
@@ -238,8 +239,11 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
-        res = run(n_epochs=args.n_epochs, seeds=seeds, fault_set=fault_set,
-                  device=dev, **overrides)
+        res = profiling.profiled_run(
+            args.profile,
+            lambda: run(n_epochs=args.n_epochs, seeds=seeds,
+                        fault_set=fault_set, device=dev, **overrides),
+            label="fig_faults")
     wall = time.time() - t0
     print("faults,arm,gpu_ipc,gpu_ipc_std,cpu_ipc,avg_latency,boost_frac")
     for flt, cells in res["table"].items():

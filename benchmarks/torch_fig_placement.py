@@ -19,7 +19,7 @@ identity pair bitwise, and on the card one B2 launch an epoch.
 
     PYTHONPATH=src python3 benchmarks/torch_fig_placement.py [--gate]
         [--smoke] [--device cpu] [--n-epochs N] [--partitionable 0|1]
-        [--faults NAME] [--placement NAME] [--topology WxH]
+        [--faults NAME] [--placement NAME] [--topology WxH] [--profile DIR]
 
 ``--placement NAME`` swaps the plan under ablation.  ``--partitionable 0``
 draws with JAX's original threefry scheme, the one the JAX package's
@@ -52,6 +52,7 @@ from repro_torch.core.noc import sim
 from repro_torch.core.noc.placement import lookup_placement
 from repro_torch.core.noc.sim import NoCConfig, SweepSpec, summarize_seeds
 from repro_torch.kernels.noc_cycle import ops
+from repro_torch.obs import profiling
 from repro_torch.obs.probes import summarize_trace
 
 ARMS = CONTROLS  # ("bandwidth", "placement", "joint")
@@ -213,7 +214,7 @@ def main(argv=None) -> int:
                          "on the gate scenario, the identity pair is "
                          "bitwise, and on the card the grid took one B2 "
                          "launch an epoch")
-    torch_cli.add_flags(ap)
+    torch_cli.add_flags(ap, trace=False)
     args = ap.parse_args(argv)
     seeds, scenarios = ((SMOKE["seeds"], SMOKE["scenarios"]) if args.smoke
                         else (SEEDS, SCENARIOS))
@@ -229,8 +230,12 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     t0 = time.time()
     with threefry.threefry_partitionable(bool(args.partitionable)):
-        res = run(n_epochs=args.n_epochs, seeds=seeds, scenarios=scenarios,
-                  device=dev, plan=plan, **overrides)
+        res = profiling.profiled_run(
+            args.profile,
+            lambda: run(n_epochs=args.n_epochs, seeds=seeds,
+                        scenarios=scenarios, device=dev, plan=plan,
+                        **overrides),
+            label="fig_placement")
     wall = time.time() - t0
     print("scenario,control,gpu_ipc,gpu_ipc_std,cpu_ipc,avg_latency,"
           "boost_frac")

@@ -80,6 +80,23 @@ build/repro_torch/), then runs, each phase failing the script on error:
      0.735650 (2e-6), and the Fig. 4 traces (torch_fig4_traffic.py, PATH)
      with their CoV claim; each grid's wall and aggregate simulated
      cycles/s;
+  [replay] the predictor grid on replayed serving traces
+     (benchmarks/torch_fig_trace_replay.py: 5 predictors x seeds 0-2 = 15
+     rows, 120 epochs, kf_q 2e-2, one sweep, exactly 120 B2 launches
+     each): (a) the JAX package's trace rebuilt from BENCH_noc.json's
+     committed noc_trace_replay row (its hlo_phases costs through the
+     port's demand_from_costs; each phase's rate the row's to the last
+     bit), under threefry's original scheme (the row's), each
+     predictor's mean GPU IPC within 2e-6 of the row and kf_beats_all
+     equal to the row's; (b) the trace of the port's own prefill and
+     decode steps (launch.op_cost on meta), each phase's flops, bytes,
+     intensity and rate beside the row's, the verdict and margins printed
+     and not gated; (c) the record -> npz -> replay check, bitwise;
+  [trace] the flight-recorder renderer (benchmarks/torch_noc_trace.py) on
+     the card: its check (a probed 4-epoch capture, 4 B3 launches and no
+     other, invariants, npz round trip, ASCII and CSV) and its record, the
+     probes-on (B3) over probes-off (B2) steady wall ratio of an 8 x 100
+     run, median of 5;
   [B4] the KF bank kernel (kf_bank) against its plain version, bitwise,
      at n = 7 ... 1,048,576 filters and M = 3, 5 observations, in its step
      form and its epoch form (the boost signal fused in, against
@@ -1225,6 +1242,156 @@ def phase_scen(dev) -> dict:
     return out
 
 
+# [replay]: the committed noc_trace_replay row of BENCH_noc.json (read-only)
+# was drawn, as the noc_ablation row, under threefry's original scheme
+REPLAY_PARTITIONABLE = False
+
+
+def phase_replay(dev) -> dict:
+    """[replay] the predictor grid (5 predictors x seeds 0-2, 120 epochs,
+    kf_q 2e-2) on replayed serving traces, in one sweep on B2
+    (benchmarks/torch_fig_trace_replay.py): (a) the JAX package's trace,
+    rebuilt from the committed row's hlo_phases costs (each phase's rate
+    the row's to the last bit), every predictor's mean GPU IPC within
+    ABL_TOL of the row and kf_beats_all equal to the row's; (b) the trace
+    of the port's own steps (launch.op_cost on meta), its costs and rates
+    beside the row's, verdict and margins printed, not gated; (c) the
+    record->replay check, bitwise.  Returns B2's launches."""
+    import torch
+
+    from benchmarks import torch_fig_ablation as abl
+    from benchmarks import torch_fig_trace_replay as rep
+    from repro_torch.core import threefry
+    from repro_torch.core.noc import trace_adapters, traffic
+    from repro_torch.kernels.noc_cycle import ops
+
+    out = {"b2": 0}
+    row = bench_row(rep.REPLAY_BENCH)
+    source = rep.HLO_WORKLOAD
+
+    def grid(tag, trace):
+        traffic.register_workload(source, trace, overwrite=True)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with threefry.threefry_partitionable(REPLAY_PARTITIONABLE):
+            res = rep.run(source, device=dev)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check(res["rows"] == 15 and res["b2_launches"] == 120
+              and dict(ops.LAUNCHES) == {"noc_fused_cycles": 120,
+                                         "noc_fused_cycles_probed": 0,
+                                         "noc_arbitrate": 0},
+              f"{tag}: {res['rows']} rows launched {ops.LAUNCHES}, expected "
+              f"120 of B2 for 15")
+        out["b2"] += 120
+        cells = res["table"][source]
+        check(all(math.isfinite(c["gpu_ipc"]) for c in cells.values()),
+              f"{tag}: a non-finite cell {cells}")
+        return cells, abl.kf_verdict(res["table"], source), wall
+
+    # (a) the committed trace
+    t0 = time.time()
+    trace = rep.committed_trace(row)
+    for p, c in row["hlo_phases"].items():
+        got = trace.meta["phases"][p]
+        check(got["rate"] == c["rate"] and got["intensity"] == c["intensity"],
+              f"[replay] (a) {p}: rate {got['rate']!r} / intensity "
+              f"{got['intensity']!r} from the row's costs, the row holds "
+              f"{c['rate']!r} / {c['intensity']!r}")
+    cells, verdict, wall = grid("[replay] (a)", trace)
+    diffs = {p: abs(cells[p]["gpu_ipc"] - v)
+             for p, v in row["gpu_ipc"].items()}
+    check(max(diffs.values()) <= ABL_TOL,
+          f"[replay] (a) the grid misses the committed {rep.REPLAY_BENCH} "
+          f"row: "
+          + ", ".join(f"{p} {cells[p]['gpu_ipc']:.7f}" for p in diffs)
+          + f" against {row['gpu_ipc']} (tolerance {ABL_TOL})")
+    check(verdict["kf_beats_all"] == row["kf_beats_all"],
+          f"[replay] (a) kf_beats_all {verdict['kf_beats_all']}, the row "
+          f"holds {row['kf_beats_all']}: {verdict}")
+    print(f"[replay] (a) the JAX package's serving trace rebuilt from "
+          f"BENCH_noc.json's {rep.REPLAY_BENCH} hlo_phases (rates bitwise "
+          f"the row's: prefill {trace.meta['phases']['prefill']['rate']!r}, "
+          f"decode {trace.meta['phases']['decode']['rate']!r}), 15 rows (5 "
+          f"predictors x seeds 0-2) x 120x500 in one sweep under threefry's "
+          f"original scheme: 120 B2 launches, wall {wall:.3f} s; gpu_ipc "
+          + ", ".join(f"{p} {cells[p]['gpu_ipc']:.7f}" for p in cells)
+          + f", each within {ABL_TOL} of the row (max |diff| "
+          f"{max(diffs.values()):.2e}); kf_beats_all {verdict['kf_beats_all']}"
+          f" as the row; margins {verdict['margins']}")
+    sys.stdout.flush()
+
+    # (b) the port's own trace, under the same scheme
+    t1 = time.time()
+    own = trace_adapters.hlo_serving_trace(name=source.lower())
+    t_cost = time.time() - t1
+    cells, verdict, wall = grid("[replay] (b)", own)
+    cost = "; ".join(
+        f"{p}: flops {c['flops']:.4e} bytes {c['bytes']:.4e} intensity "
+        f"{c['intensity']:.4f} rate {c['rate']:.4f} (row {r['flops']:.4e} / "
+        f"{r['bytes']:.4e} / {r['intensity']:.4f} / {r['rate']:.4f})"
+        for p, c, r in ((p, own.meta["phases"][p], row["hlo_phases"][p])
+                        for p in row["hlo_phases"]))
+    print(f"[replay] (b) the port's own serving trace (launch.op_cost on "
+          f"meta, {t_cost:.1f} s): {cost}; 15 rows x 120x500 under the "
+          f"original scheme: 120 B2 launches, wall {wall:.3f} s; gpu_ipc "
+          + ", ".join(f"{p} {c['gpu_ipc']:.7f}" for p, c in cells.items())
+          + f"; kf_beats_all {verdict['kf_beats_all']} (not gated); margins "
+          f"{verdict['margins']}")
+    sys.stdout.flush()
+
+    # (c) record -> npz -> replay, bitwise, on the card
+    ops.reset_launches()
+    failures = rep.replay_check(device=dev)
+    check(not failures, f"[replay] (c) {failures}")
+    n_c = ops.LAUNCHES["noc_fused_cycles"]
+    check(n_c == 2 * rep.CHECK_EPOCHS, f"[replay] (c) launched {ops.LAUNCHES}")
+    out["b2"] += n_c
+    traffic.unregister_workload(source)
+    print(f"[replay] (c) a {rep.CHECK_EPOCHS}-epoch {rep.CHECK_SCENARIO} "
+          f"capture -> npz -> RecordedTrace.load -> simulate: bitwise the "
+          f"direct run ({n_c} B2 launches); [replay] {time.time() - t0:.1f} s")
+    sys.stdout.flush()
+    return out
+
+
+def phase_trace(dev) -> dict:
+    """[trace] the flight-recorder renderer (benchmarks/torch_noc_trace.py)
+    on the card: its check (a probed 4-epoch capture through B3, one launch
+    an epoch and nothing else, invariants, npz round trip, both renderers)
+    and its record (probes-off B2 against probes-on B3, the steady wall
+    ratio, median of 5 calls).  Returns B2's and B3's launches."""
+    from benchmarks import torch_noc_trace as nt
+    from repro_torch.kernels.noc_cycle import ops
+
+    t0 = time.time()
+    try:
+        nt.check(device=dev)
+    except AssertionError as e:
+        fail(f"[trace] the renderer's check failed: {e}")
+    n_check = ops.LAUNCHES["noc_fused_cycles_probed"]
+    rec = nt.record(device=dev)
+    n = (1 + rec["repeats"]) * rec["n_epochs"]
+    check(rec["launches_off"] == {"noc_fused_cycles": n,
+                                  "noc_fused_cycles_probed": 0,
+                                  "noc_arbitrate": 0}
+          and rec["launches_on"] == {"noc_fused_cycles": 0,
+                                     "noc_fused_cycles_probed": n,
+                                     "noc_arbitrate": 0},
+          f"[trace] record launched {rec['launches_off']} probes off, "
+          f"{rec['launches_on']} on, expected {n} of B2 then of B3")
+    print(f"[trace] renderer check on the card ({n_check} B3 launches, "
+          f"ASCII above); "
+          f"probe overhead B3/B2 steady {rec['probe_overhead_steady']}x (off "
+          f"{rec['steady_off_s'] * 1e3:.2f} ms, on "
+          f"{rec['steady_on_s'] * 1e3:.2f} ms per {rec['n_epochs']}x"
+          f"{rec['epoch_len']} run, median of {rec['repeats']}); digest "
+          f"{rec['probe_summary']}; [trace] {time.time() - t0:.1f} s")
+    sys.stdout.flush()
+    return {"b2": n, "b3": n + n_check}
+
+
 def phase_b4(dev):
     """B4 against its plain version, then the fleet path through B4."""
     import torch
@@ -1535,22 +1702,11 @@ def phase_serve_w(dev):
     del params
     torch.cuda.empty_cache()
 
-    def cpu_side():
-        t1 = time.time()
-        on_cpu = run(cpu_params, "cpu")
-        errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
-        worst = max(errs, key=errs.get)
-        check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
-        print(f"[serve-w] llama3.2-3b full width (d_model 3072, 24/8 heads, "
-              f"d_ff 8192, vocab 128,256), 2 layers: prefill 256 tokens + 2 "
-              f"decode steps, card (B5, bf16 cuBLAS) vs CPU (plain) relative "
-              f"L2 worst {errs[worst]:.3e} ({worst}; bound 1e-2), all: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-              + f"; card {t_card:.1f} s, CPU {time.time() - t1:.1f} s (on "
-              f"the worker thread)")
-        sys.stdout.flush()
-
-    return cpu_side
+    return functools.partial(
+        twin_cpu_side, "[serve-w]",
+        "llama3.2-3b full width (d_model 3072, 24/8 heads, d_ff 8192, vocab "
+        "128,256), 2 layers: prefill 256 tokens + 2 decode steps, card (B5, "
+        "bf16 cuBLAS)", run, cpu_params, on_card, t_card, witness=False)
 
 
 def on_worker(fn):
@@ -2091,23 +2247,12 @@ def phase_serve_mw(dev):
     del params
     torch.cuda.empty_cache()
 
-    def cpu_side():
-        t1 = time.time()
-        on_cpu = run(cpu_params, "cpu")
-        errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
-        worst = max(errs, key=errs.get)
-        print(f"[serve-mw] falcon-mamba-7b full width (d_model 4096, d_inner "
-              f"8192, state 16, vocab 65,024), 2 layers: forward + prefill of "
-              f"a 300-token prompt and 2 decode steps, card (B7, bf16 cuBLAS) "
-              f"vs CPU (plain) relative L2 worst {errs[worst]:.3e} ({worst}; "
-              f"bound 1e-2), all: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-              + f"; card {t_card:.1f} s, CPU {time.time() - t1:.1f} s (on "
-              f"the worker thread)")
-        sys.stdout.flush()
-        check(errs[worst] <= 1e-2, f"card and CPU differ: {errs}")
-
-    return cpu_side
+    return functools.partial(
+        twin_cpu_side, "[serve-mw]",
+        "falcon-mamba-7b full width (d_model 4096, d_inner 8192, state 16, "
+        "vocab 65,024), 2 layers: forward + prefill of a 300-token prompt "
+        "and 2 decode steps, card (B7, bf16 cuBLAS)", run, cpu_params,
+        on_card, t_card, witness=False)
 
 
 def phase_fwd_z(dev, params, cfg):
@@ -2275,55 +2420,34 @@ def phase_serve_zw(dev):
     t_card = time.time() - t0
     del params
     torch.cuda.empty_cache()
-    return functools.partial(_serve_zw_cpu_side, cfg, cpu_params, toks, steps,
-                             on_card, tr_card, counts, t_card)
+    traces = []   # the CPU runs' block traces: the plain run, the witness
 
+    def run(p, device):
+        seen, trace = hybrid_run(p, toks, steps, cfg, device)
+        traces.append(trace)
+        return seen
 
-def _serve_zw_cpu_side(cfg, cpu_params, toks, steps, on_card, tr_card, counts,
-                       t_card):
-    """`phase_serve_zw`'s CPU run, its witness where the card misses 1e-2,
-    and the comparison with the card's."""
-    t1 = time.time()
-    on_cpu, tr_cpu = hybrid_run(cpu_params, toks, steps, cfg, "cpu")
-    t_cpu = time.time() - t1
-    errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
-    worst = max(errs, key=errs.get)
-    bound = 1e-2
-    print(f"[serve-zw] zamba2-2.7b full width (d_model 2560, d_inner 5120, "
-          f"80 ssm heads of 64, state 64, shared block 32/32 heads of 80, "
-          f"d_ff 10240, vocab 32,000), 6 mamba2 layers + the shared block: "
-          f"forward + prefill of a 300-token prompt (chunks 256 + 44) and 2 "
-          f"decode steps, card (B7, B5, bf16 cuBLAS; {counts['mamba_fused']} "
-          f"B7 and {counts['flash_attn']} B5 launches in forward + prefill) "
-          f"vs CPU (plain) relative L2 worst {errs[worst]:.3e} ({worst}), "
-          f"all: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; card {t_card:.1f} s, CPU {t_cpu:.1f} s")
-    sys.stdout.flush()
-    if errs[worst] > bound:
+    def per_block(on_cpu, witness):
         # where the card and the CPU part ways, beside the CPU's own drift
         # between its bf16 GEMMs (the card's form) and its f32 ones
-        with card_gemms():
-            witness_run, tr_w = hybrid_run(cpu_params, toks, steps, cfg,
-                                           "cpu")
         names = [f"mamba2 {i}" for i in range(cfg.n_layers)] + [
             "shared", "logits"]
         logits = "logits prefill"
         for n, c, p, w in zip(names, tr_card + [on_card[logits]],
-                              tr_cpu + [on_cpu[logits]],
-                              tr_w + [witness_run[logits]]):
+                              traces[0] + [on_cpu[logits]],
+                              traces[1] + [witness[logits]]):
             print(f"[serve-zw] after {n}: card vs CPU {rel_l2(c, p):.3e}, "
                   f"witness (CPU bf16 GEMMs vs f32) {rel_l2(w, p):.3e}")
-        w_errs = {k: rel_l2(witness_run[k], on_cpu[k]) for k in on_cpu}
-        w_worst = max(w_errs, key=w_errs.get)
-        bound = max(bound, 1.5 * w_errs[w_worst])
-        print(f"[serve-zw] witness over the same fields: worst "
-              f"{w_errs[w_worst]:.3e} ({w_worst}); bound max(1e-2, 1.5 x "
-              f"witness) = {bound:.3e}")
-    check(errs[worst] <= bound, f"[serve-zw] card and CPU differ: worst "
-                                f"{errs[worst]:.3e} ({worst}) > {bound:.3e}")
-    print(f"[serve-zw] card vs CPU worst {errs[worst]:.3e} within bound "
-          f"{bound:.3e} (the CPU side on the worker thread)")
-    sys.stdout.flush()
+
+    return functools.partial(
+        twin_cpu_side, "[serve-zw]",
+        f"zamba2-2.7b full width (d_model 2560, d_inner 5120, 80 ssm heads "
+        f"of 64, state 64, shared block 32/32 heads of 80, d_ff 10240, vocab "
+        f"32,000), 6 mamba2 layers + the shared block: forward + prefill of "
+        f"a 300-token prompt (chunks 256 + 44) and 2 decode steps, card (B7, "
+        f"B5, bf16 cuBLAS; {counts['mamba_fused']} B7 and "
+        f"{counts['flash_attn']} B5 launches in forward + prefill)",
+        run, cpu_params, on_card, t_card, on_witness=per_block)
 
 
 def moe_desc(cfg) -> str:
@@ -2563,59 +2687,55 @@ def phase_serve_moe_w(dev, tag, params, cfg):
         check(bool(torch.isfinite(v.float()).all()),
               f"{tag} non-finite {k} on the card")
     t_card = time.time() - t0
-    t1 = time.time()
-    on_cpu, r_cpu = moe_run(cpu_params, toks, steps, cfg, "cpu")
-    t_cpu = time.time() - t1
-    errs, apart = logits_apart(on_card, on_cpu, r_card, r_cpu)
+    n_moe = fa_ops.LAUNCHES["flash_attn"]
+
+    def run(p, device):
+        return moe_run(p, toks, steps, cfg, device)
+
+    seen_apart = []   # the tokens left out: card vs CPU, then the witness
+
+    def distance(a, b):   # the logits over the tokens whose routes agree
+        errs, apart = logits_apart(a[0], b[0], a[1], b[1])
+        seen_apart.append(apart)
+        return errs
+
+    def routes_differ(cpu):   # a differing choice calls the witness
+        return any(bool((c.expert != p.expert).any())
+                   for c, p in zip(r_card, cpu[1]))
+
+    drift = []
+
+    def on_witness(cpu, witness):
+        drift.extend(float((w.probs - p.probs).abs().max())
+                     for w, p in zip(witness[1], cpu[1]))
+        print(f"{tag} witness: tokens routed apart: "
+              + ", ".join(f"{k} {v}" for k, v in seen_apart[1].items())
+              + "; router probability drift per MoE call: "
+              + ", ".join(f"{d:.2e}" for d in drift))
+
+    (on_cpu, r_cpu), _ = twin_cpu_side(
+        tag, f"{cfg.name} full width ({moe_desc(cfg)}), {cfg.n_layers} "
+        f"layers ({gb:.1f} GB): forward + prefill of a 300-token prompt and "
+        f"2 decode steps, card (B5, bf16 cuBLAS; {n_moe} B5 launches), the "
+        f"logits over the tokens whose routes agree", run, cpu_params,
+        (on_card, r_card), t_card, distance=distance,
+        want_witness=routes_differ, on_witness=on_witness)
+    apart = seen_apart[0]
     all_rows = {k: rel_l2(on_card[k], on_cpu[k]) for k in apart}
-    worst = max(errs, key=errs.get)
-    n_diff = sum(int((c.expert != p.expert).sum())
-                 for c, p in zip(r_card, r_cpu))
-    print(f"{tag} {cfg.name} full width ({moe_desc(cfg)}), {cfg.n_layers} "
-          f"layers ({gb:.1f} GB): forward + prefill of a 300-token prompt "
-          f"and 2 decode steps, card (B5, bf16 cuBLAS; "
-          f"{fa_ops.LAUNCHES['flash_attn']} B5 launches) vs CPU (plain) "
-          f"relative L2 worst {errs[worst]:.3e} ({worst}), all: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + "; tokens routed apart, left out of the logits: "
+    n, flips, moved, ratio = route_check(r_card, r_cpu,
+                                         drift or [None] * len(r_cpu))
+    print(f"{tag} tokens routed apart, left out of the logits: "
           + ", ".join(f"{k} {v}" for k, v in apart.items())
           + " (over all tokens: "
           + ", ".join(f"{k} {v:.2e}" for k, v in all_rows.items())
-          + f"); {len(r_cpu)} MoE calls, {n_diff} expert choices differ; "
-          f"host free {mem['MemAvailable']:.1f} of {mem['MemTotal']:.1f} GB "
-          f"before the CPU copy ({t_copy:.1f} s); card {t_card:.1f} s, CPU "
-          f"{t_cpu:.1f} s")
-    sys.stdout.flush()
-    bound = 1e-2
-    drift = [None] * len(r_cpu)
-    if n_diff or errs[worst] > bound:
-        t1 = time.time()
-        with card_gemms():
-            witness_run, r_w = moe_run(cpu_params, toks, steps, cfg, "cpu")
-        drift = [float((w.probs - p.probs).abs().max())
-                 for w, p in zip(r_w, r_cpu)]
-        w_errs, w_apart = logits_apart(witness_run, on_cpu, r_w, r_cpu)
-        w_worst = max(w_errs, key=w_errs.get)
-        if errs[worst] > bound:
-            bound = max(bound, 1.5 * w_errs[w_worst])
-        print(f"{tag} witness (CPU bf16 GEMMs vs f32, {time.time() - t1:.1f} "
-              f"s): worst {w_errs[w_worst]:.3e} ({w_worst}), all: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in w_errs.items())
-              + "; tokens routed apart: "
-              + ", ".join(f"{k} {v}" for k, v in w_apart.items())
-              + "; router probability drift per MoE call: "
-              + ", ".join(f"{d:.2e}" for d in drift)
-              + f"; bound {bound:.3e}")
-    n, flips, moved, ratio = route_check(r_card, r_cpu, drift)
-    check(errs[worst] <= bound, f"{tag} card and CPU differ: worst "
-                                f"{errs[worst]:.3e} ({worst}) > {bound:.3e}")
-    print(f"{tag} routes: {n} over {len(r_cpu)} MoE calls, {flips} expert "
+          + f"); routes: {n} over {len(r_cpu)} MoE calls, {flips} expert "
           f"choices differ on the card"
           + (f" (each a near-tie: the CPU's margin at most {ratio:.2f} x the "
              f"witness's drift), {moved} positions moved by them"
              if flips else "")
-          + f", every other position and keep mask equal; card vs CPU worst "
-          f"{errs[worst]:.3e} within bound {bound:.3e}")
+          + f", every other position and keep mask equal; host free "
+          f"{mem['MemAvailable']:.1f} of {mem['MemTotal']:.1f} GB before the "
+          f"CPU copy ({t_copy:.1f} s)")
     sys.stdout.flush()
     del cpu_params, on_card, on_cpu
     torch.cuda.empty_cache()
@@ -3856,36 +3976,59 @@ def n_params(params) -> int:
     return sum(t.numel() for _, t in tree_leaves(params))
 
 
-def twin_cpu_side(tag, desc, run, cpu_params, on_card, t_card):
+def twin_cpu_side(tag, desc, run, cpu_params, on_card, t_card, *,
+                  witness=True, distance=None, want_witness=None,
+                  on_witness=None):
     """A serving twin's CPU run (``run(cpu_params, "cpu")``: {field:
-    tensor on the CPU}) against the card's fields, relative L2 within
-    1e-2; where the card misses, the witness (the CPU's bf16 GEMMs against
-    its f32 ones over the same fields) runs, and the bound is max(1e-2,
-    1.5 x its worst field)."""
+    tensor on the CPU}) against the card's output ``on_card``: relative L2
+    per field within 1e-2 (``distance(on_card, on_cpu)`` gives the
+    {field: distance} when the run's output is not such a dict).  With
+    ``witness``, where the card misses (or where ``want_witness(on_cpu)``
+    asks), the witness runs: the same run under the card's GEMM forms (the
+    CPU's bf16 products against its f32 ones), measured the same way over
+    the same fields; on a miss the bound becomes max(1e-2, 1.5 x its worst
+    field), and ``on_witness(on_cpu, witness_out)`` prints more about it.
+    Without ``witness`` the bound stays a flat 1e-2.  Returns (on_cpu,
+    witness_out or None)."""
+    import threading
+
+    def rel(a, b):
+        return {k: rel_l2(a[k], b[k]) for k in b}
+
+    distance = distance or rel
     t1 = time.time()
     on_cpu = run(cpu_params, "cpu")
     t_cpu = time.time() - t1
-    errs = {k: rel_l2(on_card[k], on_cpu[k]) for k in on_cpu}
+    errs = distance(on_card, on_cpu)
     worst = max(errs, key=errs.get)
     bound = 1e-2
-    if errs[worst] > bound:
+    missed = errs[worst] > bound
+    w_out = None
+    if witness and (missed or (want_witness and want_witness(on_cpu))):
+        t1 = time.time()
         with card_gemms():
-            witness = run(cpu_params, "cpu")
-        w_errs = {k: rel_l2(witness[k], on_cpu[k]) for k in on_cpu}
+            w_out = run(cpu_params, "cpu")
+        w_errs = distance(w_out, on_cpu)
         w_worst = max(w_errs, key=w_errs.get)
-        bound = max(bound, 1.5 * w_errs[w_worst])
-        print(f"{tag} witness (CPU bf16 GEMMs vs f32) over the same fields: "
-              f"worst {w_errs[w_worst]:.3e} ({w_worst}); bound max(1e-2, "
-              f"1.5 x witness) = {bound:.3e}; all: "
+        if missed:
+            bound = max(bound, 1.5 * w_errs[w_worst])
+        print(f"{tag} witness (CPU bf16 GEMMs vs f32, {time.time() - t1:.1f} "
+              f"s) over the same fields: worst {w_errs[w_worst]:.3e} "
+              f"({w_worst}); bound max(1e-2, 1.5 x witness) on a miss, now "
+              f"{bound:.3e}; all: "
               + ", ".join(f"{k} {v:.2e}" for k, v in w_errs.items()))
+        if on_witness:
+            on_witness(on_cpu, w_out)
     check(errs[worst] <= bound, f"{tag} card and CPU differ: worst "
                                 f"{errs[worst]:.3e} ({worst}) > {bound:.3e}")
+    where = ("" if threading.current_thread() is threading.main_thread()
+             else " (on the worker thread)")
     print(f"{tag} {desc}: card vs CPU (plain) relative L2 worst "
           f"{errs[worst]:.3e} ({worst}; bound {bound:.3e}), all: "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f"; card {t_card:.1f} s, CPU {t_cpu:.1f} s (on the worker "
-          f"thread)")
+          + f"; card {t_card:.1f} s, CPU {t_cpu:.1f} s{where}")
     sys.stdout.flush()
+    return on_cpu, w_out
 
 
 def profiled(fn, what: str, tokens: int) -> str:
@@ -4818,6 +4961,11 @@ def main() -> int:
     swp = phase_sweep(dev)
     # ---- the named fault and placement scenarios through sweep
     scen = phase_scen(dev)
+    stamp("[scen]", t_start)
+    # ---- replayed serving traces through the predictor grid, and the
+    # flight-recorder renderer
+    rpl = phase_replay(dev)
+    trc = phase_trace(dev)
     stamp("the NoC paths", t_start)
 
     # ---- the fleet path (B4) and the serving path (B5)
@@ -4915,7 +5063,8 @@ def main() -> int:
         dict(name="noc_fused_cycles", route="cuda",
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
              replaces="src/repro/kernels/noc_cycle/kernel.py:114",
-             launches=b2_launches + swp["launches"] + scen["b2"],
+             launches=(b2_launches + swp["launches"] + scen["b2"]
+                       + rpl["b2"] + trc["b2"]),
              max_abs_err=max(b2_err, swp["b2_err"]),
              ms=b2_ms,
              plain_ms=b2_plain_ms, bound_ms=bm2, bound_by=by2,
@@ -4923,7 +5072,8 @@ def main() -> int:
         dict(name="noc_fused_cycles_probed", route="cuda",
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
              replaces="src/repro/kernels/noc_cycle/kernel.py:152",
-             launches=b3_launches + scen["b3"], max_abs_err=b3_err,
+             launches=b3_launches + scen["b3"] + trc["b3"],
+             max_abs_err=b3_err,
              ms=b3_ms,
              plain_ms=b3_plain_ms, bound_ms=bm3, bound_by=by3,
              library_ms=None),

@@ -173,14 +173,15 @@ def _dispatch(xg: Tensor, slots: Tensor, tokens: Tensor, e: int,
 def _experts(p, xe: Tensor, cfg: ModelConfig, r: Routes) -> Tensor:
     """The expert MLPs on their slots: xe (E, M, D) -> (E, M, D) in xe's
     type.  On the CPU only the experts that hold a kept route of ``r`` are
-    computed (every slot of the others is empty, so zero)."""
+    computed (every slot of the others is empty, so zero); on the meta
+    device, where no route can be read, every expert is, as on the card."""
     act = layers.silu if cfg.act == "silu" else layers.gelu_tanh
 
     def mlp(x, wi, wg, wo):
         return layers.matmul(act(layers.matmul(x, wi))
                              * layers.matmul(x, wg), wo)
 
-    if xe.is_cuda:
+    if xe.is_cuda or xe.is_meta:
         return mlp(xe, p["wi"], p["wg"], p["wo"])
     out = torch.zeros_like(xe)
     for i in r.expert[r.keep].unique().tolist():

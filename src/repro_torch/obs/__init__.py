@@ -7,8 +7,14 @@
   * recorder.py — `TraceRecorder`: captures the per-epoch demand rows of a
                   run as a replayable `traffic.RecordedTrace`, optionally
                   stamped with the observed `SimTrace` digest.
+  * ledger.py   — provenance stamps (git sha, card name, config hash) and
+                  the bench-row schema check; no append path yet.
+  * profiling.py — torch.profiler sessions behind the torch figure
+                  drivers' ``--profile DIR`` flag.
 """
+from repro_torch.obs import ledger, profiling
 from repro_torch.obs.probes import SimTrace, summarize_trace
 from repro_torch.obs.recorder import TraceRecorder, capture_demand
 
-__all__ = ["SimTrace", "summarize_trace", "TraceRecorder", "capture_demand"]
+__all__ = ["SimTrace", "summarize_trace", "TraceRecorder", "capture_demand",
+           "ledger", "profiling"]
