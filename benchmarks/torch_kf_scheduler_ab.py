@@ -6,7 +6,9 @@ the KF predicts decode pressure and switches the token-budget split and
 interleave pattern (50/50 P,D <-> 75/25 P,P,D) under the paper's
 hysteresis rules.  Reports TTFT, latency and throughput (on the Engine's
 virtual clock) for the rr, static and kf modes on a bursty workload, with
-the smoke config of the model and random weights from a seeded generator.
+the smoke config of the model and random weights from a seeded generator
+(on the card with its heads widened to one B5 is built for:
+`launch.train.smoke_config`).
 
     PYTHONPATH=src python3 benchmarks/torch_kf_scheduler_ab.py
         [--arch llama3.2-3b] [--requests 48] [--seed 0] [--device cpu]
@@ -19,8 +21,8 @@ import argparse
 
 import torch
 
-import repro_torch.configs as configs
 from repro_torch._util import resolve_device
+from repro_torch.launch.train import smoke_config
 from repro_torch.models import lm
 from repro_torch.serve import batching
 from repro_torch.serve.engine import Engine, EngineConfig
@@ -31,7 +33,7 @@ MODES = ("rr", "static", "kf")
 def run(arch: str = "llama3.2-3b", n_requests: int = 48, seed: int = 0,
         device=None) -> dict:
     dev = resolve_device(device)
-    cfg = configs.smoke(arch)
+    cfg = smoke_config(arch, dev)
     params = lm.make_lm(torch.Generator(device=dev).manual_seed(0), cfg)
     wl = batching.WorkloadConfig(
         n_requests=n_requests, mean_prompt=40, mean_gen=10,

@@ -97,6 +97,21 @@ build/repro_torch/), then runs, each phase failing the script on error:
      other, invariants, npz round trip, ASCII and CSV) and its record, the
      probes-on (B3) over probes-off (B2) steady wall ratio of an 8 x 100
      run, median of 5;
+  [bench] the port's benchmark drivers, each against a ledger in a temp
+     dir: (a) benchmarks/torch_bench_sweep.py's smoke grid (4 points x 4 x
+     50 cycles; serial arms on "ref", the batched arm on "fused"), the
+     batched rows bitwise the serial rows, exactly one B2 launch an epoch,
+     the row appended through the ledger and stamped with the card's
+     name; (b) torch_bench_fleet_kf.py at n = 64 and 1024 (one B4 launch
+     an epoch); (c) torch_kernels_bench.main(["--record", ...]): B5 f32,
+     B6, B4 at three sizes, B1 on the (4, 36) lanes and B2 through
+     simulate, each held against its plain version (2e-5 for B5 in f32,
+     bitwise for the others) before it is timed; (d) torch_check_bench
+     --grid smoke over that ledger, exit 0; (e) the one-card dry run
+     (repro_torch.launch.dryrun, meta tensors) of llama3.2-3b's decode_32k
+     and train_4k cells at its published config, rendered by
+     torch_roofline_table.py; the phase's launches go onto the kernels
+     line;
   [B4] the KF bank kernel (kf_bank) against its plain version, bitwise,
      at n = 7 ... 1,048,576 filters and M = 3, 5 observations, in its step
      form and its epoch form (the boost signal fused in, against
@@ -1390,6 +1405,156 @@ def phase_trace(dev) -> dict:
           f"{rec['probe_summary']}; [trace] {time.time() - t0:.1f} s")
     sys.stdout.flush()
     return {"b2": n, "b3": n + n_check}
+
+
+def all_counts() -> dict:
+    """Every kernel's launch count, keyed by its counter's name."""
+    from repro_torch.kernels.kf_bank import ops as kf_ops
+    from repro_torch.kernels.noc_cycle import ops
+
+    return {**ops.LAUNCHES, **kf_ops.LAUNCHES, **counts()}
+
+
+def reset_all_counts() -> None:
+    from repro_torch.kernels.kf_bank import ops as kf_ops
+    from repro_torch.kernels.noc_cycle import ops
+
+    ops.reset_launches()
+    kf_ops.reset_launches()
+    reset_counts()
+
+
+BENCH_ARCH = "llama3.2-3b"
+BENCH_CELLS = ("decode_32k", "train_4k")
+# torch_kernels_bench's entries (by name prefix) and the counter of the
+# kernel each one runs
+BENCH_KERNELS = (("flash_attn_512", "flash_attn"),
+                 ("mamba_scan_256", "mamba_scan"), ("kf_bank", "kf_bank"),
+                 ("noc_arb_lanes", "noc_arbitrate"),
+                 ("noc_cycle_fused", "noc_fused_cycles"))
+
+
+def phase_bench(dev) -> dict:
+    """[bench] the port's benchmark drivers on the card, each against a
+    ledger in a temp dir: (a) the sweep bench's smoke grid
+    (torch_bench_sweep: serial arms on "ref", the batched arm on "fused"),
+    its batched rows bitwise the serial rows, exactly one B2 launch an
+    epoch, its row appended; (b) the fleet bench at its sizes, one B4
+    launch an epoch; (c) torch_kernels_bench.main(["--record"]), every
+    kernel held against its plain version inside it; (d) torch_check_bench
+    --grid smoke over that ledger, exit 0; (e) the one-card dry run of
+    llama3.2-3b's decode_32k and train_4k cells at its published config
+    (meta tensors, nothing on the card; one process a cell, beside (a)-(d)),
+    rendered by the roofline table.  Returns the launches of the phase by counter, and the kernels'
+    largest errors against their plain versions in (c)."""
+    from benchmarks import torch_roofline_table
+    from repro_torch.launch import dryrun
+
+    t0 = time.time()
+    reset_all_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (e) first, beside the rest: the dry run touches no card (meta
+        # tensors), one process a cell
+        out = os.path.join(tmp, "dryrun")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(HERE, "src"), HERE]))
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             BENCH_ARCH, "--shape", shape, "--out", out], cwd=HERE, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for shape in BENCH_CELLS]
+        try:
+            errs = bench_drivers(dev, tmp)
+            te = time.time()
+            for shape, proc in zip(BENCH_CELLS, procs):
+                log, _ = proc.communicate(timeout=300)
+                check(proc.returncode == 0,
+                      f"[bench] (e) dry run of {shape} exited "
+                      f"{proc.returncode}: {log[-2000:]}")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for shape in BENCH_CELLS:
+            with open(os.path.join(out, dryrun.record_name(BENCH_ARCH,
+                                                           shape))) as f:
+                r = json.load(f)
+            check(r["status"] == "ok",
+                  f"[bench] (e) dry run of {shape}: {r.get('error')}")
+            print(f"[bench] (e) {dryrun.summary(r)} build={r['build_s']}s")
+        shown = torch_roofline_table.main(["--results", out])
+        check(len(shown) == len(BENCH_CELLS),
+              f"[bench] (e) the roofline table rendered {len(shown)} rows")
+        print(f"[bench] (e) dry run beside (a)-(d), waited "
+              f"{time.time() - te:.1f} s after them")
+    got = all_counts()
+    print(f"[bench] launches {json.dumps(got, sort_keys=True)}; [bench] "
+          f"{time.time() - t0:.1f} s")
+    sys.stdout.flush()
+    for name in ("noc_fused_cycles", "noc_arbitrate", "kf_bank",
+                 "flash_attn", "mamba_scan"):
+        check(got[name] > 0, f"[bench] launched no {name}")
+    return got, errs
+
+
+def bench_drivers(dev, tmp) -> dict:
+    """[bench] (a)-(d) against the ledger tmp/BENCH_noc_torch.json; returns
+    (c)'s largest error against the plain version, by kernel counter."""
+    import torch
+
+    from benchmarks import (torch_bench_fleet_kf, torch_bench_sweep,
+                            torch_check_bench, torch_kernels_bench)
+    from repro_torch.obs import ledger
+
+    bench = os.path.join(tmp, "BENCH_noc_torch.json")
+    ta = time.time()
+    rec = torch_bench_sweep.run(smoke=True, device=dev)
+    check(rec["batched_bitwise_serial"] is True
+          and rec["batched_launches_per_epoch"] == 1,
+          f"[bench] (a) sweep row {rec}: expected bitwise rows and one B2 "
+          f"launch an epoch")
+    rec = torch_bench_sweep.append_record(rec, bench)
+    check(rec["device_kind"] == torch.cuda.get_device_name(0),
+          f"[bench] (a) row stamped {rec['device_kind']!r}")
+    print(f"[bench] (a) sweep smoke grid ({rec['grid']['n_points']} points "
+          f"x {rec['grid']['n_epochs']} x {rec['grid']['epoch_len']}): "
+          f"batched fused rows bitwise the serial ref rows, "
+          f"{rec['batched_launches_per_epoch']:g} B2 launch an epoch; serial "
+          f"{rec['serial_total_s']} / steady {rec['serial_steady_s']} s, "
+          f"batched {rec['batched_total_s']} / {rec['batched_steady_s']} s: "
+          f"{rec['speedup_end_to_end']}x end to end, "
+          f"{rec['speedup_steady']}x steady; appended, stamped "
+          f"{rec['device_kind']!r} ({time.time() - ta:.1f} s)")
+    tb = time.time()
+    points = torch_bench_fleet_kf.run(device=dev)
+    check(all(p["b4_launches"] == p["iters"] for p in points),
+          f"[bench] (b) fleet bench launched B4 {points}")
+    print("[bench] (b) fleet: " + "; ".join(
+        f"n {p['n_filters']}: {p['epoch_us']} us an epoch, "
+        f"{p['b4_launches']} B4 launches" for p in points)
+        + f" ({time.time() - tb:.1f} s)")
+    tc = time.time()
+    rows = torch_kernels_bench.main(["--record", "--bench-json", bench])
+    errs = {}
+    for row in rows:
+        kern = next(k for p, k in BENCH_KERNELS if row["name"].startswith(p))
+        errs[kern] = max(errs.get(kern, 0.0), row["max_abs_err"])
+    print(f"[bench] (c) kernel micro-benches: {len(rows)} entries, each held "
+          f"against its plain version ({time.time() - tc:.1f} s)")
+    td = time.time()
+    rc = torch_check_bench.main(["--grid", "smoke", "--bench-json", bench])
+    check(rc == 0, f"[bench] (d) torch_check_bench exited {rc}")
+    with open(bench) as f:
+        written = json.load(f)
+    check([r["bench"] for r in written]
+          == ["noc_sweep_serial_vs_batched", "noc_cycle_kernels"]
+          and not any(ledger.validate_row(r) for r in written),
+          f"[bench] ledger holds {[r['bench'] for r in written]}")
+    print(f"[bench] (d) torch_check_bench --grid smoke over the temp ledger: "
+          f"exit 0 ({time.time() - td:.1f} s)")
+    sys.stdout.flush()
+    return errs
 
 
 def phase_b4(dev):
@@ -4966,6 +5131,8 @@ def main() -> int:
     # flight-recorder renderer
     rpl = phase_replay(dev)
     trc = phase_trace(dev)
+    # ---- the benchmark drivers, the port's ledger and its gate, the dry run
+    bench, bench_err = phase_bench(dev)
     stamp("the NoC paths", t_start)
 
     # ---- the fleet path (B4) and the serving path (B5)
@@ -5048,7 +5215,15 @@ def main() -> int:
     b5["launches"] += b5_e
     b5b["launches"] += b5b_e
 
-    # ---- phase 6: the kernels line
+    # ---- phase 6: the kernels line; [bench]'s launches and its kernel
+    # micro-benches' errors added to B1, B2, B4, B5 and B6
+    b1_launches += bench["noc_arbitrate"]
+    b1_err = max(b1_err, bench_err["noc_arbitrate"])
+    b2_err = max(b2_err, bench_err["noc_fused_cycles"])
+    for entry, counter in ((b4, "kf_bank"), (b5, "flash_attn"),
+                           (b6, "mamba_scan")):
+        entry["launches"] += bench[counter]
+        entry["max_abs_err"] = max(entry["max_abs_err"], bench_err[counter])
     nb2, op2 = b2_bound(d, 500)
     nb3, op3 = b3_bound(d, 500)
     bm2, by2 = bound_ms(nb2, op2)
@@ -5064,7 +5239,7 @@ def main() -> int:
              source="src/repro_torch/kernels/noc_cycle/csrc/noc_cycle.cu",
              replaces="src/repro/kernels/noc_cycle/kernel.py:114",
              launches=(b2_launches + swp["launches"] + scen["b2"]
-                       + rpl["b2"] + trc["b2"]),
+                       + rpl["b2"] + trc["b2"] + bench["noc_fused_cycles"]),
              max_abs_err=max(b2_err, swp["b2_err"]),
              ms=b2_ms,
              plain_ms=b2_plain_ms, bound_ms=bm2, bound_by=by2,

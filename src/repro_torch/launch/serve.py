@@ -11,7 +11,8 @@ llama4-maverick-400b-a17b``: 128 experts, top-1, a shared expert, MoE
 every second layer) with the bursty synthetic workload and prints the
 latency/throughput summary (virtual clock) for the chosen arbitration
 mode (rr | static | kf).  The model runs on the CUDA device unless ``--device``
-names another.
+names another; there the smoke config's attention heads are widened to a
+head dim the flash kernel is built for (`launch.train.smoke_config`).
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ import json
 
 import torch
 
-import repro_torch.configs as configs
 from repro_torch._util import resolve_device
+from repro_torch.launch.train import smoke_config
 from repro_torch.models import lm
 from repro_torch.serve import batching
 from repro_torch.serve.engine import Engine, EngineConfig
@@ -31,7 +32,7 @@ def run(arch: str, mode: str, n_requests: int = 48, seed: int = 0,
         max_slots: int = 8, max_len: int = 128, budget: int = 128,
         device: str | torch.device | None = None) -> dict:
     dev = resolve_device(device)
-    cfg = configs.smoke(arch)
+    cfg = smoke_config(arch, dev)
     if cfg.is_encoder_decoder:
         raise SystemExit("the serve launcher targets decoder LMs; "
                          "seamless decode is covered by the dry-run")

@@ -20,8 +20,11 @@ The abstract builders return tensors on the meta device with the shapes
 and dtypes `lm.make_lm` / `encdec.make_encdec` / `lm.init_decode_state`
 give: nothing is allocated and nothing is drawn (a random op on a meta
 tensor only sets its shape).  A step run on them executes nothing either,
-which is what `launch.op_cost` counts.  `param_specs` and `decode_specs`
-(the sharding rules) belong to the distributed slice and are not here.
+which is what `launch.op_cost` counts.  `abstract_train_state` is the
+one-card form of the reference's: the state alone, with no error-feedback
+residuals and no spec tree.  `param_specs`, `decode_specs` and the spec
+tree (the sharding rules) belong to the distributed slice and are not
+here.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.models import encdec, lm
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt_lib
+from repro_torch.train import step as step_lib
 
 META = torch.device("meta")
 
@@ -100,6 +104,16 @@ def abstract_params(cfg: ModelConfig) -> dict:
     tensors."""
     make = encdec.make_encdec if cfg.is_encoder_decoder else lm.make_lm
     return make(_MetaGenerator(), cfg)
+
+
+def abstract_train_state(cfg: ModelConfig,
+                         opt_cfg: opt_lib.OptimizerConfig
+                         ) -> step_lib.TrainState:
+    """The `TrainState` `train.step.init_train_state` builds (parameters
+    and zero moments), as meta tensors.  The reference also returns the
+    state's spec tree and may add residual buckets; on one card there is
+    neither."""
+    return step_lib.init_train_state(_MetaGenerator(), cfg, opt_cfg)
 
 
 def abstract_decode_inputs(cfg: ModelConfig, cell: ShapeCell):

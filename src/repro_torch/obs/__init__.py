@@ -7,8 +7,9 @@
   * recorder.py — `TraceRecorder`: captures the per-epoch demand rows of a
                   run as a replayable `traffic.RecordedTrace`, optionally
                   stamped with the observed `SimTrace` digest.
-  * ledger.py   — provenance stamps (git sha, card name, config hash) and
-                  the bench-row schema check; no append path yet.
+  * ledger.py   — provenance stamps (git sha, card name, config hash),
+                  the bench-row schema check and `append`, the one write
+                  path of the port's BENCH_noc_torch.json.
   * profiling.py — torch.profiler sessions behind the torch figure
                   drivers' ``--profile DIR`` flag.
 """

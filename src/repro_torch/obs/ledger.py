@@ -1,10 +1,24 @@
-"""The pure half of the run ledger: provenance stamps and the row schema.
+"""The port's run ledger: the single append path for BENCH_noc_torch.json.
 
-`git_sha`, `config_hash`, `run_stamp` and `validate_row` are the JAX
-package's (`device_kind` names the CUDA card, or "cpu").  The append path
-that writes BENCH_noc.json is not here: that file holds the JAX package's
-rows, and the port's drivers print their rows as JSON and append nowhere
-until the port has a ledger file of its own.
+Every row the port's drivers record (`benchmarks/torch_bench_sweep.py`'s
+`append_record`, which the other torch drivers import) goes through
+`append`, which
+
+  * stamps the row with provenance (`ledger_version`, `git_sha`,
+    `device_kind`: the CUDA card's name, or "cpu") on top of the fields
+    the bench recorded (`bench`, `timestamp`, `backend`, ...);
+  * validates the row against the schema below and refuses to write a
+    malformed one;
+  * appends to the JSON array at its path AND mirrors the row as one
+    JSONL line to LEDGER_noc_torch.jsonl beside it (gitignored), through
+    a temp file and `os.replace`.
+
+The port's ledger is a file of its own, BENCH_noc_torch.json at the root
+of the repository: BENCH_noc.json holds the JAX package's rows and the
+port never writes it.  `git_sha`, `config_hash`, `run_stamp`,
+`validate_row` and the append path are the JAX package's.
+`validate_row` is also the gate `benchmarks/torch_check_bench.py` runs
+over every row.
 """
 from __future__ import annotations
 
@@ -19,8 +33,13 @@ LEDGER_VERSION = 1
 
 # Fields every bench row must carry, ledger-stamped or not.
 CORE_FIELDS = {"bench": str, "timestamp": str, "backend": str}
-# Fields a stamp adds; present on every row written through a ledger.
+# Fields `append` stamps; present on every row written through it.
 STAMP_FIELDS = {"ledger_version": int, "git_sha": str, "device_kind": str}
+# The ledger files, at the root of the repository (src/repro_torch/obs/..).
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+BENCH_PATH = os.path.join(ROOT, "BENCH_noc_torch.json")
+JSONL_NAME = "LEDGER_noc_torch.jsonl"
 
 
 def git_sha(cwd: str | None = None) -> str:
@@ -103,3 +122,63 @@ def validate_row(row: Any, stamped: bool | None = None) -> list:
                 f"({LEDGER_VERSION})"
             )
     return problems
+
+
+def jsonl_path(bench_path: str) -> str:
+    """The JSONL mirror beside the bench array at ``bench_path``."""
+    return os.path.join(os.path.dirname(os.path.abspath(bench_path)),
+                        JSONL_NAME)
+
+
+def _append_jsonl_atomic(rec: dict, path: str) -> None:
+    """Crash-safe JSONL mirror append: the existing lines plus the new one
+    are written to a temp file in the same directory and `os.replace`d over
+    the mirror, so readers see the old file or the new one, never a torn
+    line.  A torn tail line left by an earlier interrupted writer is
+    dropped rather than glued onto the new row.  One retry absorbs a
+    transient OSError."""
+    existing = ""
+    if os.path.exists(path):
+        with open(path) as f:
+            existing = f.read()
+        if existing and not existing.endswith("\n"):
+            existing = existing[:existing.rfind("\n") + 1]
+    line = json.dumps(rec, sort_keys=True) + "\n"
+    tmp = path + ".tmp"
+    for attempt in (0, 1):
+        try:
+            with open(tmp, "w") as f:
+                f.write(existing + line)
+            os.replace(tmp, path)
+            return
+        except OSError:
+            if attempt:
+                raise
+
+
+def append(rec: dict, path: str = BENCH_PATH) -> dict:
+    """Stamp, validate, and append ``rec`` to the bench array at ``path``
+    (default: the port's BENCH_noc_torch.json).
+
+    Returns the stamped record.  Raises ValueError instead of writing a
+    row that fails the schema: a malformed row would turn the
+    torch_check_bench gate red for every later run.
+    """
+    rec = dict(rec)
+    for field, value in run_stamp().items():
+        rec.setdefault(field, value)
+    problems = validate_row(rec, stamped=True)
+    if problems:
+        raise ValueError(f"ledger row rejected: {problems} in {rec!r}")
+
+    if os.path.exists(path):
+        with open(path) as f:
+            records = json.load(f)
+    else:
+        records = []
+    records.append(rec)
+    with open(path, "w") as f:
+        json.dump(records, f, indent=2)
+        f.write("\n")
+    _append_jsonl_atomic(rec, jsonl_path(path))
+    return rec
